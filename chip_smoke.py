@@ -1,0 +1,449 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``cvpytorch_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+1. Builds every kernel of the serving path from ``cvpytorch_tpu_torch/csrc``
+   with nvcc (sm_90a) and prints the build time.
+2. Kernel phase: ``nms_keep`` against ``nms_keep_plain`` on the card,
+   bit-exact, over B in {1, 32} and K in {1024, 1000, 300} with clustered,
+   class-offset boxes, score ties and a pair whose IoU equals the
+   threshold; then times both with CUDA events.
+3. Path phase: full-width YOLOv5-s (80 classes) with seeded random
+   weights, served at 640x640, batch 32, through
+   ``cvpytorch_tpu_torch.infer.main``; checks that the NMS kernel was
+   launched once per batch, that ``predictions.json`` is well-formed, and
+   that the detections equal those of the same model with the plain NMS
+   (TF32 off).  Times bs1 predict latency and bs32 throughput.
+
+Prints the card's name and power limit, one JSON line of kernel records,
+and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
+printing no result, without CUDA or outside a checkout of the repository.
+"""
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+BATCH = 32  # VAL BATCH_SIZE of conf/coco_yolov5_s.yml
+
+# f32 peak outside the tensor cores and HBM rate of one H100 SXM
+# (NVIDIA data sheet, 700 W)
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+# FLOPs of one IoU-and-compare: 2 max + 2 min + 2 sub + 2 clamp + mul
+# (inter), add + sub (union), add (eps), div, compare
+IOU_FLOPS = 14
+IOU_THR = 0.6  # YOLOv5's serving iou_threshold (models/yolov5.py)
+
+
+def gpu_name_and_power() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def nms_inputs(B: int, K: int, seed: int) -> np.ndarray:
+    """(B, K, 4) f32 boxes as ``batched_nms`` hands them to ``nms_keep``:
+    clustered boxes in a 640 canvas, score order with ties (scores rounded
+    to 2 decimals, stable sort), class offsets label*4096, and boxes 0 and
+    1 of every image at IoU exactly equal to the threshold (kept)."""
+    rng = np.random.RandomState(seed)
+    n_clusters = max(K // 16, 1)
+    centers = rng.rand(B, n_clusters, 2) * 600 + 20
+    which = rng.randint(0, n_clusters, (B, K))
+    c = np.take_along_axis(centers, which[..., None], 1) + rng.randn(B, K, 2) * 4
+    wh = rng.rand(B, K, 2) * 50 + 10
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
+    scores = np.round(rng.rand(B, K), 2).astype(np.float32)
+    order = np.argsort(-scores, axis=1, kind="stable")
+    boxes = np.take_along_axis(boxes, order[..., None], 1)
+    labels = rng.randint(0, 3, (B, K)).astype(np.float32)
+    # IoU(box0, box1) = 60 / (100 + 1e-7) == f32(0.6)
+    boxes[:, 0] = [100, 100, 110, 110]
+    boxes[:, 1] = [100, 100, 110, 106]
+    labels[:, :2] = 0
+    return (boxes + (labels * 4096.0)[..., None]).astype(np.float32)
+
+
+def nms_bound_ms(B: int, K: int) -> tuple[float, str]:
+    bytes_moved = B * K * 4 * 4 + B * K  # boxes in once, keep out once
+    ops = B * K * (K - 1) / 2 * IOU_FLOPS
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def build_kernels() -> float:
+    from cvpytorch_tpu_torch.ops import nms_kernel
+
+    t0 = time.perf_counter()
+    nms_kernel.load_library()
+    return time.perf_counter() - t0
+
+
+def kernel_phase() -> dict:
+    """nms_keep vs nms_keep_plain on the card, bit-exact; then timings."""
+    import torch
+
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+
+    launches_before = nms_keep.launches
+    max_err = 0
+    for B in (1, BATCH):
+        for K in (1024, 1000, 300):
+            boxes = torch.from_numpy(nms_inputs(B, K, seed=B * 7 + K)).cuda()
+            got = nms_keep(boxes, IOU_THR)
+            want = nms_keep_plain(boxes, IOU_THR)
+            torch.cuda.synchronize()
+            max_err = max(max_err, int((got.int() - want.int()).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"nms_keep != nms_keep_plain at B={B} K={K}: "
+                    f"{int((got != want).sum())} flags differ")
+            if not bool(got[:, 1].all()):
+                raise AssertionError("the IoU == thr pair was suppressed")
+            print(f"nms_keep B={B} K={K}: bit-exact, "
+                  f"kept {int(got.sum())}/{B * K}", flush=True)
+    times = {"max_abs_err": float(max_err)}
+    for B in (BATCH, 1):
+        boxes = torch.from_numpy(nms_inputs(B, 1024, seed=5)).cuda()
+        times[B] = {
+            "ms": cuda_time_ms(lambda: nms_keep(boxes, IOU_THR), iters=200),
+            "plain_ms": cuda_time_ms(lambda: nms_keep_plain(boxes, IOU_THR),
+                                     iters=5, warmup=1),
+        }
+    nms_keep.launches = launches_before  # comparison launches do not count
+    return times
+
+
+def smoke_config(workdir: Path, n_batches: int) -> Path:
+    """The flagship's serving config (conf/coco_yolov5_s.yml: USE_MODEL and
+    the VAL transforms) on SyntheticDetection at 640², 80 COCO classes,
+    written as JSON (no PyYAML needed)."""
+    text = (ROOT / "conf" / "dicts" / "coco_dict.yml").read_text()
+    names = re.findall(r"^\s*-\s*([^:\s]+):\s*([0-9.]+)\s*$", text, re.M)
+    if len(names) != 80:
+        raise AssertionError(f"expected 80 COCO classes, parsed {len(names)}")
+    dict_path = workdir / "coco_dict.json"
+    dict_path.write_text(json.dumps(
+        {"DET_CLASSES": [{n: float(w)} for n, w in names]}))
+    cfg = {
+        "EXPERIMENT_NAME": "chip_smoke_yolov5s",
+        "DATASET": {
+            "CLASS": "SyntheticDetection",
+            "DICTIONARY": str(dict_path),
+            "DICTIONARY_NAME": "DET_CLASSES",
+            "VAL": {
+                "SIZE": [640, 640], "LENGTH": BATCH * n_batches, "SEED": 0,
+                "SHUFFLE": False, "BATCH_SIZE": BATCH, "NUM_WORKER": 8,
+                "TRANSFORMS": {
+                    "Resize": {"size": [640, 640], "keep_ratio": True,
+                               "fill": [114, 114, 114]},
+                    "ToTensor": None,
+                    "Normalize": {"mean": [0, 0, 0], "std": [1, 1, 1]},
+                },
+            },
+        },
+        "USE_MODEL": {
+            "CLASS": "src.models.yolov5.YOLOv5",
+            "TYPE": "yolov5_s",
+            "BACKBONE": {"name": "YOLOv5CSPDarknet", "subtype": "cspdark_s"},
+            "NECK": {"name": "YOLOv5Neck", "subtype": "yolov5_s"},
+            "DETECT": {"name": "YOLOv5Detect"},
+            "LOSS": {"name": "YOLOv5Loss", "hyp_box": 0.05, "hyp_obj": 1.0,
+                     "hyp_cls": 0.5},
+        },
+    }
+    path = workdir / "coco_yolov5_s_synthetic.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def seeded_weights(model, seed: int, obj_bias: float = 6.0) -> None:
+    """Random weights from one torch.Generator: lecun-normal convs, BN
+    affine and running stats away from identity, and the detect layer's
+    objectness bias raised by ``obj_bias`` so that many candidates pass
+    conf_threshold and NMS has real overlaps to suppress."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in model.state_dict().items():
+            if name.endswith("num_batches_tracked"):
+                continue
+            leaf = name.rsplit(".", 1)[-1]
+            if t.dim() == 4:
+                t.copy_(torch.randn(t.shape, generator=g)
+                        / float(np.prod(t.shape[1:])) ** 0.5)
+            elif leaf in ("weight", "running_var"):
+                t.copy_(torch.rand(t.shape, generator=g) + 0.5)
+            elif name.startswith("detect."):
+                t.add_(torch.randn(t.shape, generator=g) * 0.1)
+            else:
+                t.copy_(torch.randn(t.shape, generator=g) * 0.1)
+        no = 5 + model.num_classes
+        for i in range(model.detect.n_levels):
+            getattr(model.detect, f"m{i}").bias.view(-1, no)[:, 4] += obj_bias
+
+
+def check_predictions(path: Path, n_images: int, num_classes: int) -> int:
+    preds = json.loads(path.read_text())
+    if len(preds) != n_images:
+        raise AssertionError(f"{len(preds)} predictions for {n_images} images")
+    total = 0
+    for p in preds:
+        boxes = np.asarray(p["boxes"], np.float64).reshape(-1, 4)
+        scores = np.asarray(p["scores"], np.float64)
+        labels = np.asarray(p["labels"])
+        n = len(labels)
+        if not (len(boxes) == len(scores) == n and 0 < n <= 300):
+            raise AssertionError(f"malformed prediction with {n} detections")
+        if not (np.isfinite(boxes).all() and (boxes >= 0).all()
+                and (boxes <= 640).all() and (boxes[:, 2:] >= boxes[:, :2]).all()):
+            raise AssertionError("boxes outside the 640² canvas or not xyxy")
+        if not ((scores > 0).all() and (scores <= 1).all()
+                and (np.diff(scores) <= 0).all()):
+            raise AssertionError("scores not in (0, 1] and descending")
+        if not (labels.dtype.kind == "i" and (labels >= 0).all()
+                and (labels < num_classes).all()):
+            raise AssertionError("labels not class ids")
+        total += n
+    return total
+
+
+def profile_predict(predict, images, steps: int = 3, top: int = 12) -> dict:
+    """torch.profiler over ``steps`` predict calls: device time per call by
+    kernel (the ``top`` largest) and the device's busy share of the wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    predict(images)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            predict(images)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    return {
+        "wall_ms": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share": 1 - busy_ms / wall_ms,
+        "top": [{"kernel": e.key[:90],
+                 "ms": e.self_device_time_total / 1e3 / steps,
+                 "calls": e.count / steps} for e in kernels[:top]],
+    }
+
+
+def path_phase(workdir: Path) -> dict:
+    """YOLOv5-s 640 served through ``infer.main`` on the card."""
+    import torch
+
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch.config import CommonConfiguration, load_dictionary
+    from cvpytorch_tpu_torch.data.datasets.synthetic import SyntheticDetection
+    from cvpytorch_tpu_torch.data.loader import default_collate
+    from cvpytorch_tpu_torch.data.transforms import build_transforms
+    from cvpytorch_tpu_torch.models.detects.yolov5_detect import decode_yolov5
+    from cvpytorch_tpu_torch.models.yolov5 import DEFAULT_ANCHORS, STRIDES
+    from cvpytorch_tpu_torch.ops import nms as nms_mod
+    from cvpytorch_tpu_torch.ops.nms import top_k
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+    from cvpytorch_tpu_torch.train_state import make_predict_step, prepare_images
+
+    n_batches = 3
+    setting = smoke_config(workdir, n_batches)
+    cfg = CommonConfiguration.from_file(str(setting))
+    _, dictionary = load_dictionary(cfg.DATASET.DICTIONARY, "DET_CLASSES")
+    model = infer.build_model(cfg, dictionary)
+    seeded_weights(model, seed=0)
+    ckpt = workdir / "yolov5_s_seed0.pt"
+    torch.save(model.state_dict(), ckpt)
+
+    # the main path: the infer CLI, counts read just around it.  TF32 is at
+    # PyTorch's defaults (cuDNN's on) until the CLI's predict step turns it off
+    nms_keep.launches = 0
+    t0 = time.perf_counter()
+    infer.main(["--setting", str(setting), "--checkpoint", str(ckpt),
+                "--out", str(workdir / "out")])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = nms_keep.launches
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("infer.main served with TF32 switched on")
+    if launches != n_batches:
+        raise AssertionError(f"nms_keep launched {launches} times for "
+                             f"{n_batches} batches")
+    n_dets = check_predictions(workdir / "out" / "predictions.json",
+                               BATCH * n_batches, len(dictionary))
+    print(f"infer.main: {BATCH * n_batches} images in {cli_s:.2f} s "
+          f"(host clock, includes model build and data), {n_dets} "
+          f"detections, nms_keep launches {launches}", flush=True)
+
+    # the same model on the first batch, at the precision the CLI left set
+    # (both TF32 switches off): the kernel's detections equal the plain
+    # NMS's on the same raw maps
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    stage = cfg.DATASET.VAL
+    ds = SyntheticDetection(stage, dictionary,
+                            build_transforms("DET_CLASSES", stage.TRANSFORMS),
+                            stage="infer")
+    images = torch.from_numpy(
+        default_collate([ds[i] for i in range(BATCH)])["image"]).cuda()
+    with torch.inference_mode():
+        raw = model._raw(images)
+        with_kernel = model._predict(images, raw)
+        nms_mod.nms_keep = nms_keep_plain
+        try:
+            with_plain = model._predict(images, raw)
+        finally:
+            nms_mod.nms_keep = nms_keep
+    torch.cuda.synchronize()
+    for key in ("boxes", "scores", "labels", "valid", "num"):
+        if not torch.equal(with_kernel[key], with_plain[key]):
+            raise AssertionError(f"path detections differ from plain NMS: {key}")
+    first = json.loads((workdir / "out" / "predictions.json").read_text())[0]
+    if first["labels"] != with_kernel["labels"][0][with_kernel["valid"][0]].tolist():
+        raise AssertionError("infer.main and the predict step disagree")
+    print(f"path detections with nms_keep == with nms_keep_plain "
+          f"(batch {BATCH}, {int(with_kernel['num'].sum())} detections)",
+          flush=True)
+
+    # the card against the CPU on two images (f32, TF32 off on the card)
+    cpu_model = infer.build_model(cfg, dictionary)
+    cpu_model.load_state_dict(torch.load(ckpt, weights_only=True))
+    with torch.inference_mode():
+        cpu_raw = cpu_model.eval()._raw(images[:2].cpu())
+    raw_err = max(float((a[:2].cpu() - b).abs().max()) for a, b in zip(raw, cpu_raw))
+    if not raw_err < 1e-3:
+        raise AssertionError(f"raw maps on the card vs CPU differ by {raw_err}")
+    print(f"raw maps, card vs CPU (2 images): max abs err {raw_err:.3g}")
+
+    # timings with CUDA events
+    predict = make_predict_step(model)
+    one = images[:1].contiguous()
+    bs1 = []
+    for _ in range(5):
+        predict(one)
+    for _ in range(30):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        predict(one)
+        end.record()
+        torch.cuda.synchronize()
+        bs1.append(start.elapsed_time(end))
+    bs32_ms = cuda_time_ms(lambda: predict(images), iters=10)
+    with torch.inference_mode():
+        raw_ms = cuda_time_ms(lambda: model._raw(images), iters=10)
+        post_ms = cuda_time_ms(lambda: model._predict(images, raw), iters=10)
+        # the cost of JAX's tie order: top_k over the (B, N·C) multi-label
+        # scores against torch.topk, which promises no order among ties
+        decoded = decode_yolov5(raw, DEFAULT_ANCHORS, STRIDES)
+        scores = (decoded[..., 5:] * decoded[..., 4:5]).reshape(BATCH, -1)
+        decode_ms = cuda_time_ms(
+            lambda: decode_yolov5(raw, DEFAULT_ANCHORS, STRIDES), iters=10)
+        top_k_ms = cuda_time_ms(lambda: top_k(scores, 1024), iters=10)
+        torch_topk_ms = cuda_time_ms(lambda: scores.topk(1024), iters=10)
+    # the model with TF32 convolutions (PyTorch's default), which the
+    # predict step turns off: what serving would gain from TF32
+    torch.backends.cudnn.allow_tf32 = True
+    with torch.inference_mode():
+        bs32_tf32_ms = cuda_time_ms(
+            lambda: model(prepare_images(images), mode="infer"), iters=10)
+    torch.backends.cudnn.allow_tf32 = False
+    print(json.dumps({"bs32_predict_profile": profile_predict(predict, images)}))
+    print(json.dumps({"bs1_predict_profile": profile_predict(predict, one, top=5)}))
+    return {
+        "launches": launches,
+        "bs1_predict_ms_p50": float(np.median(bs1)),
+        "bs1_predict_ms_min": float(np.min(bs1)),
+        "bs32_predict_ms": bs32_ms,
+        "bs32_images_per_s": BATCH / bs32_ms * 1e3,
+        "bs32_backbone_neck_detect_ms": raw_ms,
+        "bs32_decode_nms_ms": post_ms,
+        "bs32_decode_ms": decode_ms,
+        "bs32_multilabel_top_k_ms": top_k_ms,
+        "bs32_multilabel_torch_topk_ms": torch_topk_ms,
+        "bs32_images_per_s_tf32_convs": BATCH / bs32_tf32_ms * 1e3,
+        "infer_cli_s": cli_s,
+        "infer_cli_images": BATCH * n_batches,
+        "raw_maps_card_vs_cpu_max_abs_err": raw_err,
+    }
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    from cvpytorch_tpu_torch.ops import nms_kernel  # raises outside the repo
+
+    print("TF32: turned off by the CLI's predict step and off in every "
+          "comparison (cudnn.allow_tf32=False, cuda.matmul.allow_tf32="
+          "False); cuDNN's on only for bs32_images_per_s_tf32_convs")
+    card = gpu_name_and_power()
+    print(f"build nms_kernel: {build_kernels():.2f} s "
+          f"({nms_kernel.library_path().name})", flush=True)
+    times = kernel_phase()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        path = path_phase(Path(tmp))
+    print(json.dumps({"path": path, "card": card}))
+    bound, bound_by = nms_bound_ms(BATCH, 1024)
+    bound1, _ = nms_bound_ms(1, 1024)
+    print(json.dumps({"nms_keep_B1_K1024": {**times[1], "bound_ms": bound1}}))
+    print(json.dumps({"kernels": [{
+        "name": "nms_keep",
+        "route": "cuda",
+        "source": "cvpytorch_tpu_torch/csrc/nms_kernel.cu",
+        "replaces": "cvpytorch_tpu/ops/pallas/nms_kernel.py:23",
+        "launches": path["launches"],
+        "max_abs_err": times["max_abs_err"],
+        "ms": times[BATCH]["ms"],
+        "plain_ms": times[BATCH]["plain_ms"],
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        # no single PyTorch call computes greedy NMS here (no torchvision)
+        "library_ms": None,
+    }]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""Synthetic detection data (counterpart of ``SyntheticDetection`` in
+``cvpytorch_tpu/data/datasets/synthetic.py``): the same seeds give the same
+images and boxes as the JAX package."""
+from __future__ import annotations
+
+import numpy as np
+
+from ...registry import DATASETS
+from .base import Dataset
+
+
+@DATASETS.register(name="SyntheticDetection")
+class SyntheticDetection(Dataset):
+    """Images with coloured boxes; targets are ``{'boxes', 'labels'}``.
+    Infer-stage samples carry no target."""
+
+    def __init__(self, data_cfg=None, dictionary=None, transform=None,
+                 target_transform=None, stage="train"):
+        super().__init__(data_cfg, dictionary, transform, target_transform, stage)
+        self.length = int(getattr(data_cfg, "LENGTH", None) or 64)
+        size = getattr(data_cfg, "SIZE", None) or [128, 128]
+        self.size = tuple(size)
+        self.n_cls = max(len(self.dictionary), 2)
+        self.max_boxes = int(getattr(data_cfg, "MAX_BOXES", None) or 8)
+        self._rng = np.random.RandomState(
+            int(getattr(data_cfg, "SEED", None) or 0) + (1 if stage != "train" else 0)
+        )
+        self._seeds = self._rng.randint(0, 2**31 - 1, size=self.length)
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        sample = self._load_one(idx)
+        return self.transform(sample) if self.transform else sample
+
+    def _load_one(self, idx):
+        rng = np.random.RandomState(self._seeds[idx])
+        h, w = self.size
+        img = rng.randint(0, 30, (h, w, 3)).astype(np.uint8)
+        n = rng.randint(1, min(self.max_boxes, 5) + 1)
+        boxes, labels = [], []
+        for _ in range(n):
+            cls = rng.randint(0, self.n_cls)
+            bw = rng.randint(w // 8, w // 3)
+            bh = rng.randint(h // 8, h // 3)
+            x0 = rng.randint(0, w - bw)
+            y0 = rng.randint(0, h - bh)
+            img[y0:y0 + bh, x0:x0 + bw] = (60 + 80 * cls) % 255
+            boxes.append([x0, y0, x0 + bw, y0 + bh])
+            labels.append(cls)
+        target = {
+            "boxes": np.asarray(boxes, dtype=np.float32),
+            "labels": np.asarray(labels, dtype=np.int32),
+        }
+        return {"image": img,
+                "target": None if self.stage == "infer" else target}

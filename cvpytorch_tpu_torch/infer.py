@@ -1,0 +1,110 @@
+"""Inference CLI (counterpart of ``cvpytorch_tpu/infer.py``).
+
+``python -m cvpytorch_tpu_torch.infer --setting conf/X.yml|X.json
+--checkpoint ckpt.pt [--out out_dir] [--device cuda|cpu]`` — loads the
+config, dictionary, dataset (stage ``infer``) and model, loads the
+``torch.save``d ``state_dict``, runs the predict step over the loader and
+writes detections to ``out_dir/predictions.json``.
+
+Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA that
+raises.  Serving is float32: making the predict step turns both TF32
+switches off for the process (``train_state.make_predict_step``).
+Infer-stage samples carry no target, so boxes stay in network pixels (no
+un-letterboxing), as in the JAX CLI.
+"""
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import logging
+import os
+
+import torch
+
+from .config import CommonConfiguration, load_dictionary
+from .data.loader import DataLoader
+from .data.transforms import build_transforms
+from .registry import DATASETS, MODELS
+from .train_state import make_predict_step
+
+logger = logging.getLogger("cvpytorch_tpu_torch")
+
+
+def resolve_device(name: str) -> torch.device:
+    """``cuda`` must be available when asked for; there is no fallback."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass --device cpu to run "
+                           "on the CPU")
+    return device
+
+
+def build_model(cfg, dictionary) -> torch.nn.Module:
+    from . import models as _m  # noqa: F401 (registers)
+
+    model_cls = MODELS.get(cfg.USE_MODEL.CLASS)
+    params = inspect.signature(model_cls).parameters
+    extra = {k: v for k, v in cfg.USE_MODEL.items()
+             if k in params and k not in ("dictionary", "model_cfg")}
+    return model_cls(dictionary=tuple(dictionary), model_cfg=cfg.USE_MODEL,
+                     **extra)
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser("cvpytorch_tpu_torch infer")
+    parser.add_argument("--setting", required=True)
+    parser.add_argument("--checkpoint", required=True)
+    parser.add_argument("--out", default="infer_out")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = CommonConfiguration.from_file(args.setting)
+    dictionary = []
+    if cfg.DATASET.DICTIONARY:
+        _, dictionary = load_dictionary(cfg.DATASET.DICTIONARY,
+                                        cfg.DATASET.DICTIONARY_NAME)
+    dictionary_name = cfg.DATASET.DICTIONARY_NAME or "CLS_CLASSES"
+    if dictionary_name not in ("DET_CLASSES", "INS_CLASSES"):
+        raise NotImplementedError(
+            f"the port serves detection only so far, not {dictionary_name}")
+
+    from .data import datasets as _d  # noqa: F401 (registers)
+
+    stage_cfg = cfg.DATASET.get("INFER") or cfg.DATASET.get("VAL")
+    transform = build_transforms(dictionary_name,
+                                 stage_cfg.get("TRANSFORMS"), "infer")
+    ds = DATASETS.get(cfg.DATASET.CLASS)(
+        data_cfg=stage_cfg, dictionary=dictionary, transform=transform,
+        stage="infer",
+    )
+    loader = DataLoader(ds, batch_size=int(stage_cfg.get("BATCH_SIZE", 1)),
+                        num_workers=int(stage_cfg.get("NUM_WORKER", 4) or 4))
+
+    model = build_model(cfg, dictionary)
+    state = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
+    model.load_state_dict(state)
+    model.to(device=device, memory_format=torch.channels_last)
+    predict = make_predict_step(model)
+
+    os.makedirs(args.out, exist_ok=True)
+    results = []
+    for batch in loader:
+        images = torch.from_numpy(batch["image"]).to(device)
+        preds = {k: v.cpu().numpy() for k, v in predict(images).items()}
+        for i in range(len(batch["image"])):
+            v = preds["valid"][i]
+            results.append({
+                "boxes": preds["boxes"][i][v].tolist(),
+                "scores": preds["scores"][i][v].tolist(),
+                "labels": preds["labels"][i][v].tolist(),
+            })
+    if results:
+        with open(os.path.join(args.out, "predictions.json"), "w") as f:
+            json.dump(results, f)
+    logger.info("wrote %d predictions to %s", len(results), args.out)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,73 @@
+"""Shared model building blocks (counterpart of
+``cvpytorch_tpu/models/bricks.py``): channel/depth rounding, the
+activation table and ``ConvBNAct``.
+
+``nn.BatchNorm2d`` normalises with the biased batch variance and stores
+the unbiased one in ``running_var``, which is what the JAX package's
+BatchNorm fork imitates; the YOLO bricks use torch momentum 0.03 and
+eps 1e-3 (flax momentum 0.97).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def make_divisible(v: float, divisor: int = 8, min_value: int | None = None) -> int:
+    """Channel rounding."""
+    if min_value is None:
+        min_value = divisor
+    new_v = max(min_value, int(v + divisor / 2) // divisor * divisor)
+    if new_v < 0.9 * v:
+        new_v += divisor
+    return new_v
+
+
+def make_round(x: float, mul: float = 1.0) -> int:
+    """Depth rounding."""
+    return max(round(x * mul), 1) if x > 1 else int(x)
+
+
+ACTIVATIONS: dict[str, Callable] = {
+    "relu": F.relu,
+    "relu6": F.relu6,
+    "leaky_relu": lambda x: F.leaky_relu(x, 0.1),
+    "silu": F.silu,
+    "swish": F.silu,
+    "hardswish": F.hardswish,
+    "hsigmoid": F.hardsigmoid,
+    "sigmoid": torch.sigmoid,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax nn.gelu default
+    "mish": F.mish,
+    "identity": lambda x: x,
+}
+
+
+def get_activation(name: str | None) -> Callable:
+    if name is None:
+        return ACTIVATIONS["identity"]
+    return ACTIVATIONS[name.lower()]
+
+
+class ConvBNAct(nn.Module):
+    """conv + BN + activation; submodules ``conv`` and ``bn`` carry the
+    JAX tree's names.  ``padding`` None → ((k-1)//2)·dilation."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, groups: int = 1,
+                 dilation: int = 1, use_bias: bool = False,
+                 act: str | None = "relu", bn_momentum: float = 0.03,
+                 bn_eps: float = 1e-3, padding: int | None = None):
+        super().__init__()
+        if padding is None:
+            padding = (kernel_size - 1) // 2 * dilation
+        self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
+                              padding, dilation, groups, bias=use_bias)
+        self.bn = nn.BatchNorm2d(out_channels, eps=bn_eps, momentum=bn_momentum)
+        self.act = get_activation(act)
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))

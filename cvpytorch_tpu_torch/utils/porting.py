@@ -1,0 +1,89 @@
+"""Weights carried from the JAX package into the port.
+
+``load_jax_variables(model, variables)`` copies a Flax ``{'params',
+'batch_stats'}`` tree (nested mappings of arrays) into a port module whose
+submodules carry the Flax names, so the key map is a join of the path:
+
+  params/…/conv/kernel (HWIO)     → ….conv.weight (OIHW, transpose(3,2,0,1))
+  params/…/<conv>/bias            → ….bias
+  params/…/bn/scale | bn/bias     → ….bn.weight | ….bn.bias
+  batch_stats/…/bn/mean | bn/var  → ….bn.running_mean | ….bn.running_var
+
+The JAX YOLOv5 stem is a 3×3 conv over a 2×2 space-to-depth input, kernel
+(3, 3, 4C, O); where the port's conv is 6×6 over C channels, that kernel is
+mapped back with ``s2d_to_stem6_kernel``.  Strict: any tree key without a
+port tensor, any port tensor without a tree key, or any shape mismatch
+raises ``KeyError``.
+"""
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+_PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
+_STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+
+
+def s2d_to_stem6_kernel(k3: np.ndarray) -> np.ndarray:
+    """(3, 3, 4C, O) kernel over a space-to-depth input (channel =
+    (2·dy + dx)·C + c) → the equivalent (6, 6, C, O) stride-2 kernel:
+    k6[2a + dy, 2b + dx, c, o] = k3[a, b, (2dy + dx)·C + c, o]."""
+    kh, kw, c4, O = k3.shape
+    if (kh, kw) != (3, 3) or c4 % 4:
+        raise ValueError(f"not a space-to-depth stem kernel: {k3.shape}")
+    C = c4 // 4
+    out = np.zeros((6, 6, C, O), k3.dtype)
+    for a in range(3):
+        for b in range(3):
+            for dy in range(2):
+                for dx in range(2):
+                    out[2 * a + dy, 2 * b + dx] = \
+                        k3[a, b, (2 * dy + dx) * C:(2 * dy + dx + 1) * C]
+    return out
+
+
+def _flatten(tree: Mapping, prefix: tuple = ()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def _convert(name: str, arr: np.ndarray, target: torch.Tensor) -> np.ndarray:
+    if arr.ndim == 4:  # conv kernel HWIO → OIHW
+        if tuple(target.shape[2:]) == (6, 6) and arr.shape[:2] == (3, 3):
+            arr = s2d_to_stem6_kernel(arr)
+        arr = arr.transpose(3, 2, 0, 1)
+    if tuple(arr.shape) != tuple(target.shape):
+        raise KeyError(f"shape mismatch at {name}: tree {arr.shape} "
+                       f"vs port {tuple(target.shape)}")
+    return arr
+
+
+def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
+    """Copy a Flax ``{'params', 'batch_stats'}`` tree into ``model`` in place."""
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.endswith("num_batches_tracked")}
+    unmatched, seen = [], set()
+    for coll, leaves in (("params", _PARAM_LEAVES),
+                         ("batch_stats", _STAT_LEAVES)):
+        for path, arr in _flatten(variables.get(coll, {})):
+            leaf = leaves.get(path[-1])
+            name = ".".join(path[:-1] + (leaf,)) if leaf else None
+            if name not in state:
+                unmatched.append("/".join((coll,) + path))
+                continue
+            target = state[name]
+            arr = _convert(name, arr, target)
+            with torch.no_grad():
+                target.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            seen.add(name)
+    missing = sorted(set(state) - seen)
+    if unmatched or missing:
+        raise KeyError(f"JAX tree keys without a port tensor: {unmatched[:10]}; "
+                       f"port tensors without a tree key: {missing[:10]}")
+    return model

@@ -1,0 +1,67 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+kernel module imports without nvcc, and its entry points refuse to fall
+back to the CPU when CUDA is absent and the caller did not ask for it."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def run_python(code: str, **env):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, **env})
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import cvpytorch_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'cvpytorch_tpu'))\n"
+        "assert not bad, bad\n"
+        "assert 'cvpytorch_tpu_torch.infer' in names\n"
+        "assert 'cvpytorch_tpu_torch.ops.nms_kernel' in names\n"
+        "print(len(names))\n"
+    )
+    r = run_python(code)
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.split()[-1]) >= 20
+
+
+def test_kernel_module_imports_and_serves_cpu_without_nvcc():
+    code = (
+        "import torch\n"
+        "from cvpytorch_tpu_torch.ops import nms_kernel as k\n"
+        "keep = k.nms_keep(torch.tensor([[[0., 0, 10, 10], [0, 0, 10, 9]]]), 0.5)\n"
+        "assert keep.tolist() == [[True, False]], keep\n"
+        "assert k.nms_keep.launches == 0 and k._lib is None\n"
+        "try:\n"
+        "    k._nvcc()\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n"
+    )
+    r = run_python(code, PATH="/usr/bin:/bin", CUDA_HOME="/nonexistent")
+    assert r.returncode == 0, r.stderr
+    assert "raised nvcc not found" in r.stdout
+
+
+def test_entry_points_refuse_to_fall_back_to_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this checks the behaviour on a machine without CUDA")
+    from cvpytorch_tpu_torch import infer
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        infer.main(["--setting", "unused.json", "--checkpoint", "unused.pt"])
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
