@@ -4,17 +4,30 @@
     python3 chip_smoke.py
 
 1. Builds every kernel of the serving path from ``cvpytorch_tpu_torch/csrc``
-   with nvcc (sm_90a) and prints the build time.
-2. Kernel phase: ``nms_keep`` against ``nms_keep_plain`` on the card,
-   bit-exact, over B in {1, 32} and K in {1024, 1000, 300} with clustered,
-   class-offset boxes, score ties and a pair whose IoU equals the
-   threshold; then times both with CUDA events.
+   with nvcc (sm_90a) and prints the build time and what ``-Xptxas -v``
+   reports (registers, shared memory, spills).
+2. Kernel timing: ``nms_keep`` and ``nms_keep_plain`` by CUDA events at
+   K = 1024, B in {32, 1}, and on a dense input.
 3. Path phase: full-width YOLOv5-s (80 classes) with seeded random
    weights, served at 640x640, batch 32, through
    ``cvpytorch_tpu_torch.infer.main``; checks that the NMS kernel was
    launched once per batch, that ``predictions.json`` is well-formed, and
    that the detections equal those of the same model with the plain NMS
-   (TF32 off).  Times bs1 predict latency and bs32 throughput.
+   (TF32 off).  Times bs1 predict latency, bs32 throughput, and the NMS
+   kernel on the path's own input (the first batch's class-shifted boxes).
+4. Kernel checks, after every host-clock timing: ``nms_keep`` against
+   ``nms_keep_plain`` on the card, bit-exact, over B in {1, 3, 32} x K in
+   {1, 63, 64, 65, 300, 1000, 1024} x every threshold the detectors use,
+   with clustered, class-offset boxes of 3 and of 80 classes and a dense
+   set where most boxes of a class overlap, score ties and a pair whose
+   IoU equals 0.6; then constructed pairs at IoU == thr, one f32 ulp
+   either side, with no overlap and with non-finite coordinates, held
+   against the plain version and numpy's f32 division.
+5. Device phase, last because a profiler session slows the host's later
+   launches: the device time of each of the two NMS kernels of a call
+   (torch.profiler) on the inputs timed above and against the number of
+   64-box tiles, and the device operations one call runs, counted by the
+   profiler and held to ``nms_kernel.DEVICE_KERNELS_PER_CALL``.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -69,29 +82,6 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def nms_inputs(B: int, K: int, seed: int) -> np.ndarray:
-    """(B, K, 4) f32 boxes as ``batched_nms`` hands them to ``nms_keep``:
-    clustered boxes in a 640 canvas, score order with ties (scores rounded
-    to 2 decimals, stable sort), class offsets label*4096, and boxes 0 and
-    1 of every image at IoU exactly equal to the threshold (kept)."""
-    rng = np.random.RandomState(seed)
-    n_clusters = max(K // 16, 1)
-    centers = rng.rand(B, n_clusters, 2) * 600 + 20
-    which = rng.randint(0, n_clusters, (B, K))
-    c = np.take_along_axis(centers, which[..., None], 1) + rng.randn(B, K, 2) * 4
-    wh = rng.rand(B, K, 2) * 50 + 10
-    boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
-    scores = np.round(rng.rand(B, K), 2).astype(np.float32)
-    order = np.argsort(-scores, axis=1, kind="stable")
-    boxes = np.take_along_axis(boxes, order[..., None], 1)
-    labels = rng.randint(0, 3, (B, K)).astype(np.float32)
-    # IoU(box0, box1) = 60 / (100 + 1e-7) == f32(0.6)
-    boxes[:, 0] = [100, 100, 110, 110]
-    boxes[:, 1] = [100, 100, 110, 106]
-    labels[:, :2] = 0
-    return (boxes + (labels * 4096.0)[..., None]).astype(np.float32)
-
-
 def nms_bound_ms(B: int, K: int) -> tuple[float, str]:
     bytes_moved = B * K * 4 * 4 + B * K  # boxes in once, keep out once
     ops = B * K * (K - 1) / 2 * IOU_FLOPS
@@ -108,39 +98,156 @@ def build_kernels() -> float:
     return time.perf_counter() - t0
 
 
-def kernel_phase() -> dict:
-    """nms_keep vs nms_keep_plain on the card, bit-exact; then timings."""
+def nms_event_ms(boxes, thr: float) -> float:
+    """``nms_keep`` by CUDA events over 200 calls back to back, so the
+    host's launch rate counts where it is the limit."""
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+
+    return cuda_time_ms(lambda: nms_keep(boxes, thr), iters=200)
+
+
+def nms_device_ms(boxes, thr: float, calls: int = 50, sessions: int = 3) -> dict:
+    """Device time per call of each of the two kernels of ``nms_keep``
+    (torch.profiler over ``calls`` calls), their sum, and the device
+    operations one call runs, counted over every operation the profiler
+    saw on the card.  A session whose record lacks either kernel is
+    printed and profiled again, up to ``sessions`` times: in one run of
+    this script the profiler once returned no record of the mask kernel.
+    Run after every host-clock and event timing: a profiler session
+    leaves the host's launches slower for the rest of the process."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvpytorch_tpu_torch.ops.nms_kernel import DEVICE_KERNELS_PER_CALL, nms_keep
+
+    for session in range(1, sessions + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                nms_keep(boxes, thr)
+            torch.cuda.synchronize()
+        on_device = [e for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA]
+        hits = {phase: [e for e in on_device if f"nms_{phase}_kernel" in e.key]
+                for phase in ("mask", "scan")}
+        if all(hits.values()):
+            break
+        print(f"profiler session {session} of {sessions} recorded no "
+              f"{' or '.join(k for k, v in hits.items() if not v)} kernel; saw: "
+              + ", ".join(f"{e.key[:60]} ({e.device_type}) x{e.count}"
+                          for e in prof.key_averages()), file=sys.stderr, flush=True)
+    else:
+        raise AssertionError("the profiler saw no NMS kernel on the device")
+    out = {f"{phase}_kernel_ms": sum(e.self_device_time_total for e in h) / 1e3
+           / sum(e.count for e in h) for phase, h in hits.items()}
+    out["device_ms"] = out["mask_kernel_ms"] + out["scan_kernel_ms"]
+    out["device_kernels_per_call"] = sum(e.count for e in on_device) / calls
+    out["profiler_sessions"] = session
+    if out["device_kernels_per_call"] != DEVICE_KERNELS_PER_CALL:
+        raise AssertionError(
+            f"one nms_keep call ran {out['device_kernels_per_call']} device "
+            f"operations, not {DEVICE_KERNELS_PER_CALL}: "
+            + ", ".join(f"{e.key[:60]} x{e.count}" for e in on_device))
+    return out
+
+
+def kernel_timing() -> dict:
+    """``nms_keep`` and ``nms_keep_plain`` timed by CUDA events at K = 1024
+    on the inputs the device phase times again, first in the process so
+    that nothing before them slows the host's launches."""
     import torch
 
+    from cvpytorch_tpu_torch.ops.nms_cases import nms_inputs
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+
+    launches_before = nms_keep.launches
+    times = {"inputs": {}}
+    for name, B, kw in (("B32", BATCH, {}), ("B1", 1, {}),
+                        ("dense", BATCH, {"dense": True})):
+        boxes = torch.from_numpy(nms_inputs(B, 1024, seed=5, **kw)).cuda()
+        times["inputs"][name] = (boxes, IOU_THR)
+        times[name] = {"ms": nms_event_ms(boxes, IOU_THR)}
+        if name != "dense":
+            times[name]["plain_ms"] = cuda_time_ms(
+                lambda: nms_keep_plain(boxes, IOU_THR), iters=5, warmup=1)
+        print(f"nms_keep {name} K=1024: {json.dumps(times[name])}", flush=True)
+    nms_keep.launches = launches_before  # comparison launches do not count
+    return times
+
+
+def kernel_checks() -> dict:
+    """nms_keep vs nms_keep_plain on the card, bit-exact.  Runs after the
+    path phase's timings: when these checks (and their plain version's
+    many small launches) came first, the bs1 predict p50 read
+    milliseconds slower than after a short check."""
+    import torch
+
+    from cvpytorch_tpu_torch.ops.nms_cases import (
+        THRESHOLDS, iou_f32, near_threshold_pairs, nms_inputs)
     from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
 
     launches_before = nms_keep.launches
     max_err = 0
-    for B in (1, BATCH):
-        for K in (1024, 1000, 300):
-            boxes = torch.from_numpy(nms_inputs(B, K, seed=B * 7 + K)).cuda()
-            got = nms_keep(boxes, IOU_THR)
-            want = nms_keep_plain(boxes, IOU_THR)
-            torch.cuda.synchronize()
-            max_err = max(max_err, int((got.int() - want.int()).abs().max()))
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"nms_keep != nms_keep_plain at B={B} K={K}: "
-                    f"{int((got != want).sum())} flags differ")
-            if not bool(got[:, 1].all()):
-                raise AssertionError("the IoU == thr pair was suppressed")
-            print(f"nms_keep B={B} K={K}: bit-exact, "
-                  f"kept {int(got.sum())}/{B * K}", flush=True)
-    times = {"max_abs_err": float(max_err)}
-    for B in (BATCH, 1):
-        boxes = torch.from_numpy(nms_inputs(B, 1024, seed=5)).cuda()
-        times[B] = {
-            "ms": cuda_time_ms(lambda: nms_keep(boxes, IOU_THR), iters=200),
-            "plain_ms": cuda_time_ms(lambda: nms_keep_plain(boxes, IOU_THR),
-                                     iters=5, warmup=1),
-        }
+
+    def check(boxes, thr, what):
+        nonlocal max_err
+        got = nms_keep(boxes, thr)
+        want = nms_keep_plain(boxes, thr)
+        torch.cuda.synchronize()
+        max_err = max(max_err, int((got.int() - want.int()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"nms_keep != nms_keep_plain at {what}: "
+                                 f"{int((got != want).sum())} flags differ")
+        return got
+
+    n_cases = 0
+    kinds = (("3 classes", {}), ("80 classes", {"n_classes": 80}),
+             ("3 classes, dense", {"dense": True}))
+    for kind, kw in kinds:
+        for B in (1, 3, BATCH):
+            kept = []
+            for K in (1, 63, 64, 65, 300, 1000, 1024):
+                boxes = torch.from_numpy(nms_inputs(B, K, seed=B * 7 + K, **kw)).cuda()
+                for thr in THRESHOLDS:
+                    got = check(boxes, thr, f"{kind} B={B} K={K} thr={thr}")
+                    if thr == IOU_THR and K >= 2 and not bool(got[:, 1].all()):
+                        raise AssertionError("the IoU == thr pair was suppressed")
+                    n_cases += 1
+                kept.append(f"K={K}: {int(got.sum())}/{B * K}")
+            print(f"nms_keep {kind} B={B}: bit-exact at thresholds "
+                  f"{THRESHOLDS}; kept at {THRESHOLDS[-1]}: " + ", ".join(kept),
+                  flush=True)
+    for thr in THRESHOLDS:
+        pairs, counts = near_threshold_pairs(thr)
+        got = check(torch.from_numpy(pairs).cuda(), thr, f"near-threshold pairs {thr}")
+        want = ~(iou_f32(pairs[:, 0], pairs[:, 1]) > np.float32(thr))
+        if not (got[:, 0].all() and np.array_equal(got[:, 1].cpu().numpy(), want)):
+            raise AssertionError(f"near-threshold pairs at {thr}: the kernel "
+                                 "disagrees with numpy's f32 division")
+        n_cases += 1
+        print(f"nms_keep near-threshold pairs at {thr}: bit-exact against "
+              f"nms_keep_plain and numpy f32 division, {counts}", flush=True)
     nms_keep.launches = launches_before  # comparison launches do not count
-    return times
+    return {"max_abs_err": float(max_err), "cases": n_cases}
+
+
+def device_phase(inputs: dict) -> dict:
+    """The device time of each kernel of ``nms_keep`` on each input, and
+    against the number of 64-box tiles T (the scan's dependent block
+    steps; the mask kernel's T(T+1)/2 tile pairs per image)."""
+    import torch
+
+    from cvpytorch_tpu_torch.ops.nms_cases import nms_inputs
+
+    out = {name: nms_device_ms(*args) for name, args in inputs.items()}
+    out["by_tiles"] = {}
+    for B in (1, BATCH):
+        for T in (1, 2, 4, 8, 16):
+            boxes = torch.from_numpy(nms_inputs(B, 64 * T, seed=T)).cuda()
+            t = nms_device_ms(boxes, IOU_THR)
+            out["by_tiles"][f"B{B}_T{T}"] = {
+                k: t[k] for k in ("mask_kernel_ms", "scan_kernel_ms")}
+    print(f"nms kernels, device ms: {json.dumps(out)}", flush=True)
+    return out
 
 
 def smoke_config(workdir: Path, n_batches: int) -> Path:
@@ -321,11 +428,18 @@ def path_phase(workdir: Path) -> dict:
                             stage="infer")
     images = torch.from_numpy(
         default_collate([ds[i] for i in range(BATCH)])["image"]).cuda()
+    nms_input = []
+
+    def capture(boxes, thr):
+        nms_input.append((boxes.clone(), thr))
+        return nms_keep(boxes, thr)
+
     with torch.inference_mode():
         raw = model._raw(images)
-        with_kernel = model._predict(images, raw)
-        nms_mod.nms_keep = nms_keep_plain
+        nms_mod.nms_keep = capture
         try:
+            with_kernel = model._predict(images, raw)
+            nms_mod.nms_keep = nms_keep_plain
             with_plain = model._predict(images, raw)
         finally:
             nms_mod.nms_keep = nms_keep
@@ -339,6 +453,9 @@ def path_phase(workdir: Path) -> dict:
     print(f"path detections with nms_keep == with nms_keep_plain "
           f"(batch {BATCH}, {int(with_kernel['num'].sum())} detections)",
           flush=True)
+    # the kernel on the path's own NMS input: the (32, 1024, 4) class-shifted
+    # boxes that batched_nms handed to nms_keep for this batch
+    (path_boxes, path_thr), = nms_input
 
     # the card against the CPU on two images (f32, TF32 off on the card)
     cpu_model = infer.build_model(cfg, dictionary)
@@ -383,6 +500,9 @@ def path_phase(workdir: Path) -> dict:
         bs32_tf32_ms = cuda_time_ms(
             lambda: model(prepare_images(images), mode="infer"), iters=10)
     torch.backends.cudnn.allow_tf32 = False
+    path_nms_ms = nms_event_ms(path_boxes, path_thr)
+    print(f"nms_keep on the path's input {tuple(path_boxes.shape)} thr "
+          f"{path_thr}: {path_nms_ms} ms", flush=True)
     print(json.dumps({"bs32_predict_profile": profile_predict(predict, images)}))
     print(json.dumps({"bs1_predict_profile": profile_predict(predict, one, top=5)}))
     return {
@@ -400,7 +520,8 @@ def path_phase(workdir: Path) -> dict:
         "infer_cli_s": cli_s,
         "infer_cli_images": BATCH * n_batches,
         "raw_maps_card_vs_cpu_max_abs_err": raw_err,
-    }
+        "nms_keep_on_path_input_ms": path_nms_ms,
+    }, (path_boxes, path_thr)
 
 
 def main() -> int:
@@ -416,27 +537,40 @@ def main() -> int:
           "False); cuDNN's on only for bs32_images_per_s_tf32_convs")
     card = gpu_name_and_power()
     print(f"build nms_kernel: {build_kernels():.2f} s "
-          f"({nms_kernel.library_path().name})", flush=True)
-    times = kernel_phase()
+          f"({nms_kernel.library_path().name}); -Xptxas -v:", flush=True)
+    print(nms_kernel.build_log().strip(), flush=True)
+    times = kernel_timing()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        path = path_phase(Path(tmp))
+        path, path_input = path_phase(Path(tmp))
     print(json.dumps({"path": path, "card": card}))
+    checks = kernel_checks()
+    # the profiler last: its sessions slow the host's launches afterwards
+    split = device_phase({**times.pop("inputs"), "path_input": path_input})
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
-    print(json.dumps({"nms_keep_B1_K1024": {**times[1], "bound_ms": bound1}}))
+    print(json.dumps({"nms_keep_B1_K1024": {**times["B1"], **split["B1"],
+                                             "bound_ms": bound1}}))
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
         "route": "cuda",
         "source": "cvpytorch_tpu_torch/csrc/nms_kernel.cu",
         "replaces": "cvpytorch_tpu/ops/pallas/nms_kernel.py:23",
         "launches": path["launches"],
-        "max_abs_err": times["max_abs_err"],
-        "ms": times[BATCH]["ms"],
-        "plain_ms": times[BATCH]["plain_ms"],
+        "max_abs_err": checks["max_abs_err"],
+        "ms": times["B32"]["ms"],
+        "plain_ms": times["B32"]["plain_ms"],
         "bound_ms": bound,
         "bound_by": bound_by,
         # no single PyTorch call computes greedy NMS here (no torchvision)
         "library_ms": None,
+        "device_kernels_per_call": split["B32"]["device_kernels_per_call"],
+        "bit_exact_cases": checks["cases"],
+        "ms_B1": times["B1"]["ms"],
+        "plain_ms_B1": times["B1"]["plain_ms"],
+        "bound_ms_B1": bound1,
+        "ms_dense": times["dense"]["ms"],
+        "ms_path_input": path["nms_keep_on_path_input_ms"],
+        "device_ms_by_kernel": split,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,13 +4,16 @@ Counterpart of the TPU kernel ``pallas_nms_keep``
 (``cvpytorch_tpu/ops/pallas/nms_kernel.py``).  ``nms_keep`` takes a batch
 of score-sorted, class-offset boxes and returns which survive greedy
 suppression.  A CPU tensor goes to ``nms_keep_plain``; a CUDA tensor goes
-to the kernel in ``csrc/nms_kernel.cu``, which is built with ``nvcc`` for
-``sm_90a`` into ``build/`` at first use (keyed by a hash of the source and
-flags) and loaded with ``ctypes``.  A failed build or launch raises.
+to the kernels in ``csrc/nms_kernel.cu`` (a tiled IoU-bitmask kernel, then
+a blocked scan: two device launches per call), which are built with
+``nvcc`` for ``sm_90a`` into ``build/`` at first use (keyed by a hash of
+every source in ``csrc/`` and the flags) and loaded with ``ctypes``.  A
+failed build or launch raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -25,12 +28,16 @@ import torch
 from .boxes import box_iou_matrix
 
 MAX_K = 1024  # every caller has K <= max_nms = 1024
+DEVICE_KERNELS_PER_CALL = 2  # the mask kernel, then the scan kernel
+TILE = 64  # boxes per tile and bits per mask word, as in the kernel
+BAND = 2.0 ** -16  # relative half-width of the band where the division decides
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "nms_kernel.cu"
+CSRC = _PKG / "csrc"
+SOURCE = CSRC / "nms_kernel.cu"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -45,8 +52,19 @@ def _nvcc() -> str:
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The built library, named by a hash of every source under ``csrc/``
+    (a changed header rebuilds too) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.iterdir()):
+        if src.suffix in (".cu", ".cuh", ".h"):
+            digest.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"nms_kernel_{digest.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """What ``-Xptxas -v`` said when the loaded library was built:
+    registers, shared memory and spills of each kernel."""
+    return library_path().with_suffix(".ptxas.txt").read_text()
 
 
 def load_library() -> ctypes.CDLL:
@@ -61,8 +79,9 @@ def load_library() -> ctypes.CDLL:
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             try:
-                subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                               check=True, capture_output=True, text=True)
+                done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                                      check=True, capture_output=True, text=True)
+                so.with_suffix(".ptxas.txt").write_text(done.stdout + done.stderr)
                 os.replace(tmp, so)
             except subprocess.CalledProcessError as e:
                 raise RuntimeError(f"nvcc failed:\n{e.stderr}") from e
@@ -70,11 +89,10 @@ def load_library() -> ctypes.CDLL:
                 if os.path.exists(tmp):
                     os.remove(tmp)
         lib = ctypes.CDLL(str(so))
-        lib.cvt_nms_keep.argtypes = [ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_void_p, ctypes.c_void_p]
-        lib.cvt_nms_keep.restype = ctypes.c_int
-        lib.cvt_cuda_error_string.argtypes = [ctypes.c_int]
+        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.cvt_nms_keep.argtypes = [ptr, i32, i32, f32, f32, f32, ptr, ptr, ptr]
+        lib.cvt_nms_keep.restype = i32
+        lib.cvt_cuda_error_string.argtypes = [i32]
         lib.cvt_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
         return lib
@@ -83,6 +101,34 @@ def load_library() -> ctypes.CDLL:
 def _f32(x: float) -> float:
     """The f32 value of a threshold, so every path compares in f32."""
     return float(np.float32(x))
+
+
+def mask_words(B: int, K: int) -> int:
+    """u64 words of the mask kernel's scratch: for each image, 64 words
+    for each tile pair r <= c of the T = ceil(K / 64) tiles."""
+    T = -(-K // TILE)
+    return B * T * (T + 1) // 2 * TILE
+
+
+@functools.lru_cache(maxsize=64)
+def division_band(thr: float) -> tuple[float, float]:
+    """(lo, hi), f32, for the mask kernel's test of IoU = inter / d > thr
+    without a division: q = inter * rcp(d), with rcp within 1 ulp of 1/d,
+    is within 2^-22 of inter / d, so q > hi means RN(inter / d) > thr and
+    q < lo means it is not; q in [lo, hi] takes the IEEE division.
+    lo <= thr (1 - 2^-16) and hi >= thr (1 + 2^-16), rounded outward (the
+    products are exact in f64).  A threshold outside [2^-100, 2^100]
+    (zero, negative, subnormal, NaN) gives (-inf, inf): every pair divides."""
+    t = _f32(thr)
+    if not 2.0 ** -100 <= t <= 2.0 ** 100:
+        return -np.inf, np.inf
+    lo, hi = t * (1 - BAND), t * (1 + BAND)
+    lo32, hi32 = np.float32(lo), np.float32(hi)
+    if lo32 > lo:
+        lo32 = np.nextafter(lo32, np.float32(-np.inf))
+    if hi32 < hi:
+        hi32 = np.nextafter(hi32, np.float32(np.inf))
+    return float(lo32), float(hi32)
 
 
 def nms_keep_plain(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
@@ -102,9 +148,10 @@ def nms_keep(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     """Greedy NMS keep mask: boxes (B, K, 4) f32 xyxy, score-sorted
     descending with class offsets applied → (B, K) bool.
 
-    CPU tensors take ``nms_keep_plain``; CUDA tensors launch the kernel
-    (counted in ``nms_keep.launches``).  Raises for K > 1024, and for a
-    CUDA input that is not f32 and contiguous."""
+    CPU tensors take ``nms_keep_plain``; CUDA tensors launch the kernels,
+    two device kernels counted as one call in ``nms_keep.launches``.
+    Raises for K > 1024, and for a CUDA input that is not f32 and
+    contiguous."""
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     B, K, _ = boxes.shape
@@ -119,10 +166,14 @@ def nms_keep(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     keep = torch.empty((B, K), dtype=torch.uint8, device=boxes.device)
     if B == 0 or K == 0:
         return keep.bool()
+    if boxes.data_ptr() % 16:  # the kernel reads a box as one float4
+        boxes = boxes.clone()
     lib = load_library()
+    mask = torch.empty(mask_words(B, K), dtype=torch.int64, device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         rc = lib.cvt_nms_keep(boxes.data_ptr(), B, K, _f32(iou_threshold),
+                              *division_band(iou_threshold), mask.data_ptr(),
                               keep.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError("nms_keep launch failed: "
