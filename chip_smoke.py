@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py
 
-1. Builds every kernel of the serving path from ``cvpytorch_tpu_torch/csrc``
-   with nvcc (sm_90a) and prints the build time and what ``-Xptxas -v``
-   reports (registers, shared memory, spills).
+1. Builds every kernel of the serving and training paths from
+   ``cvpytorch_tpu_torch/csrc`` with nvcc (sm_90a) and prints the build time
+   and what ``-Xptxas -v`` reports (registers, shared memory, spills).
 2. Kernel timing: ``nms_keep`` and ``nms_keep_plain`` by CUDA events at
    K = 1024, B in {32, 1}, and on a dense input.
 3. Path phase: full-width YOLOv5-s (80 classes) with seeded random
@@ -15,7 +15,20 @@
    that the detections equal those of the same model with the plain NMS
    (TF32 off).  Times bs1 predict latency, bs32 throughput, and the NMS
    kernel on the path's own input (the first batch's class-shifted boxes).
-4. Kernel checks, after every host-clock timing: ``nms_keep`` against
+4. Train phase: full-width YOLOv5-s at 640², 80 classes, trained through
+   ``cvpytorch_tpu_torch.trainer.Trainer(cfg).run()`` on the flagship's
+   recipe (``conf/coco_yolov5_s.yml``: AMP, EMA, SGD 0.937 with wd 5e-4,
+   LambdaLR, linear warmup, grad clip 10, batch 32) with the device
+   augmentation, 8 steps an epoch for 2 epochs, validating 64 images every
+   epoch; checks that every step's loss is finite, that ``nms_keep`` ran
+   once per val batch, that checkpoints were written and that the last one
+   serves a batch through ``infer.main``.  Times the train step at bs32
+   (AMP and f32) on a batch already on the card, the device augmentation,
+   the fed rate of epoch 2 and the val epoch; peak memory.  Then one f32
+   train step at 640², B = 2, on the card against the same step on the
+   CPU (loss within 1e-4 relative), and one AMP step (loss within 5e-2 of
+   the f32 loss).
+5. Kernel checks, after every host-clock timing: ``nms_keep`` against
    ``nms_keep_plain`` on the card, bit-exact, over B in {1, 3, 32} x K in
    {1, 63, 64, 65, 300, 1000, 1024} x every threshold the detectors use,
    with clustered, class-offset boxes of 3 and of 80 classes and a dense
@@ -23,11 +36,13 @@
    IoU equals 0.6; then constructed pairs at IoU == thr, one f32 ulp
    either side, with no overlap and with non-finite coordinates, held
    against the plain version and numpy's f32 division.
-5. Device phase, last because a profiler session slows the host's later
+6. Device phase, last because a profiler session slows the host's later
    launches: the device time of each of the two NMS kernels of a call
    (torch.profiler) on the inputs timed above and against the number of
    64-box tiles, and the device operations one call runs, counted by the
-   profiler and held to ``nms_kernel.DEVICE_KERNELS_PER_CALL``.
+   profiler and held to ``nms_kernel.DEVICE_KERNELS_PER_CALL``; then the
+   device busy and idle share and the top operations of the device
+   augmentation alone and of the AMP train step with it.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -46,7 +61,10 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-BATCH = 32  # VAL BATCH_SIZE of conf/coco_yolov5_s.yml
+BATCH = 32  # VAL and TRAIN BATCH_SIZE of conf/coco_yolov5_s.yml
+TRAIN_STEPS_PER_EPOCH = 8
+TRAIN_EPOCHS = 2
+VAL_IMAGES = 64  # the evaluator's matcher is Python: a small val set
 
 # f32 peak outside the tensor cores and HBM rate of one H100 SXM
 # (NVIDIA data sheet, 700 W)
@@ -110,33 +128,42 @@ def nms_device_ms(boxes, thr: float, calls: int = 50, sessions: int = 3) -> dict
     """Device time per call of each of the two kernels of ``nms_keep``
     (torch.profiler over ``calls`` calls), their sum, and the device
     operations one call runs, counted over every operation the profiler
-    saw on the card.  A session whose record lacks either kernel is
-    printed and profiled again, up to ``sessions`` times: in one run of
-    this script the profiler once returned no record of the mask kernel.
+    saw on the card.  Each session traces a warm-up round of ``calls``
+    calls that it discards, then the measured round.  A session that
+    recorded either kernel fewer than ``calls`` times is printed and
+    profiled again, up to ``sessions`` times: the profiler has returned
+    no record of the mask kernel in one run of this script, and one
+    record short of 50 of each kernel in another, after the train phase.
     Run after every host-clock and event timing: a profiler session
     leaves the host's launches slower for the rest of the process."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from cvpytorch_tpu_torch.ops.nms_kernel import DEVICE_KERNELS_PER_CALL, nms_keep
 
     for session in range(1, sessions + 1):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                nms_keep(boxes, thr)
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up round, then the measured one
+                for _ in range(calls):
+                    nms_keep(boxes, thr)
+                torch.cuda.synchronize()
+                prof.step()
         on_device = [e for e in prof.key_averages()
                      if e.device_type == torch.autograd.DeviceType.CUDA]
         hits = {phase: [e for e in on_device if f"nms_{phase}_kernel" in e.key]
                 for phase in ("mask", "scan")}
-        if all(hits.values()):
+        counts = {phase: sum(e.count for e in h) for phase, h in hits.items()}
+        if min(counts.values()) >= calls:  # more is held to the count below
             break
-        print(f"profiler session {session} of {sessions} recorded no "
-              f"{' or '.join(k for k, v in hits.items() if not v)} kernel; saw: "
+        print(f"profiler session {session} of {sessions} recorded {counts} "
+              f"NMS kernels for {calls} calls; saw: "
               + ", ".join(f"{e.key[:60]} ({e.device_type}) x{e.count}"
                           for e in prof.key_averages()), file=sys.stderr, flush=True)
     else:
-        raise AssertionError("the profiler saw no NMS kernel on the device")
+        raise AssertionError(f"no profiler session recorded both NMS kernels "
+                             f"{calls} times")
     out = {f"{phase}_kernel_ms": sum(e.self_device_time_total for e in h) / 1e3
            / sum(e.count for e in h) for phase, h in hits.items()}
     out["device_ms"] = out["mask_kernel_ms"] + out["scan_kernel_ms"]
@@ -250,10 +277,9 @@ def device_phase(inputs: dict) -> dict:
     return out
 
 
-def smoke_config(workdir: Path, n_batches: int) -> Path:
-    """The flagship's serving config (conf/coco_yolov5_s.yml: USE_MODEL and
-    the VAL transforms) on SyntheticDetection at 640², 80 COCO classes,
-    written as JSON (no PyYAML needed)."""
+def write_dictionary(workdir: Path) -> Path:
+    """The 80 COCO classes of conf/dicts/coco_dict.yml as JSON (no PyYAML
+    needed)."""
     text = (ROOT / "conf" / "dicts" / "coco_dict.yml").read_text()
     names = re.findall(r"^\s*-\s*([^:\s]+):\s*([0-9.]+)\s*$", text, re.M)
     if len(names) != 80:
@@ -261,34 +287,99 @@ def smoke_config(workdir: Path, n_batches: int) -> Path:
     dict_path = workdir / "coco_dict.json"
     dict_path.write_text(json.dumps(
         {"DET_CLASSES": [{n: float(w)} for n, w in names]}))
+    return dict_path
+
+
+FLAGSHIP_MODEL = {  # USE_MODEL of conf/coco_yolov5_s.yml
+    "CLASS": "src.models.yolov5.YOLOv5",
+    "TYPE": "yolov5_s",
+    "BACKBONE": {"name": "YOLOv5CSPDarknet", "subtype": "cspdark_s"},
+    "NECK": {"name": "YOLOv5Neck", "subtype": "yolov5_s"},
+    "DETECT": {"name": "YOLOv5Detect"},
+    "LOSS": {"name": "YOLOv5Loss", "hyp_box": 0.05, "hyp_obj": 1.0,
+             "hyp_cls": 0.5},
+}
+
+
+def val_stage(n_images: int) -> dict:
+    """The flagship's VAL stage on SyntheticDetection at 640²."""
+    return {
+        "SIZE": [640, 640], "LENGTH": n_images, "SEED": 0,
+        "SHUFFLE": False, "BATCH_SIZE": BATCH, "NUM_WORKER": 8,
+        "TRANSFORMS": {
+            "Resize": {"size": [640, 640], "keep_ratio": True,
+                       "fill": [114, 114, 114]},
+            "ToTensor": None,
+            "Normalize": {"mean": [0, 0, 0], "std": [1, 1, 1]},
+        },
+    }
+
+
+def smoke_config(workdir: Path, n_batches: int) -> Path:
+    """The flagship's serving config (conf/coco_yolov5_s.yml: USE_MODEL and
+    the VAL transforms) on SyntheticDetection at 640², 80 COCO classes,
+    written as JSON."""
     cfg = {
         "EXPERIMENT_NAME": "chip_smoke_yolov5s",
         "DATASET": {
             "CLASS": "SyntheticDetection",
-            "DICTIONARY": str(dict_path),
+            "DICTIONARY": str(write_dictionary(workdir)),
             "DICTIONARY_NAME": "DET_CLASSES",
-            "VAL": {
-                "SIZE": [640, 640], "LENGTH": BATCH * n_batches, "SEED": 0,
-                "SHUFFLE": False, "BATCH_SIZE": BATCH, "NUM_WORKER": 8,
-                "TRANSFORMS": {
-                    "Resize": {"size": [640, 640], "keep_ratio": True,
-                               "fill": [114, 114, 114]},
-                    "ToTensor": None,
-                    "Normalize": {"mean": [0, 0, 0], "std": [1, 1, 1]},
-                },
-            },
+            "VAL": val_stage(BATCH * n_batches),
         },
-        "USE_MODEL": {
-            "CLASS": "src.models.yolov5.YOLOv5",
-            "TYPE": "yolov5_s",
-            "BACKBONE": {"name": "YOLOv5CSPDarknet", "subtype": "cspdark_s"},
-            "NECK": {"name": "YOLOv5Neck", "subtype": "yolov5_s"},
-            "DETECT": {"name": "YOLOv5Detect"},
-            "LOSS": {"name": "YOLOv5Loss", "hyp_box": 0.05, "hyp_obj": 1.0,
-                     "hyp_cls": 0.5},
-        },
+        "USE_MODEL": FLAGSHIP_MODEL,
     }
     path = workdir / "coco_yolov5_s_synthetic.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def train_config(workdir: Path) -> Path:
+    """conf/coco_yolov5_s.yml's training recipe on SyntheticDetection at
+    640² with the device augmentation (the card's machine has no OpenCV
+    for the host mosaic/affine/HSV transforms): AMP, EMA, SGD momentum
+    0.937 with weight decay 5e-4, LambdaLR with LRF 0.1, linear warmup of
+    1000 iterations from 0.1, grad-clip norm 10, batch 32; cut to 8 steps
+    an epoch, 2 epochs, 64 val images validated every epoch.  The INFER
+    stage (one batch) serves the checkpoint afterwards."""
+    cfg = {
+        "EXPERIMENT_NAME": "chip_smoke_train",
+        "SEED": 0,
+        "DATASET": {
+            "CLASS": "SyntheticDetection",
+            "DICTIONARY": str(write_dictionary(workdir)),
+            "DICTIONARY_NAME": "DET_CLASSES",
+            "MAX_BOXES": 128,
+            "TRAIN": {
+                "SIZE": [640, 640], "LENGTH": BATCH * TRAIN_STEPS_PER_EPOCH,
+                "SEED": 0, "SHUFFLE": True, "BATCH_SIZE": BATCH,
+                "NUM_WORKER": 8, "LOAD_NUM": 4,
+                "DEVICE_AUG": {"SIZE": 640, "TILE": 320},
+            },
+            "VAL": val_stage(VAL_IMAGES),
+            "INFER": val_stage(BATCH),
+        },
+        "USE_MODEL": FLAGSHIP_MODEL,
+        "EVALUATOR": {"NAME": "coco_detection", "EVAL_TYPE": "mAP",
+                      "EVAL_INTERVALS": 1},
+        "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+        "N_EPOCHS_TO_SAVE_MODEL": 1,
+        "N_MAX_EPOCHS": TRAIN_EPOCHS,
+        "INIT_LR": 0.01,
+        "SCALE_LR": 0,
+        "OPTIMIZER": {"TYPE": "SGD", "MOMENTUM": 0.937,
+                      "WEIGHT_PARAMS": {"weight_decay": 0.0005},
+                      "BIAS_LR_MULTIPLIER": 1},
+        "LR_SCHEDULER": {"TYPE": "LambdaLR", "LRF": 0.1},
+        "WARMUP": {"NAME": "linear", "ITERS": 1000, "FACTOR": 0.1},
+        "AMP": True,
+        "EMA": True,
+        "PATIENCE": 100,
+        "GRAD_CLIP": {"TYPE": "norm", "VALUE": 10.0},
+        "N_ITERS_TO_DISPLAY_STATUS": 4,
+        "TENSORBOARD": False,
+    }
+    path = workdir / "coco_yolov5_s_train_synthetic.json"
     path.write_text(json.dumps(cfg))
     return path
 
@@ -320,7 +411,8 @@ def seeded_weights(model, seed: int, obj_bias: float = 6.0) -> None:
             getattr(model.detect, f"m{i}").bias.view(-1, no)[:, 4] += obj_bias
 
 
-def check_predictions(path: Path, n_images: int, num_classes: int) -> int:
+def check_predictions(path: Path, n_images: int, num_classes: int,
+                      min_dets: int = 1) -> int:
     preds = json.loads(path.read_text())
     if len(preds) != n_images:
         raise AssertionError(f"{len(preds)} predictions for {n_images} images")
@@ -330,7 +422,7 @@ def check_predictions(path: Path, n_images: int, num_classes: int) -> int:
         scores = np.asarray(p["scores"], np.float64)
         labels = np.asarray(p["labels"])
         n = len(labels)
-        if not (len(boxes) == len(scores) == n and 0 < n <= 300):
+        if not (len(boxes) == len(scores) == n and min_dets <= n <= 300):
             raise AssertionError(f"malformed prediction with {n} detections")
         if not (np.isfinite(boxes).all() and (boxes >= 0).all()
                 and (boxes <= 640).all() and (boxes[:, 2:] >= boxes[:, :2]).all()):
@@ -338,35 +430,44 @@ def check_predictions(path: Path, n_images: int, num_classes: int) -> int:
         if not ((scores > 0).all() and (scores <= 1).all()
                 and (np.diff(scores) <= 0).all()):
             raise AssertionError("scores not in (0, 1] and descending")
-        if not (labels.dtype.kind == "i" and (labels >= 0).all()
+        if not (all(isinstance(x, int) for x in p["labels"]) and (labels >= 0).all()
                 and (labels < num_classes).all()):
             raise AssertionError("labels not class ids")
         total += n
     return total
 
 
-def profile_predict(predict, images, steps: int = 3, top: int = 12) -> dict:
-    """torch.profiler over ``steps`` predict calls: device time per call by
-    kernel (the ``top`` largest) and the device's busy share of the wall."""
+def profile_device(fn, steps: int = 3, top: int = 12) -> dict:
+    """torch.profiler over ``steps`` calls of ``fn``: device time per call by
+    kernel (the ``top`` largest) and the device's busy share of the wall.
+    Ranges that code marks with ``record_function`` (``Optimizer.step``)
+    come back as device events too; they span kernels counted already, so
+    they are listed apart (``annotated_ms``: first to last kernel in the
+    range) and left out of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    predict(images)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            predict(images)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+    annotated = [e for e in on_device if getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in on_device if e not in annotated]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     return {
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
+        "device_ops_per_call": sum(e.count for e in kernels) / steps,
+        "annotated_ms": {e.key: e.self_device_time_total / 1e3 / steps
+                         for e in annotated},
         "top": [{"kernel": e.key[:90],
                  "ms": e.self_device_time_total / 1e3 / steps,
                  "calls": e.count / steps} for e in kernels[:top]],
@@ -503,8 +604,8 @@ def path_phase(workdir: Path) -> dict:
     path_nms_ms = nms_event_ms(path_boxes, path_thr)
     print(f"nms_keep on the path's input {tuple(path_boxes.shape)} thr "
           f"{path_thr}: {path_nms_ms} ms", flush=True)
-    print(json.dumps({"bs32_predict_profile": profile_predict(predict, images)}))
-    print(json.dumps({"bs1_predict_profile": profile_predict(predict, one, top=5)}))
+    print(json.dumps({"bs32_predict_profile": profile_device(lambda: predict(images))}))
+    print(json.dumps({"bs1_predict_profile": profile_device(lambda: predict(one), top=5)}))
     return {
         "launches": launches,
         "bs1_predict_ms_p50": float(np.median(bs1)),
@@ -524,6 +625,261 @@ def path_phase(workdir: Path) -> dict:
     }, (path_boxes, path_thr)
 
 
+def _tree(batch, fn):
+    if isinstance(batch, dict):
+        return {k: _tree(v, fn) for k, v in batch.items()}
+    return fn(batch) if hasattr(batch, "device") else batch
+
+
+def train_phase(workdir: Path) -> dict:
+    """YOLOv5-s 640 trained through ``Trainer.run()`` on the card, then its
+    last checkpoint served through ``infer.main``."""
+    import torch
+
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+
+    workdir.mkdir()
+    setting = train_config(workdir)
+    cfg = CommonConfiguration.from_file(str(setting))
+    trainer = trainer_mod.Trainer(cfg)  # on cuda, the entry point's default
+
+    # instruments, outside the port: each step's loss (read after the run,
+    # so no step waits for it), and the wall time of every epoch and of
+    # the evaluator's calls
+    losses, times = [], {"train_epoch": [], "val_epoch": [], "evaluator": 0.0}
+    real_make_train_step = trainer_mod.make_train_step
+
+    def recording_make_train_step(*args, **kwargs):
+        step = real_make_train_step(*args, **kwargs)
+
+        def recorded(state, batch):
+            state, metrics = step(state, batch)
+            losses.append(metrics["loss"])
+            return state, metrics
+        return recorded
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if key == "evaluator":
+                times[key] += time.perf_counter() - t0
+            else:
+                times[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    trainer.train_epoch = timed(trainer.train_epoch, "train_epoch")
+    trainer.val_epoch = timed(trainer.val_epoch, "val_epoch")
+    trainer.evaluator.update = timed(trainer.evaluator.update, "evaluator")
+    trainer.evaluator.evaluate = timed(trainer.evaluator.evaluate, "evaluator")
+    trainer_mod.make_train_step = recording_make_train_step
+    try:
+        # the main path of this phase, counts read just around it
+        nms_keep.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = nms_keep.launches
+    finally:
+        trainer_mod.make_train_step = real_make_train_step
+    steps = TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS
+    loss = torch.stack(losses).float().cpu()
+    if len(losses) != steps or state.step != steps:
+        raise AssertionError(f"{len(losses)} losses, state at step {state.step}, "
+                             f"for {steps} steps")
+    if not bool(torch.isfinite(loss).all()):
+        raise AssertionError(f"non-finite train loss: {loss.tolist()}")
+    val_batches = -(-VAL_IMAGES // BATCH) * TRAIN_EPOCHS
+    if launches != val_batches:
+        raise AssertionError(f"nms_keep launched {launches} times for "
+                             f"{val_batches} val batches")
+    saved = sorted(p.name for p in Path(trainer.checkpoints.save_dir).iterdir())
+    if saved != ["best.pt", "deploy.pt", "last.pt"]:
+        raise AssertionError(f"checkpoints written: {saved}")
+    print(f"Trainer.run(): {steps} steps in {run_s:.2f} s (host clock, from "
+          f"model build to the last checkpoint), losses {loss.tolist()}, "
+          f"nms_keep launches {launches} for {val_batches} val batches, "
+          f"checkpoints {saved}", flush=True)
+
+    # the last checkpoint serves one batch through the infer CLI
+    nms_keep.launches = 0
+    infer.main(["--setting", str(setting), "--checkpoint",
+                str(Path(trainer.checkpoints.save_dir) / "last.pt"),
+                "--out", str(workdir / "served")])
+    if nms_keep.launches != 1:
+        raise AssertionError(f"serving the checkpoint launched nms_keep "
+                             f"{nms_keep.launches} times for 1 batch")
+    n_dets = check_predictions(workdir / "served" / "predictions.json", BATCH,
+                               len(trainer.dictionary), min_dets=0)
+    print(f"infer.main on the trained checkpoint: {BATCH} images, {n_dets} "
+          "detections", flush=True)
+    n_train = BATCH * TRAIN_STEPS_PER_EPOCH
+    return {
+        "steps": steps,
+        "launches": launches,
+        "loss_first": float(loss[0]), "loss_last": float(loss[-1]),
+        "run_s": run_s,
+        "epoch_s": times["train_epoch"],
+        "fed_images_per_s_epoch2": n_train / times["train_epoch"][-1],
+        "val_epoch_s": times["val_epoch"],
+        "val_evaluator_s": times["evaluator"] / TRAIN_EPOCHS,
+        "val_evaluator_share": times["evaluator"] / sum(times["val_epoch"]),
+        "served_detections": n_dets,
+    }, trainer
+
+
+def raw_train_batch(trainer) -> dict:
+    """The first host batch of the train loader (raw tiles), on the card,
+    tagged as step 0 of epoch 0."""
+    import torch
+
+    host = next(iter(trainer.dataloaders["train"]))
+    return {"image": torch.from_numpy(host["image"]).cuda(),
+            "target": {**{k: torch.from_numpy(v).cuda()
+                          for k, v in host["target"].items()},
+                       "epoch": 0, "aug_step": 0}}
+
+
+def train_timing(trainer) -> dict:
+    """The train step at bs32 on one augmented batch already on the card,
+    by CUDA events over 10 steps after 3 warm-up steps, AMP and f32; the
+    device augmentation of one batch; the peak memory of each step."""
+    import torch
+
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.train_state import create_train_state, make_train_step
+    from cvpytorch_tpu_torch.infer import build_model
+
+    raw = raw_train_batch(trainer)
+    preprocess = trainer._device_aug_preprocess()
+    aug_ms = cuda_time_ms(lambda: preprocess(raw), iters=10)
+    batch = preprocess(raw)
+
+    def fresh_state():
+        torch.manual_seed(0)
+        model = build_model(trainer.cfg, trainer.dictionary).to(
+            "cuda", memory_format=torch.channels_last)
+        opt = build_optimizer(trainer.cfg, model, trainer.lr_schedule)
+        return create_train_state(model, opt, use_ema=True)
+
+    out = {"device_aug_ms": aug_ms}
+    for name, amp in (("amp", True), ("f32", False)):
+        state = fresh_state()
+        step = make_train_step(amp=amp, ema_decay=0.9999)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(lambda: step(state, batch), iters=10, warmup=3)
+        out[f"{name}_step_ms"] = ms
+        out[f"{name}_images_per_s"] = BATCH / ms * 1e3
+        out[f"{name}_max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del state
+    out["kept_boxes_per_image"] = float(batch["target"]["valid"].sum()) / BATCH
+    out.update(host_data_timing(trainer))
+    return out, batch
+
+
+def host_data_timing(trainer) -> dict:
+    """The host's side of the fed rate, with no device work: the train
+    loader's rate over one epoch (its worker threads drawing the
+    synthetic samples and the collate letterboxing their tiles), and on
+    one thread the draw of one item (a LOAD_NUM group of 4 raw 640²
+    samples) and the collate of one batch of such items."""
+    loader = trainer.dataloaders["train"]
+    ds, collate = loader.dataset, loader.collate_fn
+    t0 = time.perf_counter()
+    n = sum(len(b["image"]) for b in loader)
+    loader_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    items = [ds[i] for i in range(BATCH)]
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    collate(items)
+    collate_s = time.perf_counter() - t0
+    return {"host_loader_images_per_s": n / loader_s,
+            "host_item_draw_ms_one_thread": draw_s * 1e3 / BATCH,
+            "host_collate_ms_one_thread": collate_s * 1e3}
+
+
+def train_step_check(trainer, batch) -> dict:
+    """One f32 train step (TF32 off) of YOLOv5-s at 640², B = 2, from the
+    same seeded weights on one fixed batch, on the card and on the CPU;
+    then one AMP step on the card from the same weights."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.train_state import create_train_state, make_train_step
+
+    two = _tree(batch, lambda t: t[:2] if t.dim() else t)
+    torch.manual_seed(1)
+    base = build_model(trainer.cfg, trainer.dictionary)
+    results = {}
+    for name, device, amp in (("cpu_f32", "cpu", False), ("card_f32", "cuda", False),
+                              ("card_amp", "cuda", True)):
+        model = copy.deepcopy(base).to(device, memory_format=torch.channels_last)
+        opt = build_optimizer(trainer.cfg, model, trainer.lr_schedule)
+        state = create_train_state(model, opt, use_ema=True)
+        _, metrics = make_train_step(amp=amp, ema_decay=0.9999)(
+            state, _tree(two, lambda t: t.to(device)))
+        results[name] = (float(metrics["loss"]),
+                         {k: v.detach().float().cpu() for k, v in model.state_dict().items()})
+    ref_loss, ref = results["cpu_f32"]
+    card = results["card_f32"][1]
+    before = base.state_dict()
+    loss_rel = abs(results["card_f32"][0] - ref_loss) / abs(ref_loss)
+    amp_rel = abs(results["card_amp"][0] - results["card_f32"][0]) / abs(results["card_f32"][0])
+
+    def worst(rel):  # (largest relative difference, its tensor) over the floats
+        return max((rel(k, v), k) for k, v in ref.items() if v.is_floating_point())
+
+    param_rel, param_at = worst(lambda k, v: float(
+        (card[k] - v).abs().max() / max(float(v.abs().max()), 1e-12)))
+    # the same against the size of the step's change of each tensor
+    update_rel, update_at = worst(lambda k, v: float(
+        (card[k] - v).abs().max()
+        / max(float((v - before[k].float()).abs().max()), 1e-12)))
+    out = {"loss_cpu_f32": ref_loss, "loss_card_f32": results["card_f32"][0],
+           "loss_card_amp": results["card_amp"][0], "loss_rel_card_vs_cpu": loss_rel,
+           "max_param_rel_card_vs_cpu": param_rel, "max_param_rel_at": param_at,
+           "max_update_rel_card_vs_cpu": update_rel, "max_update_rel_at": update_at,
+           "loss_rel_amp_vs_f32": amp_rel}
+    if not loss_rel <= 1e-4:
+        raise AssertionError(f"f32 train-step loss, card vs CPU: {loss_rel:.3g} relative")
+    if not amp_rel <= 5e-2:
+        raise AssertionError(f"AMP train-step loss vs f32: {amp_rel:.3g} relative")
+    return out
+
+
+def _profiled_train_state(trainer):
+    """One AMP train step of a fresh YOLOv5-s, with the device augmentation
+    of a raw batch on the card inside it, and that augmentation alone, as
+    callables for the profiler."""
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.train_state import create_train_state, make_train_step
+
+    torch.manual_seed(0)
+    model = build_model(trainer.cfg, trainer.dictionary).to(
+        "cuda", memory_format=torch.channels_last)
+    state = create_train_state(
+        model, build_optimizer(trainer.cfg, model, trainer.lr_schedule), use_ema=True)
+    step = make_train_step(amp=True, ema_decay=0.9999,
+                           preprocess=trainer._device_aug_preprocess())
+    raw = raw_train_batch(trainer)
+    preprocess = trainer._device_aug_preprocess()
+    return lambda: step(state, raw), lambda: preprocess(raw)
+
+
 def main() -> int:
     import torch
 
@@ -532,9 +888,10 @@ def main() -> int:
         return 1
     from cvpytorch_tpu_torch.ops import nms_kernel  # raises outside the repo
 
-    print("TF32: turned off by the CLI's predict step and off in every "
-          "comparison (cudnn.allow_tf32=False, cuda.matmul.allow_tf32="
-          "False); cuDNN's on only for bs32_images_per_s_tf32_convs")
+    print("TF32: turned off by the port's step makers (predict, train, eval) "
+          "and off in every comparison (cudnn.allow_tf32=False, "
+          "cuda.matmul.allow_tf32=False); cuDNN's on only for "
+          "bs32_images_per_s_tf32_convs")
     card = gpu_name_and_power()
     print(f"build nms_kernel: {build_kernels():.2f} s "
           f"({nms_kernel.library_path().name}); -Xptxas -v:", flush=True)
@@ -542,10 +899,27 @@ def main() -> int:
     times = kernel_timing()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         path, path_input = path_phase(Path(tmp))
-    print(json.dumps({"path": path, "card": card}))
-    checks = kernel_checks()
-    # the profiler last: its sessions slow the host's launches afterwards
-    split = device_phase({**times.pop("inputs"), "path_input": path_input})
+        print(json.dumps({"path": path, "card": card}))
+        train, trainer = train_phase(Path(tmp) / "train")
+        print(json.dumps({"train": train, "card": card}))
+        timing, aug_batch = train_timing(trainer)
+        print(json.dumps({"train_timing": timing, "card": card}))
+        check = train_step_check(trainer, aug_batch)
+        print(json.dumps({"train_step_check": check, "card": card}))
+        checks = kernel_checks()
+        # the profiler last: its sessions slow the host's launches afterwards
+        split = device_phase({**times.pop("inputs"), "path_input": path_input})
+        train_step_fn, aug_fn = _profiled_train_state(trainer)
+        print(json.dumps({"device_aug_profile": profile_device(aug_fn, steps=3, top=8),
+                          "card": card}), flush=True)
+        train_profile = profile_device(train_step_fn, steps=3, top=15)
+        # the idle share against the step's wall without the profiler: the
+        # AMP step and the device augmentation, each timed by CUDA events
+        # before any profiler session
+        train_profile["device_idle_share_unprofiled"] = 1 - train_profile[
+            "device_busy_ms"] / (timing["amp_step_ms"] + timing["device_aug_ms"])
+        print(json.dumps({"amp_train_step_profile": train_profile, "card": card}),
+              flush=True)
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
     print(json.dumps({"nms_keep_B1_K1024": {**times["B1"], **split["B1"],
@@ -555,7 +929,8 @@ def main() -> int:
         "route": "cuda",
         "source": "cvpytorch_tpu_torch/csrc/nms_kernel.cu",
         "replaces": "cvpytorch_tpu/ops/pallas/nms_kernel.py:23",
-        "launches": path["launches"],
+        "launches": train["launches"],
+        "launches_by_path": {"infer": path["launches"], "train": train["launches"]},
         "max_abs_err": checks["max_abs_err"],
         "ms": times["B32"]["ms"],
         "plain_ms": times["B32"]["plain_ms"],

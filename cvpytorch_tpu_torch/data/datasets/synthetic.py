@@ -1,7 +1,13 @@
 """Synthetic detection data (counterpart of ``SyntheticDetection`` in
 ``cvpytorch_tpu/data/datasets/synthetic.py``): the same seeds give the same
-images and boxes as the JAX package."""
+images and boxes as the JAX package.
+
+A train-stage ``LOAD_NUM`` > 1 makes each item a group: the indexed sample
+and ``LOAD_NUM - 1`` others drawn with Python's ``random`` (the mosaic
+fan-in of the device augmentation)."""
 from __future__ import annotations
+
+import random
 
 import numpy as np
 
@@ -26,11 +32,18 @@ class SyntheticDetection(Dataset):
             int(getattr(data_cfg, "SEED", None) or 0) + (1 if stage != "train" else 0)
         )
         self._seeds = self._rng.randint(0, 2**31 - 1, size=self.length)
+        self.load_num = int(getattr(data_cfg, "LOAD_NUM", None) or 1) \
+            if stage == "train" else 1
 
     def __len__(self):
         return self.length
 
     def __getitem__(self, idx):
+        if self.load_num > 1:
+            group = [self._load_one(i) for i in
+                     [idx] + [random.randrange(self.length)
+                              for _ in range(self.load_num - 1)]]
+            return self.transform(group) if self.transform else group
         sample = self._load_one(idx)
         return self.transform(sample) if self.transform else sample
 

@@ -1,20 +1,29 @@
-"""Host data loader with background prefetch (counterpart of
+"""Host data loader and device prefetcher (counterpart of
 ``cvpytorch_tpu/data/loader.py``).
 
-Thread-pool sample fetch with ordered batch assembly and a bounded
-background queue of ready batches.  Batches are numpy; the caller moves
-them to the device.  This is the serving loader: samples in dataset
-order, the last batch may be short.  Shuffling, epochs and the CUDA-stream
-device prefetcher come with the training slice.
+``DataLoader``: thread-pool sample fetch with ordered batch assembly and a
+bounded background queue of ready numpy batches.  With ``shuffle`` the
+order of an epoch is ``np.random.RandomState(seed + epoch)``'s shuffle of
+the indices, as in the JAX package (single process, so no host sharding).
+
+``DevicePrefetcher``: a depth-2 feed of batches already on the device.  A
+producer thread pulls host batches and, on ``cuda``, copies every array
+into pinned host memory and from there ``non_blocking`` to the card on a
+side stream, so that the copy of batch k+1 overlaps the step on batch k.
+The consumer's stream waits for the side stream, and every tensor handed
+out is recorded on the consumer's stream, so that the caching allocator
+does not reuse its memory while the step still reads it.  On the CPU the
+transfer is ``torch.from_numpy``.
 """
 from __future__ import annotations
 
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator
 
 import numpy as np
+import torch
 
 PREFETCH = 2  # ready batches queued ahead of the consumer
 
@@ -37,16 +46,36 @@ def default_collate(samples: list[dict]) -> dict:
 
 
 class DataLoader:
-    def __init__(self, dataset, batch_size: int = 1, num_workers: int = 4):
+    def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
+                 num_workers: int = 4, collate_fn: Callable | None = None,
+                 drop_last: bool = False, seed: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
         self.num_workers = max(num_workers, 1)
+        self.collate_fn = collate_fn or default_collate
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def _indices(self) -> np.ndarray:
+        idx = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        return idx
 
     def __len__(self) -> int:
-        return -(-len(self.dataset) // self.batch_size)
+        n = len(self.dataset)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[dict]:
-        n, n_batches = len(self.dataset), len(self)
+        indices = self._indices()
+        n_batches = len(self)
         out_q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
 
@@ -55,11 +84,10 @@ class DataLoader:
                 for b in range(n_batches):
                     if stop.is_set():
                         return
-                    chunk = range(b * self.batch_size,
-                                  min((b + 1) * self.batch_size, n))
+                    chunk = indices[b * self.batch_size:(b + 1) * self.batch_size]
                     try:
                         samples = list(pool.map(self.dataset.__getitem__, chunk))
-                        out_q.put(default_collate(samples))
+                        out_q.put(self.collate_fn(samples))
                     except Exception as e:  # surface worker errors to consumer
                         out_q.put(e)
                         return
@@ -83,3 +111,79 @@ class DataLoader:
                     out_q.get_nowait()
                 except queue.Empty:
                     break
+
+
+def map_arrays(tree, fn):
+    """Applies ``fn`` to every numpy array (ndim ≥ 1) of a nested batch;
+    numpy scalars become Python numbers, everything else passes through."""
+    if isinstance(tree, dict):
+        return {k: map_arrays(v, fn) for k, v in tree.items()}
+    if isinstance(tree, np.ndarray) and tree.ndim:
+        return fn(tree)
+    if isinstance(tree, np.generic):
+        return tree.item()
+    return tree
+
+
+class DevicePrefetcher:
+    """Iterates ``iterator``'s host batches as batches on ``device``,
+    ``depth`` of them transferred ahead (see the module docstring).  An
+    exception in the producer is raised in the consumer."""
+
+    def __init__(self, iterator, device, depth: int = 2):
+        self.device = torch.device(device)
+        self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))
+        self._stop = threading.Event()
+        self._side = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+        def producer():
+            try:
+                for batch in iterator:
+                    if self._stop.is_set():
+                        return
+                    self._q.put(self._transfer(batch))
+            except Exception as e:  # surfaced in the consumer
+                self._q.put(e)
+                return
+            self._q.put(None)
+
+        self._thread = threading.Thread(target=producer, daemon=True)
+        self._thread.start()
+
+    def _transfer(self, batch):
+        if self._side is None:
+            return map_arrays(batch, lambda a: torch.from_numpy(a).to(self.device))
+        with torch.cuda.stream(self._side):
+            return map_arrays(batch, lambda a: torch.from_numpy(a).pin_memory()
+                               .to(self.device, non_blocking=True))
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self._q.get()
+        if item is None:
+            raise StopIteration
+        if isinstance(item, Exception):
+            raise item
+        if self._side is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_stream(self._side)
+            _map_tensors(item, lambda t: t.record_stream(current))
+        return item
+
+    def close(self):
+        self._stop.set()
+        while self._thread.is_alive():
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                self._thread.join(timeout=0.01)
+
+
+def _map_tensors(tree, fn):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _map_tensors(v, fn)
+    elif isinstance(tree, torch.Tensor):
+        fn(tree)

@@ -3,8 +3,8 @@
 
 The task namespace is selected by the dictionary name
 (``DATASET.DICTIONARY_NAME``) and the pipeline is the *ordered*
-``TRANSFORMS:`` mapping of TransformName → kwargs.  This slice ports the
-detection namespace's serving transforms.
+``TRANSFORMS:`` mapping of TransformName → kwargs.  The port has the
+detection namespace so far.
 """
 from __future__ import annotations
 

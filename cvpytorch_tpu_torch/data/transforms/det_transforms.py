@@ -1,13 +1,20 @@
-"""Detection serving transforms (counterpart of
+"""Detection transforms and collates (counterpart of
 ``cvpytorch_tpu/data/transforms/det_transforms.py``): letterbox ``Resize``,
-``ToTensor`` and ``Normalize``.  Samples are ``{'image': HWC uint8 BGR,
-'target': {'boxes': (N,4) xyxy pixels float32, 'labels': (N,)} or None}``.
+``RandomHorizontalFlip``, ``ToTensor``, ``Normalize``, the padded
+``make_det_collate`` and the ``make_device_aug_collate`` of the device
+augmentation.  Samples are ``{'image': HWC uint8 BGR, 'target': {'boxes':
+(N,4) xyxy pixels float32, 'labels': (N,)} or None}``.
 
 The JAX package resizes with OpenCV; the port needs no OpenCV: it resizes
 with ``torch.nn.functional.interpolate`` (bilinear, align_corners=False,
 on the CPU) and pads with numpy.  The two agree within ±1 uint8 level.
+The JAX transforms built on OpenCV (``NEEDS_OPENCV``) are not ported yet;
+naming one raises a ``KeyError``.  Train with ``DEVICE_AUG`` instead: its
+mosaic, affine, HSV and flip run on the device (``ops/augment.py``).
 """
 from __future__ import annotations
+
+import random
 
 import numpy as np
 import torch
@@ -72,6 +79,23 @@ class Resize:
         return sample
 
 
+class RandomHorizontalFlip:
+    def __init__(self, p=0.5):
+        self.p = p
+
+    def __call__(self, sample):
+        if random.random() < self.p:
+            img = sample["image"]
+            w = img.shape[1]
+            sample["image"] = np.ascontiguousarray(img[:, ::-1])
+            t = sample.get("target")
+            if t is not None and len(t["boxes"]):
+                boxes = t["boxes"].copy()
+                boxes[:, [0, 2]] = w - t["boxes"][:, [2, 0]]
+                t["boxes"] = boxes
+        return sample
+
+
 class ToTensor:
     """BGR→RGB float HWC /255."""
 
@@ -95,8 +119,103 @@ class Normalize:
         return sample
 
 
-DET_TRANSFORMS = {
+NEEDS_OPENCV = ("ColorHSV", "RandomAffine", "RandomAffineWithMosaic",
+                "GaussianBlur", "MedianBlur", "RandomGrayscale", "RandomGamma",
+                "EqualizeHist", "CLAHE")
+
+
+class _Transforms(dict):
+    def __missing__(self, name):
+        if name in NEEDS_OPENCV:
+            raise KeyError(
+                f"{name} is built on OpenCV in the JAX package and is not "
+                "ported yet (ROADMAP, Queue 1); train with DATASET.TRAIN."
+                "DEVICE_AUG, which runs mosaic, affine, HSV and flip on the device")
+        raise KeyError(f"no detection transform {name!r} in the port")
+
+
+DET_TRANSFORMS = _Transforms({
     "Resize": Resize,
+    "RandomHorizontalFlip": RandomHorizontalFlip,
     "ToTensor": ToTensor,
     "Normalize": Normalize,
-}
+})
+
+
+def make_device_aug_collate(max_boxes: int = 32, tile: int = 640,
+                            fill=(114, 114, 114)):
+    """Collate for the DEVICE_AUG path: each dataset item is a LOAD_NUM=4
+    group of raw samples; the host letterboxes each to ``tile``² uint8 and
+    stacks them to (B, 4, S, S, 3).  Mosaic, affine, HSV, flip and
+    normalise run on the device (``ops.augment.fused_det_augment``)."""
+    resize = Resize((tile, tile), keep_ratio=True, fill=fill)
+
+    def collate(samples):
+        B = len(samples)
+        images = np.zeros((B, 4, tile, tile, 3), np.uint8)
+        boxes = np.zeros((B, 4, max_boxes, 4), np.float32)
+        labels = np.zeros((B, 4, max_boxes), np.int32)
+        valid = np.zeros((B, 4, max_boxes), bool)
+        for i, group in enumerate(samples):
+            if not (isinstance(group, (list, tuple)) and len(group) == 4):
+                raise ValueError("DEVICE_AUG needs LOAD_NUM: 4 and no host "
+                                 "mosaic transform")
+            for j, s in enumerate(group):
+                s = resize({"image": s["image"], "target": s.get("target")})
+                images[i, j] = s["image"]
+                t = s.get("target")
+                if t is None or not len(t["boxes"]):
+                    continue
+                n = min(len(t["boxes"]), max_boxes)
+                boxes[i, j, :n] = t["boxes"][:n]
+                labels[i, j, :n] = t["labels"][:n]
+                valid[i, j, :n] = True
+        return {"image": images,
+                "target": {"boxes": boxes, "labels": labels, "valid": valid}}
+
+    return collate
+
+
+def make_det_collate(max_boxes: int = 64):
+    """Padded fixed-shape detection batch: targets padded to ``max_boxes``
+    with a validity mask, plus the letterbox ``pads``/``scales``, the image
+    ``height``/``width`` and ``image_id``.  (The JAX collate also pads
+    masks, keypoints and areas for the families that have them; they come
+    with those families.)"""
+
+    def det_collate(samples):
+        images = np.stack([s["image"] for s in samples])
+        B = len(samples)
+        boxes = np.zeros((B, max_boxes, 4), np.float32)
+        labels = np.zeros((B, max_boxes), np.int32)
+        valid = np.zeros((B, max_boxes), bool)
+        pads = np.zeros((B, 2), np.float32)
+        scales = np.ones((B, 2), np.float32)
+        heights = np.zeros((B,), np.int32)
+        widths = np.zeros((B,), np.int32)
+        img_ids = np.zeros((B,), np.int64)
+        for i, s in enumerate(samples):
+            t = s.get("target")
+            heights[i], widths[i] = s["image"].shape[:2]
+            if t is None:
+                continue
+            n = min(len(t["boxes"]), max_boxes)
+            if n:
+                boxes[i, :n] = t["boxes"][:n]
+                labels[i, :n] = t["labels"][:n]
+                valid[i, :n] = True
+            pads[i] = t.get("pads", (0, 0))
+            scales[i] = t.get("scales", (1, 1))
+            if "height" in t:
+                heights[i] = t["height"]
+            if "width" in t:
+                widths[i] = t["width"]
+            img_ids[i] = t.get("image_id", i)
+        target = {
+            "boxes": boxes, "labels": labels, "valid": valid,
+            "pads": pads, "scales": scales,
+            "height": heights, "width": widths,
+        }
+        return {"image": images, "target": target, "image_id": img_ids}
+
+    return det_collate

@@ -1,0 +1,20 @@
+"""Evaluator factory (counterpart of ``cvpytorch_tpu/evaluator/__init__.py``):
+selects by ``cfg.EVALUATOR.NAME``.  The port has the COCO box protocol."""
+from __future__ import annotations
+
+from ..registry import EVALUATORS
+from . import coco  # noqa: F401  (registers)
+
+
+def build_evaluator(cfg, dataset=None):
+    ev_cfg = cfg.EVALUATOR or {}
+    name = ev_cfg.get("NAME", "classification")
+    kwargs = {}
+    if ev_cfg.get("EVAL_TYPE"):
+        kwargs["eval_type"] = ev_cfg.get("EVAL_TYPE")
+    if ev_cfg.get("IOU_TYPES"):
+        kwargs["iou_types"] = tuple(ev_cfg.get("IOU_TYPES"))
+    if name not in EVALUATORS:
+        raise KeyError(f"evaluator {name!r} is not ported yet (ROADMAP, "
+                       "Queue 1); the port has coco_detection")
+    return EVALUATORS.get(name)(dataset=dataset, **kwargs)

@@ -1,0 +1,275 @@
+"""COCO-protocol box evaluator (a copy of the box path of
+``cvpytorch_tpu/evaluator/coco.py``, numpy only).
+
+Protocol (pycocotools ``cocoeval.py`` semantics):
+* IoU thresholds 0.50:0.05:0.95, 101 recall points;
+* area ranges all/small/medium/large on GT (and unmatched-det) areas;
+* maxDets sweep [1, 10, 100];
+* crowd GT are ignore-matched with IoU = intersection/det_area and may
+  match many detections;
+* greedy best-IoU matching in score order, non-ignored GT preferred;
+* the 12-metric summary (mAP, AP_50, AP_75, AP_small/medium/large,
+  Recall_1/10/100, Recall_small/medium/large), prefixed ``bbox_``, and
+  ``performance`` = the ``eval_type`` metric.
+
+The matcher is the JAX package's pure-Python loop; its native C matcher
+(``cvpytorch_tpu/native``) is not copied yet, so evaluation costs host
+time that grows with detections × ground truth.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ..registry import EVALUATORS
+from .base import BaseEvaluator
+
+IOU_THRS = np.round(np.arange(0.5, 1.0, 0.05), 2)          # T = 10
+RECALL_POINTS = np.round(np.linspace(0.0, 1.00, 101), 2)    # R = 101
+MAX_DETS = (1, 10, 100)                                     # M = 3
+AREA_RNG = {
+    "all": (0.0, 1e10),
+    "small": (0.0, 32.0 ** 2),
+    "medium": (32.0 ** 2, 96.0 ** 2),
+    "large": (96.0 ** 2, 1e10),
+}
+AREA_KEYS = ("all", "small", "medium", "large")
+
+
+def _box_iou(dt, gt, crowd):
+    """IoU matrix (D, G); crowd GT use intersection/det_area."""
+    lt = np.maximum(dt[:, None, :2], gt[None, :, :2])
+    rb = np.minimum(dt[:, None, 2:], gt[None, :, 2:])
+    wh = np.clip(rb - lt, 0, None)
+    inter = wh[..., 0] * wh[..., 1]
+    area_d = np.clip(dt[:, 2] - dt[:, 0], 0, None) * \
+        np.clip(dt[:, 3] - dt[:, 1], 0, None)
+    area_g = np.clip(gt[:, 2] - gt[:, 0], 0, None) * \
+        np.clip(gt[:, 3] - gt[:, 1], 0, None)
+    union = area_d[:, None] + area_g[None, :] - inter
+    denom = np.where(crowd[None, :], area_d[:, None], union)
+    return inter / np.maximum(denom, 1e-9)
+
+
+def _box_areas(b):
+    return np.clip(b[:, 2] - b[:, 0], 0, None) * np.clip(b[:, 3] - b[:, 1], 0, None)
+
+
+def _evaluate_img(ious, gt_ignore_base, gt_crowd, gt_areas, dt_areas,
+                  area_rng):
+    """COCOeval's evaluateImg matching for one (img, cat, areaRng).
+
+    ious (D, G) with dets in score order; returns
+    (dt_matched (T,D) bool, dt_ignore (T,D) bool, npig)."""
+    T = len(IOU_THRS)
+    D, G = ious.shape
+    gt_ig = gt_ignore_base | (gt_areas < area_rng[0]) | (gt_areas > area_rng[1])
+    gt_order = np.argsort(gt_ig, kind="stable")  # non-ignored gts first
+    npig = int((~gt_ig).sum())
+    dtm = np.zeros((T, D), bool)
+    dtig = np.zeros((T, D), bool)
+    gtm = np.zeros((T, G), bool)
+    for t, thr in enumerate(IOU_THRS):
+        thr = min(thr, 1 - 1e-10)
+        for d in range(D):
+            best_iou = thr
+            m = -1
+            for g in gt_order:
+                if gtm[t, g] and not gt_crowd[g]:
+                    continue
+                if m > -1 and not gt_ig[m] and gt_ig[g]:
+                    break  # remaining gts all ignored; keep current
+                if ious[d, g] < best_iou:
+                    continue
+                best_iou = ious[d, g]
+                m = g
+            if m == -1:
+                continue
+            dtm[t, d] = True
+            dtig[t, d] = gt_ig[m]
+            gtm[t, m] = True
+    out_of_rng = (dt_areas < area_rng[0]) | (dt_areas > area_rng[1])
+    dtig = dtig | ((~dtm) & out_of_rng[None, :])
+    return dtm, dtig, npig
+
+
+class COCOEvalBoxes:
+    """Accumulates per-image records and produces the 12 COCO stats."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+        self.reset()
+
+    def reset(self):
+        # records[c][area] = list over images of
+        #   (scores (D,), dtm (T,D), dtig (T,D), npig)
+        self.records = [{a: [] for a in AREA_KEYS} for _ in range(self.num_classes)]
+
+    def add_image(self, gt_boxes, gt_labels, det_boxes, det_scores,
+                  det_labels, gt_crowd=None):
+        """All arrays unpadded, boxes xyxy original-image pixels."""
+        gt_boxes = np.asarray(gt_boxes, np.float64).reshape(-1, 4)
+        gt_labels = np.asarray(gt_labels).reshape(-1)
+        det_boxes = np.asarray(det_boxes, np.float64).reshape(-1, 4)
+        det_scores = np.asarray(det_scores).reshape(-1)
+        det_labels = np.asarray(det_labels).reshape(-1)
+        if gt_crowd is None:
+            gt_crowd = np.zeros(len(gt_boxes), bool)
+        gt_crowd = np.asarray(gt_crowd, bool).reshape(-1)
+        for c in range(self.num_classes):
+            g_sel = gt_labels == c
+            d_sel = det_labels == c
+            if not (g_sel.any() or d_sel.any()):
+                continue
+            gb, crowd = gt_boxes[g_sel], gt_crowd[g_sel]
+            db, ds = det_boxes[d_sel], det_scores[d_sel]
+            order = np.argsort(-ds, kind="stable")[:MAX_DETS[-1]]
+            db, ds = db[order], ds[order]
+            ious = _box_iou(db, gb, crowd)
+            gt_areas, dt_areas = _box_areas(gb), _box_areas(db)
+            for a in AREA_KEYS:
+                dtm, dtig, npig = _evaluate_img(
+                    ious, crowd.copy(), crowd, gt_areas, dt_areas, AREA_RNG[a])
+                self.records[c][a].append((ds, dtm, dtig, npig))
+
+    def _pr_curves(self, c, area, max_det):
+        """(ap (T,) or None, recall (T,) or None) for one cell."""
+        recs = self.records[c][area]
+        npig = sum(r[3] for r in recs)
+        if npig == 0:
+            return None, None
+        T = len(IOU_THRS)
+        scores = np.concatenate([r[0][:max_det] for r in recs]) \
+            if recs else np.zeros(0)
+        if scores.size == 0:
+            return np.zeros(T), np.zeros(T)
+        dtm = np.concatenate([r[1][:, :max_det] for r in recs], axis=1)
+        dtig = np.concatenate([r[2][:, :max_det] for r in recs], axis=1)
+        order = np.argsort(-scores, kind="mergesort")
+        dtm, dtig = dtm[:, order], dtig[:, order]
+        tps = dtm & ~dtig
+        fps = (~dtm) & ~dtig
+        tp_cum = np.cumsum(tps, axis=1).astype(np.float64)
+        fp_cum = np.cumsum(fps, axis=1).astype(np.float64)
+        ap = np.zeros(T)
+        rec_out = np.zeros(T)
+        for t in range(T):
+            tp, fp = tp_cum[t], fp_cum[t]
+            rc = tp / npig
+            pr = tp / np.maximum(tp + fp, np.spacing(1))
+            rec_out[t] = rc[-1] if len(rc) else 0.0
+            # monotone precision envelope (right-to-left running maximum)
+            pr = np.maximum.accumulate(pr[::-1])[::-1]
+            inds = np.searchsorted(rc, RECALL_POINTS, side="left")
+            q = np.zeros(len(RECALL_POINTS))
+            valid = inds < len(pr)
+            q[valid] = pr[inds[valid]]
+            ap[t] = q.mean()
+        return ap, rec_out
+
+    def summarize(self) -> dict:
+        C, T = self.num_classes, len(IOU_THRS)
+        cells_ap = {}   # area -> (C, T) with nan
+        cells_ar = {}   # (area, maxdet) -> (C, T)
+        for area in AREA_KEYS:
+            ap_mat = np.full((C, T), np.nan)
+            for c in range(C):
+                ap, _ = self._pr_curves(c, area, MAX_DETS[-1])
+                if ap is not None:
+                    ap_mat[c] = ap
+            cells_ap[area] = ap_mat
+        for area in AREA_KEYS:
+            for md in MAX_DETS:
+                if area != "all" and md != MAX_DETS[-1]:
+                    continue
+                ar_mat = np.full((C, T), np.nan)
+                for c in range(C):
+                    _, rec = self._pr_curves(c, area, md)
+                    if rec is not None:
+                        ar_mat[c] = rec
+                cells_ar[(area, md)] = ar_mat
+
+        def mean(x):
+            return float(np.nanmean(x)) if np.any(~np.isnan(x)) else -1.0
+
+        i75 = int(np.argmin(np.abs(IOU_THRS - 0.75)))
+        stats = {
+            "mAP": mean(cells_ap["all"]),
+            "AP_50": mean(cells_ap["all"][:, 0]),
+            "AP_75": mean(cells_ap["all"][:, i75]),
+        }
+        for area in AREA_KEYS[1:]:
+            stats[f"AP_{area}"] = mean(cells_ap[area])
+        for md in MAX_DETS:
+            stats[f"Recall_{md}"] = mean(cells_ar[("all", md)])
+        for area in AREA_KEYS[1:]:
+            stats[f"Recall_{area}"] = mean(cells_ar[(area, MAX_DETS[-1])])
+        allc = cells_ap["all"]
+        self._per_class_ap = np.where(
+            np.isnan(allc).all(axis=1), np.nan,
+            np.nanmean(np.where(np.isnan(allc), 0.0, allc), axis=1)
+            * allc.shape[1]
+            / np.maximum((~np.isnan(allc)).sum(axis=1), 1))
+        return stats
+
+
+@EVALUATORS.register(name="coco_detection", aliases=("coco",))
+class CocoEvaluator(BaseEvaluator):
+    """Trainer-facing evaluator over padded batches (numpy)."""
+
+    def __init__(self, dataset=None, num_classes: int | None = None,
+                 eval_type: str = "mAP", iou_types=("bbox",), **_):
+        super().__init__(dataset)
+        if tuple(iou_types) != ("bbox",):
+            raise NotImplementedError(
+                f"iou_types {tuple(iou_types)}: the port evaluates boxes only "
+                "so far (ROADMAP, Queue 1)")
+        self.num_classes = num_classes or getattr(dataset, "num_classes", None)
+        if not self.num_classes:
+            raise ValueError("num_classes required")
+        self.eval_type = eval_type
+        self.id2name = getattr(dataset, "id2name", {})
+        self.reset()
+
+    def reset(self):
+        self._eval = COCOEvalBoxes(self.num_classes)
+
+    def update(self, targets, preds):
+        """targets: padded dict {'boxes','labels','valid','pads','scales'
+        [,'crowd']} (GT in network pixels, un-letterboxed here); preds: the
+        NMS output dict, already un-letterboxed by the model."""
+        t_boxes = np.asarray(targets["boxes"])
+        t_labels = np.asarray(targets["labels"])
+        t_valid = np.asarray(targets["valid"])
+        B = len(t_boxes)
+        pads = np.asarray(targets.get("pads", np.zeros((B, 2))))
+        scales = np.asarray(targets.get("scales", np.ones((B, 2))))
+        t_crowd = np.asarray(targets["crowd"]) if "crowd" in targets else \
+            np.zeros(t_labels.shape, bool)
+        p_boxes = np.asarray(preds["boxes"])
+        p_scores = np.asarray(preds["scores"])
+        p_labels = np.asarray(preds["labels"])
+        p_valid = np.asarray(preds["valid"])
+        for i in range(B):
+            gv = t_valid[i]
+            gb = t_boxes[i][gv].copy()
+            if len(gb):
+                gb[:, [0, 2]] = (gb[:, [0, 2]] - pads[i, 0]) / scales[i, 0]
+                gb[:, [1, 3]] = (gb[:, [1, 3]] - pads[i, 1]) / scales[i, 1]
+            pv = p_valid[i]
+            self._eval.add_image(gb, t_labels[i][gv], p_boxes[i][pv],
+                                 p_scores[i][pv], p_labels[i][pv],
+                                 gt_crowd=t_crowd[i][gv])
+
+    def evaluate(self) -> dict:
+        stats = self._eval.summarize()
+        out = {f"bbox_{k}": v for k, v in stats.items()}
+        out["performance"] = max(stats["mAP"], 0.0)
+        out["mAP"] = stats["mAP"]
+        out["AP50"] = stats["AP_50"]
+        out["AP75"] = stats["AP_75"]
+        for c in range(self.num_classes):
+            if not np.isnan(self._eval._per_class_ap[c]):
+                out[f"AP_{self.id2name.get(c, c)}"] = float(self._eval._per_class_ap[c])
+        if self.eval_type in out:
+            out["performance"] = out[self.eval_type]
+        return out

@@ -3,8 +3,10 @@
 ``python -m cvpytorch_tpu_torch.infer --setting conf/X.yml|X.json
 --checkpoint ckpt.pt [--out out_dir] [--device cuda|cpu]`` — loads the
 config, dictionary, dataset (stage ``infer``) and model, loads the
-``torch.save``d ``state_dict``, runs the predict step over the loader and
-writes detections to ``out_dir/predictions.json``.
+weights through ``Checkpoints.load_weights_into`` (a bare ``state_dict``,
+or a trainer checkpoint, whose EMA weights it takes when it has them),
+runs the predict step over the loader and writes detections to
+``out_dir/predictions.json``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA that
 raises.  Serving is float32: making the predict step turns both TF32
@@ -27,6 +29,7 @@ from .data.loader import DataLoader
 from .data.transforms import build_transforms
 from .registry import DATASETS, MODELS
 from .train_state import make_predict_step
+from .utils.checkpoints import Checkpoints
 
 logger = logging.getLogger("cvpytorch_tpu_torch")
 
@@ -83,8 +86,7 @@ def main(argv=None):
                         num_workers=int(stage_cfg.get("NUM_WORKER", 4) or 4))
 
     model = build_model(cfg, dictionary)
-    state = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
-    model.load_state_dict(state)
+    Checkpoints.load_weights_into(model, args.checkpoint)
     model.to(device=device, memory_format=torch.channels_last)
     predict = make_predict_step(model)
 

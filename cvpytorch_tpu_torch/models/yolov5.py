@@ -5,19 +5,27 @@ CSPDarknet + PANet neck + Detect under the forward contract
 in the JAX package; the convolutions run NCHW on the ``channels_last``
 view ``images.permute(0, 3, 1, 2)``, which costs no copy.  Predictions are
 the JAX dict ``boxes/scores/labels/valid/num`` padded to ``max_det``.
-Only ``mode="infer"`` exists in this slice; the loss comes with training.
+
+Targets arrive as the padded dict of the detection collate
+(``{'boxes': (B,M,4) xyxy network pixels, 'labels', 'valid', 'pads',
+'scales', …}``).  ``mode="train"`` returns ``(total, losses)`` and
+``mode="val"`` ``(losses, predictions)``.  The loss runs in float32 on the
+raw maps cast up, outside any autocast region, so under bf16 autocast only
+the network runs in bf16.
 """
 from __future__ import annotations
 
 from typing import Any, Sequence
 
+import torch
 from torch import nn
 
-from ..ops.boxes import clip_boxes, unletterbox_boxes
+from ..ops.boxes import clip_boxes, unletterbox_boxes, xyxy_to_cxcywh
 from ..ops.nms import yolo_non_max_suppression
 from ..registry import MODELS
 from .backbones.csp_darknet import YOLOv5CSPDarknet
 from .detects.yolov5_detect import YOLOv5Detect, decode_yolov5
+from .losses.yolov5_loss import YOLOv5Loss
 from .necks.yolov5_neck import YOLOv5Neck
 
 # anchors in grid units per level
@@ -48,11 +56,36 @@ class YOLOv5(nn.Module):
         self.neck = YOLOv5Neck(self.backbone.channels, subtype=f"yolov5_{size}")
         self.detect = YOLOv5Detect(self.neck.channels,
                                    num_classes=self.num_classes)
+        loss_cfg = cfg.get("LOSS") or {}
+        self.loss = YOLOv5Loss(
+            num_classes=self.num_classes,
+            anchors=DEFAULT_ANCHORS,
+            strides=STRIDES,
+            hyp_box=float(loss_cfg.get("hyp_box", 0.05) or 0.05),
+            hyp_obj=float(loss_cfg.get("hyp_obj", 1.0) or 1.0),
+            hyp_cls=float(loss_cfg.get("hyp_cls", 0.5) or 0.5),
+        )
 
     def _raw(self, images):
         """NHWC images → list of (B, ny, nx, A, 5+C) raw maps."""
         feats = self.backbone(images.permute(0, 3, 1, 2))
         return self.detect(self.neck(feats))
+
+    def _normalized_targets(self, images, targets):
+        """xyxy pixel GT → normalised cxcywh (what the loss consumes)."""
+        h, w = images.shape[1:3]
+        scale = torch.tensor([w, h, w, h], dtype=torch.float32,
+                             device=images.device)
+        return {
+            "boxes": xyxy_to_cxcywh(targets["boxes"]) / scale,
+            "labels": targets["labels"],
+            "valid": targets["valid"],
+        }
+
+    def _loss(self, images, raw_outs, targets):
+        with torch.autocast(images.device.type, enabled=False):
+            return self.loss([r.float() for r in raw_outs],
+                             self._normalized_targets(images, targets))
 
     def _predict(self, images, raw_outs, targets=None):
         decoded = decode_yolov5(raw_outs, DEFAULT_ANCHORS, STRIDES)
@@ -71,10 +104,14 @@ class YOLOv5(nn.Module):
         return {**dets, "boxes": boxes}
 
     def forward(self, images, targets=None, mode: str = "infer"):
-        if mode in ("train", "val"):
-            raise NotImplementedError(
-                f"YOLOv5 mode={mode!r} needs the loss, which comes with the "
-                "training slice of the port")
-        if mode != "infer":
+        if mode not in ("train", "val", "infer"):
             raise ValueError(f"unknown mode {mode!r}")
-        return self._predict(images, self._raw(images), targets)
+        raw_outs = self._raw(images)
+        if mode == "train":
+            total, losses = self._loss(images, raw_outs, targets)
+            return total, {**losses, "loss": total}
+        if mode == "val":
+            total, losses = self._loss(images, raw_outs, targets)
+            preds = self._predict(images, raw_outs, targets)
+            return {**losses, "loss": total}, preds
+        return self._predict(images, raw_outs, targets)

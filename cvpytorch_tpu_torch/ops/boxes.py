@@ -2,10 +2,11 @@
 
 Boxes are ``(..., 4)`` float tensors; formats: xyxy (corner) and cxcywh
 (center).  The arithmetic follows the JAX functions op for op, so f32
-results agree bit for bit on the CPU.  ``bbox_iou`` (CIoU) comes with the
-training slice.
+results agree bit for bit on the CPU.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -33,6 +34,46 @@ def box_iou_matrix(a, b, eps: float = 1e-7):
     inter = wh[..., 0] * wh[..., 1]
     union = box_area(a)[..., :, None] + box_area(b)[..., None, :] - inter
     return inter / (union + eps)
+
+
+def bbox_iou(box1, box2, fmt: str = "xyxy", iou_type: str = "iou",
+             eps: float = 1e-7):
+    """Element-wise IoU/GIoU/DIoU/CIoU between aligned boxes.  CIoU's
+    ``alpha`` is detached, as JAX's ``stop_gradient`` keeps it out of the
+    gradient."""
+    if fmt == "cxcywh":
+        box1 = cxcywh_to_xyxy(box1)
+        box2 = cxcywh_to_xyxy(box2)
+    b1x1, b1y1, b1x2, b1y2 = box1.unbind(-1)
+    b2x1, b2y1, b2x2, b2y2 = box2.unbind(-1)
+
+    iw = (torch.minimum(b1x2, b2x2) - torch.maximum(b1x1, b2x1)).clamp(min=0)
+    ih = (torch.minimum(b1y2, b2y2) - torch.maximum(b1y1, b2y1)).clamp(min=0)
+    inter = iw * ih
+    w1, h1 = b1x2 - b1x1, b1y2 - b1y1
+    w2, h2 = b2x2 - b2x1, b2y2 - b2y1
+    union = w1 * h1 + w2 * h2 - inter + eps
+    iou = inter / union
+    if iou_type == "iou":
+        return iou
+
+    cw = torch.maximum(b1x2, b2x2) - torch.minimum(b1x1, b2x1)  # convex w
+    ch = torch.maximum(b1y2, b2y2) - torch.minimum(b1y1, b2y1)
+    if iou_type == "giou":
+        c_area = cw * ch + eps
+        return iou - (c_area - union) / c_area
+
+    c2 = cw**2 + ch**2 + eps  # convex diagonal²
+    rho2 = ((b2x1 + b2x2 - b1x1 - b1x2) ** 2 +
+            (b2y1 + b2y2 - b1y1 - b1y2) ** 2) / 4
+    if iou_type == "diou":
+        return iou - rho2 / c2
+    if iou_type == "ciou":
+        v = (4 / math.pi**2) * (torch.atan(w2 / (h2 + eps)) -
+                                torch.atan(w1 / (h1 + eps))) ** 2
+        alpha = (v / (v - iou + (1 + eps))).detach()
+        return iou - (rho2 / c2 + v * alpha)
+    raise ValueError(iou_type)
 
 
 def clip_boxes(boxes, height, width):

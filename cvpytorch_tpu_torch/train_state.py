@@ -1,12 +1,79 @@
 """Steps around the model (counterpart of ``cvpytorch_tpu/train_state.py``).
 
-This slice holds the serving side: ``prepare_images`` and the predict
-step.  The train and eval steps come with the training slice.
+``TrainState`` holds the model, its optimizer, the EMA copy and the step
+count, and the steps change it in place:
+
+* ``make_train_step`` — optional ``preprocess`` (the device augmentation),
+  forward in ``mode="train"``, backward, the optimizer's chain, EMA.  AMP
+  is ``torch.autocast(dtype=torch.bfloat16)`` around the forward: the
+  parameters stay float32 and there is no gradient scaler (bf16 has f32's
+  range); the model runs its loss in float32 on the raw maps cast up.
+  (The JAX step casts parameters and images to bf16 and runs the loss in
+  bf16.)  Without AMP the step is float32 throughout;
+* ``make_eval_step`` — ``mode="val"`` under ``inference_mode`` on the EMA
+  weights when EMA is on, float32;
+* ``make_predict_step`` — serving, ``mode="infer"``, float32.
+
+Every step maker turns both TF32 switches off for the process
+(``torch.backends.cudnn.allow_tf32``, on by PyTorch's default, and
+``torch.backends.cuda.matmul.allow_tf32``), so a float32 operation is
+float32 as in the JAX package.  They are set when the step is made, so a
+call changes no global state.
+
+EMA blends the parameters and the BN running statistics with the decay
+d·(1 − e^{−(step+1)/2000}) after each update and copies
+``num_batches_tracked``.
 """
 from __future__ import annotations
 
+import copy
+import math
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 from torch import nn
+
+
+@dataclass
+class TrainState:
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    ema: nn.Module | None = None
+    step: int = 0
+
+
+def create_train_state(model: nn.Module, optimizer, use_ema: bool = False) -> TrainState:
+    ema = copy.deepcopy(model).eval().requires_grad_(False) if use_ema else None
+    return TrainState(model=model, optimizer=optimizer, ema=ema)
+
+
+def ema_decay_schedule(base_decay: float, step: int, tau: float = 2000.0) -> float:
+    """Warmup-ramped EMA decay."""
+    return base_decay * (1.0 - math.exp(-step / tau))
+
+
+@torch.no_grad()
+def ema_blend(ema_tensors, tensors, d: float) -> None:
+    """e ← d·e + (1 − d)·p in place, with d rounded to float32 first as
+    the JAX step computes it."""
+    d = float(np.float32(d))
+    torch._foreach_mul_(ema_tensors, d)
+    torch._foreach_add_(ema_tensors, torch._foreach_mul(tensors, 1.0 - d))
+
+
+@torch.no_grad()
+def ema_update(ema: nn.Module, model: nn.Module, d: float) -> None:
+    """Blends parameters and BN running statistics; copies
+    ``num_batches_tracked``."""
+    blend_e, blend_p = list(ema.parameters()), list(model.parameters())
+    for (name, eb), b in zip(ema.named_buffers(), model.buffers()):
+        if name.endswith("num_batches_tracked"):
+            eb.copy_(b)
+        else:
+            blend_e.append(eb)
+            blend_p.append(b)
+    ema_blend(blend_e, blend_p, d)
 
 
 def prepare_images(images: torch.Tensor) -> torch.Tensor:
@@ -19,18 +86,60 @@ def prepare_images(images: torch.Tensor) -> torch.Tensor:
     return images
 
 
+def _float32_everywhere() -> None:
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def make_train_step(amp: bool = False, ema_decay: float = 0.0, preprocess=None):
+    """Returns ``train_step(state, batch) -> (state, metrics)``; ``state``
+    is updated in place and ``metrics`` are 0-dim float32 tensors on the
+    device, not synchronised.  ``preprocess`` (``batch -> batch``) runs
+    first, on the device: the device augmentation."""
+    _float32_everywhere()
+
+    def train_step(state: TrainState, batch):
+        if preprocess is not None:
+            batch = preprocess(batch)
+        model = state.model.train()
+        images = prepare_images(batch["image"])
+        with torch.autocast(images.device.type, dtype=torch.bfloat16, enabled=amp):
+            total, loss_dict = model(images, targets=batch.get("target"),
+                                     mode="train")
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        state.optimizer.step()
+        if state.ema is not None and ema_decay > 0:
+            ema_update(state.ema, model, ema_decay_schedule(ema_decay, state.step + 1))
+        state.step += 1
+        metrics = {"loss": total.detach()}
+        for k, v in loss_dict.items():
+            metrics[k] = torch.as_tensor(v, dtype=torch.float32,
+                                         device=images.device).detach()
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(use_ema: bool = False):
+    """Returns ``eval_step(state, batch) -> (loss_dict, predictions)``."""
+    _float32_everywhere()
+
+    def eval_step(state: TrainState, batch):
+        model = state.ema if (use_ema and state.ema is not None) else state.model
+        model.eval()
+        with torch.inference_mode():
+            return model(prepare_images(batch["image"]),
+                         targets=batch.get("target"), mode="val")
+
+    return eval_step
+
+
 def make_predict_step(model: nn.Module):
     """Returns ``predict_step(images) -> predictions``: the model in
     ``eval()`` under ``torch.inference_mode()``, float32, on the device the
-    images are on.
-
-    Serving is float32, as the JAX predict step is, so making the step
-    turns off both TF32 switches for the process:
-    ``torch.backends.cudnn.allow_tf32`` (on by PyTorch's default) and
-    ``torch.backends.cuda.matmul.allow_tf32``.  They are set once, when the
-    step is made, so that a call changes no global state."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    images are on."""
+    _float32_everywhere()
 
     def predict_step(images: torch.Tensor):
         model.eval()

@@ -1,0 +1,283 @@
+"""Trainer (counterpart of ``cvpytorch_tpu/trainer.py``): the epoch loop.
+
+``python -m cvpytorch_tpu_torch.trainer --setting conf/X.yml|X.json
+[--device cuda|cpu]`` — reads the config, dictionary, datasets and model,
+builds the optimizer and schedule, and runs ``Trainer.run()``: train
+epochs through a ``DevicePrefetcher``, a val epoch every
+``EVALUATOR.EVAL_INTERVALS`` epochs on the EMA weights, early stopping on
+the evaluator's 'performance', and ``last``/``best``/``deploy``
+checkpoints.
+
+Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA that
+raises.  With ``DATASET.TRAIN.DEVICE_AUG`` the host only letterboxes the
+LOAD_NUM=4 raw tiles of each sample; mosaic, affine, HSV, flip and
+normalise run on the device inside the train step, from a generator
+seeded by (SEED + 7919, step).  Single device: the JAX package's mesh
+(``PARALLEL``) and ``PROFILER`` hook are not ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import math
+
+import torch
+
+from .config import CommonConfiguration, load_dictionary
+from .data.loader import DataLoader, DevicePrefetcher, map_arrays
+from .data.transforms import build_transforms
+from .data.transforms.det_transforms import make_det_collate, make_device_aug_collate
+from .evaluator import build_evaluator
+from .infer import build_model, resolve_device
+from .ops.augment import fused_det_augment, step_generator
+from .optim.optimizers import build_optimizer
+from .optim.schedules import build_lr_scheduler
+from .registry import DATASETS
+from .train_state import create_train_state, make_eval_step, make_train_step
+from .utils.checkpoints import Checkpoints, EarlyStopping
+from .utils.logger import setup_logger
+from .utils.meters import LossLogger
+from .utils.seed import DEFAULT_SEED, setup_seed
+from .utils.tensorboard import DummyWriter
+from .utils.timer import Timer
+
+from .data import datasets as _datasets  # noqa: F401  (registers)
+
+AUG_SEED_OFFSET = 7919
+
+
+class Trainer:
+    def __init__(self, cfg: CommonConfiguration, device: str = "cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.logger = setup_logger()
+        self.seed = int(cfg.SEED or DEFAULT_SEED)
+        setup_seed(self.seed)
+        self.start_epoch = -1
+        self.n_epochs = int(cfg.N_MAX_EPOCHS or 1)
+        if cfg.PARALLEL:
+            raise NotImplementedError("PARALLEL is not ported yet (ROADMAP, "
+                                      "Queue 1): the port trains on one device")
+        self.logger.info("device: %s", self.device)
+        self._device_aug_size = None
+        self._parser_dict()
+        self._parser_datasets()
+        self._parser_model()
+
+    # ------------------------------------------------------------------
+    def _parser_dict(self):
+        self.dictionary = []
+        if self.cfg.DATASET and self.cfg.DATASET.DICTIONARY:
+            _, self.dictionary = load_dictionary(
+                self.cfg.DATASET.DICTIONARY, self.cfg.DATASET.DICTIONARY_NAME)
+        self.dictionary_name = (self.cfg.DATASET.DICTIONARY_NAME
+                                if self.cfg.DATASET else None) or "CLS_CLASSES"
+        if self.dictionary_name not in ("DET_CLASSES", "INS_CLASSES"):
+            raise NotImplementedError(
+                f"the port trains detection only so far, not {self.dictionary_name}")
+
+    def _parser_datasets(self):
+        ds_cls = DATASETS.get(self.cfg.DATASET.CLASS)
+        max_boxes = int(self.cfg.DATASET.MAX_BOXES or 64)
+        self.datasets, self.dataloaders = {}, {}
+        for stage in ("train", "val"):
+            stage_cfg = self.cfg.DATASET.get(stage.upper())
+            if stage_cfg is None:
+                continue
+            transform = build_transforms(self.dictionary_name,
+                                         stage_cfg.get("TRANSFORMS"), stage)
+            ds = ds_cls(data_cfg=stage_cfg, dictionary=self.dictionary,
+                        transform=transform, stage=stage)
+            self.datasets[stage] = ds
+            dev_aug = stage_cfg.get("DEVICE_AUG") if stage == "train" else None
+            if dev_aug:
+                # the host letterboxes the LOAD_NUM=4 raw tiles at TILE²
+                # (default SIZE/2: each tile covers about a quadrant of the
+                # mosaic); the rest runs on the device in the train step
+                size = int(dev_aug.get("SIZE", 640))
+                tile = int(dev_aug.get("TILE", size // 2))
+                collate = make_device_aug_collate(max_boxes // 4, tile)
+                self._device_aug_size = size
+            else:
+                collate = make_det_collate(max_boxes)
+            self.dataloaders[stage] = DataLoader(
+                ds, collate_fn=collate,
+                batch_size=int(stage_cfg.get("BATCH_SIZE", 1)),
+                shuffle=bool(stage_cfg.get("SHUFFLE", stage == "train")),
+                num_workers=int(stage_cfg.get("NUM_WORKER", 4) or 4),
+                drop_last=(stage == "train"), seed=self.seed)
+        self.batch_size = int(self.cfg.DATASET.TRAIN.get("BATCH_SIZE", 1))
+        self.iters_per_epoch = max(len(self.dataloaders["train"]), 1)
+        self.evaluator = (build_evaluator(self.cfg, self.datasets.get("val"))
+                          if self.cfg.EVALUATOR and "val" in self.datasets
+                          else None)
+
+    def _parser_model(self):
+        """Lowercase USE_MODEL keys the model's constructor takes are
+        passed to it."""
+        self.model = build_model(self.cfg, self.dictionary)
+
+    # ------------------------------------------------------------------
+    def _build_train_state(self):
+        cfg = self.cfg
+        lr = float(cfg.INIT_LR or 0.01)
+        scale_lr = float(cfg.SCALE_LR or 0)
+        if scale_lr:  # linear LR scaling on the batch
+            cfg.INIT_LR = lr * self.batch_size / scale_lr
+        self.lr_schedule = build_lr_scheduler(cfg, self.iters_per_epoch)
+        model = self.model.to(self.device, memory_format=torch.channels_last)
+        optimizer = build_optimizer(cfg, model, self.lr_schedule)
+        state = create_train_state(model, optimizer, use_ema=bool(cfg.EMA))
+        n_params = sum(p.numel() for p in model.parameters())
+        self.logger.info("model %s: %.2fM params", cfg.USE_MODEL.CLASS, n_params / 1e6)
+        if cfg.PRETRAIN_MODEL:
+            if cfg.RESUME:
+                state = Checkpoints.restore_into(state, cfg.PRETRAIN_MODEL)
+                self.start_epoch = state.step // self.iters_per_epoch - 1
+                self.logger.info("resumed from %s @ step %d",
+                                 cfg.PRETRAIN_MODEL, state.step)
+            else:
+                state = Checkpoints.load_weights_into(state, cfg.PRETRAIN_MODEL)
+                self.logger.info("loaded weights from %s", cfg.PRETRAIN_MODEL)
+        return state
+
+    # ------------------------------------------------------------------
+    def run(self):
+        cfg = self.cfg
+        train_loader = self.dataloaders["train"]
+        state = self._build_train_state()
+        ema_decay = 0.0
+        if cfg.EMA:
+            # EMA: True → decay 0.9999; EMA: {DECAY: d} → d
+            ema_decay = float(cfg.EMA.get("DECAY", 0.9999)) \
+                if hasattr(cfg.EMA, "get") else 0.9999
+        train_step = make_train_step(
+            amp=bool(cfg.AMP), ema_decay=ema_decay,
+            preprocess=self._device_aug_preprocess() if self._device_aug_size else None)
+        eval_step = make_eval_step(use_ema=bool(cfg.EMA))
+
+        ckpts = Checkpoints(
+            cfg.CHECKPOINT_DIR or "checkpoints", cfg.EXPERIMENT_NAME or "exp",
+            str(cfg.USE_MODEL.CLASS).split(".")[-1],
+            async_save=cfg.ASYNC_CHECKPOINT is not False)
+        writer = DummyWriter(cfg.TENSORBOARD_LOG_DIR if cfg.TENSORBOARD else None,
+                             enabled=bool(cfg.TENSORBOARD))
+        stopper = EarlyStopping(int(cfg.PATIENCE or 0) or 10**9)
+        eval_intervals = int(
+            (cfg.EVALUATOR.get("EVAL_INTERVALS", 1) if cfg.EVALUATOR else 1) or 1)
+        save_intervals = int(cfg.N_EPOCHS_TO_SAVE_MODEL or 1)
+        display = int(cfg.N_ITERS_TO_DISPLAY_STATUS or 50)
+
+        best_perf = -math.inf
+        for epoch in range(self.start_epoch + 1, self.n_epochs):
+            train_loader.set_epoch(epoch)
+            state = self.train_epoch(epoch, state, train_step, train_loader,
+                                     writer, display)
+            if self.evaluator and (epoch + 1) % eval_intervals == 0:
+                perf, _ = self.val_epoch(epoch, state, eval_step, writer)
+                is_best = perf > best_perf
+                best_perf = max(best_perf, perf)
+                ckpts.autosave_checkpoint(state, epoch, is_best,
+                                          extra={"best": best_perf})
+                if stopper(epoch, perf):
+                    break
+            elif (epoch + 1) % save_intervals == 0:
+                ckpts.autosave_checkpoint(state, epoch, is_best=False)
+        writer.close()
+        ckpts.wait()
+        self.checkpoints = ckpts
+        self.state = state
+        return state
+
+    def _device_aug_preprocess(self):
+        """``batch -> batch`` for ``make_train_step``: raw tiles → the
+        augmented train batch, on the device, with the step's generator."""
+        size = self._device_aug_size
+        seed = self.seed + AUG_SEED_OFFSET
+
+        def preprocess(batch):
+            t = batch["target"]
+            images = batch["image"]
+            gen = step_generator(seed, int(t["aug_step"]), images.device)
+            imgs, boxes, keep = fused_det_augment(images, t["boxes"], t["valid"],
+                                                  gen, size)
+            B = imgs.shape[0]
+            new_t = {
+                "boxes": boxes, "labels": t["labels"].reshape(B, -1), "valid": keep,
+                "pads": torch.zeros((B, 2), device=imgs.device),
+                "scales": torch.ones((B, 2), device=imgs.device),
+                "height": torch.full((B,), size, dtype=torch.int32, device=imgs.device),
+                "width": torch.full((B,), size, dtype=torch.int32, device=imgs.device),
+                "epoch": t["epoch"],
+            }
+            return {**batch, "image": imgs, "target": new_t}
+
+        return preprocess
+
+    def train_epoch(self, epoch, state, train_step, loader, writer, display):
+        loss_logger = LossLogger()
+        timer = Timer()
+        timer.tic()
+        pending = None  # (metrics, iter): read one step late, no stall
+
+        def prepared():
+            for i, batch in enumerate(loader):
+                extra = {"epoch": epoch}
+                if self._device_aug_size:
+                    extra["aug_step"] = epoch * len(loader) + i
+                yield {**batch, "target": {**batch["target"], **extra}}
+
+        for it, batch in enumerate(DevicePrefetcher(prepared(), self.device)):
+            state, metrics = train_step(state, batch)
+            if pending is not None and (pending[1] + 1) % display == 0:
+                loss_logger.update({k: float(v) for k, v in pending[0].items()})
+                timer.toc(display)
+                lr = self.lr_schedule(state.step - 1)
+                self.logger.info("epoch %d iter %d/%d lr %.5f %s (%.1f im/s)",
+                                 epoch, pending[1] + 1, len(loader), lr,
+                                 loss_logger, timer.ips(self.batch_size))
+                timer.reset()
+                timer.tic()
+            pending = (metrics, it)
+        if pending is not None:
+            loss_logger.update({k: float(v) for k, v in pending[0].items()})
+        if writer:
+            for k, m in loss_logger.meters.items():
+                writer.add_scalar(f"loss/train_{k}", m.global_avg, epoch)
+        return state
+
+    def val_epoch(self, epoch, state, eval_step, writer):
+        self.evaluator.reset()
+        loss_logger = LossLogger()
+        for batch in self.dataloaders["val"]:
+            targets_host = batch["target"]
+            loss_dict, preds = eval_step(state, map_arrays(
+                batch, lambda a: torch.from_numpy(a).to(self.device)))
+            loss_logger.update({k: float(v) for k, v in loss_dict.items()})
+            self.evaluator.update(targets_host,
+                                  {k: v.cpu().numpy() for k, v in preds.items()})
+        metrics = self.evaluator.evaluate()
+        perf = float(metrics.get("performance", 0.0))
+        self.logger.info(
+            "epoch %d VAL %s | %s", epoch, loss_logger,
+            ", ".join(f"{k}: {v:.4f}" for k, v in metrics.items()
+                      if isinstance(v, float)))
+        if writer:
+            for k, m in loss_logger.meters.items():
+                writer.add_scalar(f"loss/val_{k}", m.global_avg, epoch)
+            for k, v in metrics.items():
+                if isinstance(v, float) and math.isfinite(v):
+                    writer.add_scalar(f"performance/{k}", v, epoch)
+        return perf, metrics
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser("cvpytorch_tpu_torch trainer")
+    parser.add_argument("--setting", required=True, help="path to a .yml or .json config")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args(argv)
+    trainer = Trainer(CommonConfiguration.from_file(args.setting), device=args.device)
+    trainer.run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,15 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
-kernel module imports without nvcc, and its entry points refuse to fall
-back to the CPU when CUDA is absent and the caller did not ask for it."""
+"""The port stands alone: it imports neither JAX, the JAX package nor
+OpenCV, its kernel module imports without nvcc, and its entry points refuse
+to fall back to the CPU when CUDA is absent and the caller did not ask for
+it."""
 import os
 import subprocess
 import sys
 
 import pytest
 import torch
+
+from cvpytorch_tpu_torch.config import CommonConfiguration
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -26,10 +29,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'cvpytorch_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'cvpytorch_tpu', 'cv2'))\n"
         "assert not bad, bad\n"
-        "assert 'cvpytorch_tpu_torch.infer' in names\n"
-        "assert 'cvpytorch_tpu_torch.ops.nms_kernel' in names\n"
+        "for n in ('infer', 'ops.nms_kernel', 'trainer', 'optim.optimizers', "
+        "'optim.schedules', 'ops.augment', 'evaluator.coco'):\n"
+        "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
     r = run_python(code)
@@ -59,8 +63,14 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
         pytest.skip("this checks the behaviour on a machine without CUDA")
     from cvpytorch_tpu_torch import infer
 
+    from cvpytorch_tpu_torch import trainer
+
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         infer.main(["--setting", "unused.json", "--checkpoint", "unused.pt"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainer.Trainer(CommonConfiguration({}))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        trainer.main(["--setting", "conf/coco_yolov5_s.yml"])
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0

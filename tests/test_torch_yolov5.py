@@ -132,14 +132,6 @@ def test_infer_mode_matches_jax(pair_n):
     assert int(td["num"].min()) > 0
 
 
-def test_train_and_val_modes_wait_for_the_training_slice(pair_n):
-    _, _, tm = pair_n
-    x = torch.from_numpy(images(0))
-    for mode in ("train", "val"):
-        with pytest.raises(NotImplementedError, match="training slice"):
-            tm(x, mode=mode)
-
-
 def test_loader_is_strict(pair_n):
     jm, variables, _ = pair_n
     fresh = lambda: YOLOv5(dictionary=DICTIONARY, model_cfg={"TYPE": "yolov5_n"})
