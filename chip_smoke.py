@@ -28,7 +28,21 @@
    train step at 640², B = 2, on the card against the same step on the
    CPU (loss within 1e-4 relative), and one AMP step (loss within 5e-2 of
    the f32 loss).
-5. Kernel checks, after every host-clock timing: ``nms_keep`` against
+5. Mask R-CNN phase: ``conf/coco_maskrcnn.yml`` (R50-FPN, 80 classes,
+   AMP, SGD 0.9, MultiStepLR, warmup, bbox + segm evaluation) on
+   SyntheticInstanceSegmentation at 800² (MASK_SIZE 112), trained through
+   ``Trainer.run()`` for 4 steps at batch 16 and validated on 32 images;
+   checks that the five losses are finite and that ``nms_keep`` ran once
+   per step (the RPN's proposals) and twice per val batch (proposals and
+   detections); serves the checkpoint through ``infer.main``.  Times the
+   AMP and f32 train steps at batch 16 by CUDA events (peak memory; an f32
+   step that does not fit is reported), the val step and the bs16 predict
+   step; holds ``nms_keep`` to ``nms_keep_plain`` bit for bit on the path's
+   own inputs, the RPN's (16, 1000) boxes and the (16, 256) detection
+   boxes; compares R50-FPN at B = 1, f32, on the card and on the CPU (in
+   eval mode the FPN and RPN maps within 1e-4 and the proposal sets
+   equal; the losses of a train-mode forward within 1e-3 relative).
+6. Kernel checks, after every host-clock timing: ``nms_keep`` against
    ``nms_keep_plain`` on the card, bit-exact, over B in {1, 3, 32} x K in
    {1, 63, 64, 65, 300, 1000, 1024} x every threshold the detectors use,
    with clustered, class-offset boxes of 3 and of 80 classes and a dense
@@ -36,13 +50,16 @@
    IoU equals 0.6; then constructed pairs at IoU == thr, one f32 ulp
    either side, with no overlap and with non-finite coordinates, held
    against the plain version and numpy's f32 division.
-6. Device phase, last because a profiler session slows the host's later
+7. Device phase, last because a profiler session slows the host's later
    launches: the device time of each of the two NMS kernels of a call
    (torch.profiler) on the inputs timed above and against the number of
-   64-box tiles, and the device operations one call runs, counted by the
-   profiler and held to ``nms_kernel.DEVICE_KERNELS_PER_CALL``; then the
+   64-box tiles, and the device operations one call runs, counted from the
+   launches the profiler recorded on the host and held to
+   ``nms_kernel.DEVICE_KERNELS_PER_CALL``; then the
    device busy and idle share and the top operations of the device
-   augmentation alone and of the AMP train step with it.
+   augmentation alone, of the YOLOv5 AMP train step with it, and of the
+   Mask R-CNN AMP train step with the share of the ROIAlign gathers and
+   of their backward.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -124,16 +141,28 @@ def nms_event_ms(boxes, thr: float) -> float:
     return cuda_time_ms(lambda: nms_keep(boxes, thr), iters=200)
 
 
-def nms_device_ms(boxes, thr: float, calls: int = 50, sessions: int = 3) -> dict:
+# CUDA runtime and driver calls that put an operation on the device
+DEVICE_OP_CALL = re.compile(r"^cu(da)?(LaunchKernel|Memset|Memcpy|GraphLaunch)")
+
+
+def nms_device_ms(boxes, thr: float, calls: int = 50, sessions: int = 5) -> dict:
     """Device time per call of each of the two kernels of ``nms_keep``
     (torch.profiler over ``calls`` calls), their sum, and the device
-    operations one call runs, counted over every operation the profiler
-    saw on the card.  Each session traces a warm-up round of ``calls``
-    calls that it discards, then the measured round.  A session that
-    recorded either kernel fewer than ``calls`` times is printed and
-    profiled again, up to ``sessions`` times: the profiler has returned
-    no record of the mask kernel in one run of this script, and one
-    record short of 50 of each kernel in another, after the train phase.
+    operations one call runs.
+
+    Each session traces a warm-up round of ``calls`` calls that it
+    discards, then the measured round.  On the H100's machine the profiler
+    loses device records now and then (47, 48, 49 or none of 50 kernels in
+    one run, while it kept all 100 of the ``cudaLaunchKernel`` records on
+    the host), so:
+
+    - each kernel's time is the mean over the records it kept, and a
+      session that kept fewer than half of either kernel's records is
+      printed and profiled again, up to ``sessions`` times;
+    - the device operations of one call are counted on the host, from the
+      launch, memset and memcpy calls the profiler recorded, and every
+      operation it saw on the card must be one of the two kernels.
+
     Run after every host-clock and event timing: a profiler session
     leaves the host's launches slower for the rest of the process."""
     import torch
@@ -150,30 +179,35 @@ def nms_device_ms(boxes, thr: float, calls: int = 50, sessions: int = 3) -> dict
                     nms_keep(boxes, thr)
                 torch.cuda.synchronize()
                 prof.step()
-        on_device = [e for e in prof.key_averages()
+        events = prof.key_averages()
+        on_device = [e for e in events
                      if e.device_type == torch.autograd.DeviceType.CUDA]
         hits = {phase: [e for e in on_device if f"nms_{phase}_kernel" in e.key]
                 for phase in ("mask", "scan")}
         counts = {phase: sum(e.count for e in h) for phase, h in hits.items()}
-        if min(counts.values()) >= calls:  # more is held to the count below
+        if min(counts.values()) >= calls / 2:
             break
         print(f"profiler session {session} of {sessions} recorded {counts} "
               f"NMS kernels for {calls} calls; saw: "
               + ", ".join(f"{e.key[:60]} ({e.device_type}) x{e.count}"
-                          for e in prof.key_averages()), file=sys.stderr, flush=True)
+                          for e in events), file=sys.stderr, flush=True)
     else:
         raise AssertionError(f"no profiler session recorded both NMS kernels "
-                             f"{calls} times")
+                             f"{calls // 2} times of {calls}")
+    others = [e for e in on_device if not any(e in h for h in hits.values())]
+    launched = sum(e.count for e in events if e.device_type
+                   == torch.autograd.DeviceType.CPU and DEVICE_OP_CALL.match(e.key))
     out = {f"{phase}_kernel_ms": sum(e.self_device_time_total for e in h) / 1e3
-           / sum(e.count for e in h) for phase, h in hits.items()}
+           / counts[phase] for phase, h in hits.items()}
     out["device_ms"] = out["mask_kernel_ms"] + out["scan_kernel_ms"]
-    out["device_kernels_per_call"] = sum(e.count for e in on_device) / calls
+    out["device_kernels_per_call"] = launched / calls
+    out["device_records"] = counts
     out["profiler_sessions"] = session
-    if out["device_kernels_per_call"] != DEVICE_KERNELS_PER_CALL:
+    if others or out["device_kernels_per_call"] != DEVICE_KERNELS_PER_CALL:
         raise AssertionError(
-            f"one nms_keep call ran {out['device_kernels_per_call']} device "
-            f"operations, not {DEVICE_KERNELS_PER_CALL}: "
-            + ", ".join(f"{e.key[:60]} x{e.count}" for e in on_device))
+            f"one nms_keep call put {out['device_kernels_per_call']} operations "
+            f"on the device, not {DEVICE_KERNELS_PER_CALL}: "
+            + ", ".join(f"{e.key[:60]} ({e.device_type}) x{e.count}" for e in events))
     return out
 
 
@@ -412,7 +446,7 @@ def seeded_weights(model, seed: int, obj_bias: float = 6.0) -> None:
 
 
 def check_predictions(path: Path, n_images: int, num_classes: int,
-                      min_dets: int = 1) -> int:
+                      min_dets: int = 1, size: int = 640, max_dets: int = 300) -> int:
     preds = json.loads(path.read_text())
     if len(preds) != n_images:
         raise AssertionError(f"{len(preds)} predictions for {n_images} images")
@@ -422,11 +456,11 @@ def check_predictions(path: Path, n_images: int, num_classes: int,
         scores = np.asarray(p["scores"], np.float64)
         labels = np.asarray(p["labels"])
         n = len(labels)
-        if not (len(boxes) == len(scores) == n and min_dets <= n <= 300):
+        if not (len(boxes) == len(scores) == n and min_dets <= n <= max_dets):
             raise AssertionError(f"malformed prediction with {n} detections")
         if not (np.isfinite(boxes).all() and (boxes >= 0).all()
-                and (boxes <= 640).all() and (boxes[:, 2:] >= boxes[:, :2]).all()):
-            raise AssertionError("boxes outside the 640² canvas or not xyxy")
+                and (boxes <= size).all() and (boxes[:, 2:] >= boxes[:, :2]).all()):
+            raise AssertionError(f"boxes outside the {size}² canvas or not xyxy")
         if not ((scores > 0).all() and (scores <= 1).all()
                 and (np.diff(scores) <= 0).all()):
             raise AssertionError("scores not in (0, 1] and descending")
@@ -437,9 +471,11 @@ def check_predictions(path: Path, n_images: int, num_classes: int,
     return total
 
 
-def profile_device(fn, steps: int = 3, top: int = 12) -> dict:
+def profile_device(fn, steps: int = 3, top: int = 12, groups=None) -> dict:
     """torch.profiler over ``steps`` calls of ``fn``: device time per call by
-    kernel (the ``top`` largest) and the device's busy share of the wall.
+    kernel (the ``top`` largest) and the device's busy share of the wall;
+    with ``groups`` ({name: regex}), the device time per call of the
+    kernels whose names match each regex and its share of the busy time.
     Ranges that code marks with ``record_function`` (``Optimizer.step``)
     come back as device events too; they span kernels counted already, so
     they are listed apart (``annotated_ms``: first to last kernel in the
@@ -461,7 +497,13 @@ def profile_device(fn, steps: int = 3, top: int = 12) -> dict:
     kernels = [e for e in on_device if e not in annotated]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    grouped = {}
+    for name, pattern in (groups or {}).items():
+        ms = sum(e.self_device_time_total for e in kernels
+                 if pattern.search(e.key)) / 1e3 / steps
+        grouped[name] = {"ms": ms, "share_of_busy": ms / busy_ms}
     return {
+        **({"groups": grouped} if groups else {}),
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
@@ -880,6 +922,338 @@ def _profiled_train_state(trainer):
     return lambda: step(state, raw), lambda: preprocess(raw)
 
 
+MASKRCNN_BATCH = 16  # TRAIN and VAL BATCH_SIZE of conf/coco_maskrcnn.yml
+MASKRCNN_STEPS = 4  # one epoch of 4 train steps
+MASKRCNN_VAL_IMAGES = 32  # one val epoch of 2 batches
+MASK_SIZE = 112  # CocoSegmentation's default raster (cvpytorch_tpu/data/datasets/coco.py:176)
+# the ROIAlign tap gathers (index_select: PyTorch's vectorized_gather_kernel,
+# 8 calls a train step, 4 taps × 2 branches) and their backward (index_add_:
+# indexFuncLargeIndex)
+ROI_GROUPS = {"roi_gather": re.compile(r"vectorized_gather_kernel|indexSelect"),
+              "roi_gather_backward": re.compile(r"indexFunc|index_add")}
+
+
+def maskrcnn_config(workdir: Path) -> Path:
+    """conf/coco_maskrcnn.yml as written (R50-FPN, 80 INS_CLASSES, AMP, no
+    EMA, SGD 0.9 with weight decay 1e-4, MultiStepLR [16, 22], linear
+    warmup of 500 iterations from 0.001, bbox + segm evaluation, batch 16,
+    its 800² keep-ratio Resize, flip, ToTensor and Normalize) with the
+    dataset swapped for SyntheticInstanceSegmentation at 800² and MASK_SIZE
+    112; cut to one epoch of 4 steps validated on 32 images.  The INFER
+    stage (one batch) serves the checkpoint afterwards."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / "coco_maskrcnn.yml"))
+    data = cfg.DATASET
+    data.CLASS = "SyntheticInstanceSegmentation"
+    data.DICTIONARY = str(ROOT / data.DICTIONARY)
+    synthetic = {"SIZE": [800, 800], "MASK_SIZE": MASK_SIZE, "SEED": 0}
+    data.TRAIN.update({**synthetic, "LENGTH": MASKRCNN_BATCH * MASKRCNN_STEPS})
+    data.VAL.update({**synthetic, "LENGTH": MASKRCNN_VAL_IMAGES})
+    data.INFER = {**dict(data.VAL), "LENGTH": MASKRCNN_BATCH}
+    cfg.EVALUATOR.EVAL_INTERVALS = 1
+    cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+                "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
+    path = workdir / "coco_maskrcnn_synthetic.json"
+    path.write_text(json.dumps(cfg, default=lambda c: c.data))
+    return path
+
+
+def capture_nms_inputs():
+    """Wraps ``ops.nms.nms_keep`` so that every call's (boxes, thr) is kept;
+    returns the list and a function that restores the wrapper."""
+    from cvpytorch_tpu_torch.ops import nms as nms_mod
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+
+    seen = []
+
+    def capture(boxes, thr):
+        seen.append((boxes.clone(), thr))
+        return nms_keep(boxes, thr)
+
+    nms_mod.nms_keep = capture
+    return seen, lambda: setattr(nms_mod, "nms_keep", nms_keep)
+
+
+def maskrcnn_phase(workdir: Path) -> tuple[dict, object]:
+    """Mask R-CNN R50-FPN at 800² trained through ``Trainer.run()`` (bbox
+    and segm validation) and served through ``infer.main`` on the card."""
+    import torch
+
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+
+    workdir.mkdir()
+    setting = maskrcnn_config(workdir)
+    cfg = CommonConfiguration.from_file(str(setting))
+    trainer = trainer_mod.Trainer(cfg)
+
+    metrics, times, val = [], {"train_epoch": [], "val_epoch": [], "evaluator": 0.0}, []
+    real_make_train_step = trainer_mod.make_train_step
+
+    def recording_make_train_step(*args, **kwargs):
+        step = real_make_train_step(*args, **kwargs)
+
+        def recorded(state, batch):
+            state, m = step(state, batch)
+            metrics.append(m)
+            return state, m
+        return recorded
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            if key == "evaluator":
+                times[key] += time.perf_counter() - t0
+            else:
+                times[key].append(time.perf_counter() - t0)
+            if key == "val_epoch":
+                val.append(out[1])
+            return out
+        return run
+
+    trainer.train_epoch = timed(trainer.train_epoch, "train_epoch")
+    trainer.val_epoch = timed(trainer.val_epoch, "val_epoch")
+    trainer.evaluator.update = timed(trainer.evaluator.update, "evaluator")
+    trainer.evaluator.evaluate = timed(trainer.evaluator.evaluate, "evaluator")
+    trainer_mod.make_train_step = recording_make_train_step
+    try:
+        # the main path of this phase, counts read just around it
+        nms_keep.launches = 0
+        t0 = time.perf_counter()
+        state = trainer.run()
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = nms_keep.launches
+    finally:
+        trainer_mod.make_train_step = real_make_train_step
+    names = ("rpn_obj_loss", "rpn_reg_loss", "cls_loss", "box_loss", "mask_loss", "loss")
+    if len(metrics) != MASKRCNN_STEPS or state.step != MASKRCNN_STEPS:
+        raise AssertionError(f"{len(metrics)} steps recorded, state at step {state.step}")
+    losses = {k: [float(m[k]) for m in metrics] for k in names if all(k in m for m in metrics)}
+    if set(losses) != set(names):
+        raise AssertionError(f"train losses {sorted(metrics[0])}, expected {names}")
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    val_batches = -(-MASKRCNN_VAL_IMAGES // MASKRCNN_BATCH)
+    if launches != MASKRCNN_STEPS + 2 * val_batches:
+        raise AssertionError(f"nms_keep launched {launches} times for {MASKRCNN_STEPS} "
+                             f"steps and {val_batches} val batches")
+    (val_metrics,) = val
+    for key in ("bbox_mAP", "segm_mAP"):
+        if not np.isfinite(val_metrics[key]):
+            raise AssertionError(f"val {key} = {val_metrics[key]}")
+    print(f"Mask R-CNN Trainer.run(): {MASKRCNN_STEPS} steps in {run_s:.2f} s (host "
+          f"clock, from model build to the last checkpoint), losses {losses}, "
+          f"nms_keep launches {launches} for {MASKRCNN_STEPS} steps and {val_batches} "
+          f"val batches, val bbox_mAP {val_metrics['bbox_mAP']} segm_mAP "
+          f"{val_metrics['segm_mAP']}", flush=True)
+
+    # the last checkpoint serves one batch through the infer CLI
+    nms_keep.launches = 0
+    infer.main(["--setting", str(setting), "--checkpoint",
+                str(Path(trainer.checkpoints.save_dir) / "last.pt"),
+                "--out", str(workdir / "served")])
+    if nms_keep.launches != 2:
+        raise AssertionError(f"serving the checkpoint launched nms_keep "
+                             f"{nms_keep.launches} times for 1 batch, not 2")
+    n_dets = check_predictions(workdir / "served" / "predictions.json", MASKRCNN_BATCH,
+                               len(trainer.dictionary), min_dets=0, size=800, max_dets=100)
+    print(f"infer.main on the trained Mask R-CNN: {MASKRCNN_BATCH} images, {n_dets} "
+          "detections, nms_keep launches 2", flush=True)
+    return {
+        "steps": MASKRCNN_STEPS,
+        "launches": launches,
+        "losses": losses,
+        "run_s": run_s,
+        "train_epoch_s": times["train_epoch"][0],
+        "val_epoch_s": times["val_epoch"][0],
+        "val_evaluator_s": times["evaluator"],
+        "val_evaluator_share": times["evaluator"] / times["val_epoch"][0],
+        "val_bbox_mAP": val_metrics["bbox_mAP"],
+        "val_segm_mAP": val_metrics["segm_mAP"],
+        "served_detections": n_dets,
+    }, trainer
+
+
+def maskrcnn_batches(trainer) -> dict:
+    """The first host batch of the train loader and of the val loader, on
+    the card."""
+    import torch
+
+    from cvpytorch_tpu_torch.data.loader import map_arrays
+
+    return {stage: map_arrays(next(iter(trainer.dataloaders[stage])),
+                              lambda a: torch.from_numpy(a).cuda())
+            for stage in ("train", "val")}
+
+
+def maskrcnn_timing(trainer, batches) -> tuple[dict, dict]:
+    """The AMP train step at batch 16 on one batch already on the card, by
+    CUDA events over 5 steps after 2 warm-up steps, and its peak memory;
+    the same for an f32 step where batch 16 fits; the f32 val step and the
+    serving predict step at batch 16; ``nms_keep`` against
+    ``nms_keep_plain`` on the path's own inputs, the RPN's (16, 1000)
+    boxes of a train step and the (16, 256) detection boxes of a val
+    step: bit-exact, and each timed."""
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.train_state import (
+        create_train_state, make_eval_step, make_predict_step, make_train_step)
+
+    def fresh_state():
+        torch.manual_seed(0)
+        model = build_model(trainer.cfg, trainer.dictionary, trainer.datasets["train"]).to(
+            "cuda", memory_format=torch.channels_last)
+        return create_train_state(model, build_optimizer(trainer.cfg, model,
+                                                         trainer.lr_schedule))
+
+    out = {"batch": MASKRCNN_BATCH}
+    train_b, val_b = batches["train"], batches["val"]
+    for name, amp in (("amp", True), ("f32", False)):
+        torch.cuda.empty_cache()
+        state = fresh_state()
+        step = make_train_step(amp=amp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            ms = cuda_time_ms(lambda: step(state, train_b), iters=5, warmup=2)
+        except torch.OutOfMemoryError:
+            out[f"{name}_step_ms"] = None
+            out[f"{name}_out_of_memory_at_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            print(f"Mask R-CNN {name} train step at batch {MASKRCNN_BATCH}: out of memory "
+                  f"at {out[f'{name}_out_of_memory_at_gb']:.2f} GB", flush=True)
+            del state, step
+            continue
+        out[f"{name}_step_ms"] = ms
+        out[f"{name}_images_per_s"] = MASKRCNN_BATCH / ms * 1e3
+        out[f"{name}_max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if amp:
+            amp_state = state
+        del state, step
+    if out["amp_step_ms"] is None:
+        raise AssertionError("the AMP train step does not fit at batch 16")
+
+    # the path's own NMS inputs: the RPN's of a train step, the detections'
+    # of a val step
+    seen, restore = capture_nms_inputs()
+    try:
+        make_train_step(amp=True)(amp_state, train_b)
+        (rpn_boxes, rpn_thr), = seen
+        seen.clear()
+        eval_step = make_eval_step()
+        eval_step(amp_state, val_b)
+        (prop_boxes, prop_thr), (det_boxes, det_thr) = seen
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    model = amp_state.model
+    if (tuple(rpn_boxes.shape) != (MASKRCNN_BATCH, model.pre_nms_topk, 4)
+            or rpn_thr != model.rpn_nms_thresh):
+        raise AssertionError(f"RPN NMS input {tuple(rpn_boxes.shape)} thr {rpn_thr}")
+    if float(rpn_boxes.max()) > 800:  # class-agnostic: no class offsets
+        raise AssertionError("the RPN's NMS input carries class offsets")
+    if (tuple(det_boxes.shape) != (MASKRCNN_BATCH, model.num_proposals, 4)
+            or det_thr != model.iou_threshold):
+        raise AssertionError(f"detection NMS input {tuple(det_boxes.shape)} thr {det_thr}")
+    launches_before = nms_keep.launches
+    nms = {}
+    for name, (boxes, thr) in (("rpn", (rpn_boxes, rpn_thr)), ("det", (det_boxes, det_thr))):
+        got, want = nms_keep(boxes, thr), nms_keep_plain(boxes, thr)
+        if not torch.equal(got, want):
+            raise AssertionError(f"nms_keep != nms_keep_plain on the {name} input: "
+                                 f"{int((got != want).sum())} flags differ")
+        nms[name] = {"shape": list(boxes.shape), "thr": thr,
+                     "kept": int(got.sum()), "bit_exact": True,
+                     "ms": nms_event_ms(boxes, thr),
+                     "plain_ms": cuda_time_ms(lambda: nms_keep_plain(boxes, thr),
+                                              iters=3, warmup=1)}
+    nms_keep.launches = launches_before  # comparison launches do not count
+    print(f"nms_keep on the Mask R-CNN path's inputs: {json.dumps(nms)}", flush=True)
+
+    eval_step = make_eval_step()
+    out["val_step_ms"] = cuda_time_ms(lambda: eval_step(amp_state, val_b), iters=3, warmup=1)
+    predict = make_predict_step(amp_state.model)
+    out["bs16_predict_ms"] = cuda_time_ms(lambda: predict(val_b["image"]), iters=3, warmup=1)
+    out["bs16_predict_images_per_s"] = MASKRCNN_BATCH / out["bs16_predict_ms"] * 1e3
+    return out, {"nms": nms, "inputs": {"rpn": (rpn_boxes, rpn_thr),
+                                        "det": (det_boxes, det_thr)}, "state": amp_state}
+
+
+def maskrcnn_card_vs_cpu(trainer, batches) -> dict:
+    """R50-FPN at 800², B = 1, f32 with TF32 off, from the same seeded
+    weights on the card and on the CPU.  BN on its running statistics
+    (eval mode): the FPN features and the RPN's logits and deltas within
+    1e-4 of their largest value, and the 256 proposals slot by slot; with
+    random weights many RPN scores are nearly equal, so the first of seeds
+    0, 1, 2 whose proposal sets agree is used.  Then the losses of one
+    train-mode forward (BN on the statistics of the one image) within 1e-3
+    relative: there, f32 itself is the limit; on the CPU the same forward's
+    FPN maps lie 2.5e-4 to 7.5e-4 (of the largest value) from float64, and
+    1e-6 in eval mode."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the step makers turn it off")
+    image = batches["train"]["image"][:1]
+    target = {k: v[:1] for k, v in batches["train"]["target"].items()}
+
+    def rel_err(a, b):
+        return max(float((x - y).abs().max()) / max(float(y.abs().max()), 1e-12)
+                   for x, y in zip(a, b))
+
+    tried = []
+    for seed in (0, 1, 2):
+        torch.manual_seed(seed)
+        base = build_model(trainer.cfg, trainer.dictionary, trainer.datasets["train"])
+        seen = {}
+        for device in ("cpu", "cuda"):
+            model = copy.deepcopy(base).to(device, memory_format=torch.channels_last)
+            x = image.to(device)
+            with torch.no_grad():
+                model.eval()
+                feats = model.fpn(model.backbone(x.permute(0, 3, 1, 2)))
+                rpn = model.rpn(feats)
+                boxes, valid = model._rpn_proposals(feats, x)[3:]
+                _, losses = model.train()(x, {k: v.to(device) for k, v in target.items()},
+                                          mode="train")
+            seen[device] = {"fpn": [f.cpu() for f in feats], "rpn": [r.cpu() for r in rpn],
+                            "boxes": boxes.cpu(), "valid": valid.cpu(),
+                            "losses": {k: float(v) for k, v in losses.items()}}
+        cpu, card = seen["cpu"], seen["cuda"]
+        differ = int(((card["boxes"] - cpu["boxes"]).abs().amax(-1) > 1e-2).sum()
+                     + (card["valid"] != cpu["valid"]).sum())
+        tried.append({
+            "seed": seed, "fpn_max_rel_err": rel_err(card["fpn"], cpu["fpn"]),
+            "rpn_max_rel_err": rel_err(card["rpn"], cpu["rpn"]),
+            "proposal_slots_differing": differ,
+            "train_loss_rel": {k: abs(card["losses"][k] - v) / max(abs(v), 1e-12)
+                               for k, v in cpu["losses"].items()},
+            "train_loss_cpu": cpu["losses"], "train_loss_card": card["losses"]})
+        print(f"Mask R-CNN card vs CPU, f32, B=1, 800², seed {seed}: "
+              f"{json.dumps(tried[-1])}", flush=True)
+        if not (tried[-1]["fpn_max_rel_err"] <= 1e-4 and tried[-1]["rpn_max_rel_err"] <= 1e-4):
+            raise AssertionError(f"FPN or RPN maps differ, card vs CPU: {tried[-1]}")
+        if differ == 0:
+            break
+    else:
+        raise AssertionError("the proposal sets differ card vs CPU at seeds 0, 1, 2")
+    if not max(tried[-1]["train_loss_rel"].values()) <= 1e-3:
+        raise AssertionError(f"train losses differ card vs CPU: {tried[-1]}")
+    return {"tried": tried}
+
+
 def main() -> int:
     import torch
 
@@ -887,6 +1261,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from cvpytorch_tpu_torch.ops import nms_kernel  # raises outside the repo
+    from cvpytorch_tpu_torch.train_state import make_train_step
 
     print("TF32: turned off by the port's step makers (predict, train, eval) "
           "and off in every comparison (cudnn.allow_tf32=False, "
@@ -906,6 +1281,14 @@ def main() -> int:
         print(json.dumps({"train_timing": timing, "card": card}))
         check = train_step_check(trainer, aug_batch)
         print(json.dumps({"train_step_check": check, "card": card}))
+        torch.cuda.empty_cache()
+        mrcnn, mrcnn_trainer = maskrcnn_phase(Path(tmp) / "maskrcnn")
+        print(json.dumps({"maskrcnn": mrcnn, "card": card}), flush=True)
+        mrcnn_batches = maskrcnn_batches(mrcnn_trainer)
+        mrcnn_timing, mrcnn_extra = maskrcnn_timing(mrcnn_trainer, mrcnn_batches)
+        print(json.dumps({"maskrcnn_timing": mrcnn_timing, "card": card}), flush=True)
+        mrcnn_check = maskrcnn_card_vs_cpu(mrcnn_trainer, mrcnn_batches)
+        print(json.dumps({"maskrcnn_card_vs_cpu": mrcnn_check, "card": card}), flush=True)
         checks = kernel_checks()
         # the profiler last: its sessions slow the host's launches afterwards
         split = device_phase({**times.pop("inputs"), "path_input": path_input})
@@ -920,17 +1303,32 @@ def main() -> int:
             "device_busy_ms"] / (timing["amp_step_ms"] + timing["device_aug_ms"])
         print(json.dumps({"amp_train_step_profile": train_profile, "card": card}),
               flush=True)
+        mrcnn_split = {name: nms_device_ms(*args)
+                       for name, args in mrcnn_extra["inputs"].items()}
+        mrcnn_step = make_train_step(amp=True)
+        mrcnn_profile = profile_device(
+            lambda: mrcnn_step(mrcnn_extra["state"], mrcnn_batches["train"]),
+            steps=3, top=15, groups=ROI_GROUPS)
+        mrcnn_profile["device_idle_share_unprofiled"] = 1 - mrcnn_profile[
+            "device_busy_ms"] / mrcnn_timing["amp_step_ms"]
+        print(json.dumps({"maskrcnn_amp_train_step_profile": mrcnn_profile,
+                          "nms_keep_device_ms": mrcnn_split, "card": card}), flush=True)
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
     print(json.dumps({"nms_keep_B1_K1024": {**times["B1"], **split["B1"],
                                              "bound_ms": bound1}}))
+    mrcnn_nms = mrcnn_extra["nms"]
+    for name, t in mrcnn_nms.items():
+        t["bound_ms"], _ = nms_bound_ms(*t["shape"][:2])
+        t.update(mrcnn_split[name])
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
         "route": "cuda",
         "source": "cvpytorch_tpu_torch/csrc/nms_kernel.cu",
         "replaces": "cvpytorch_tpu/ops/pallas/nms_kernel.py:23",
-        "launches": train["launches"],
-        "launches_by_path": {"infer": path["launches"], "train": train["launches"]},
+        "launches": mrcnn["launches"],
+        "launches_by_path": {"infer": path["launches"], "train": train["launches"],
+                             "maskrcnn_train_and_val": mrcnn["launches"]},
         "max_abs_err": checks["max_abs_err"],
         "ms": times["B32"]["ms"],
         "plain_ms": times["B32"]["plain_ms"],
@@ -946,6 +1344,7 @@ def main() -> int:
         "ms_dense": times["dense"]["ms"],
         "ms_path_input": path["nms_keep_on_path_input_ms"],
         "device_ms_by_kernel": split,
+        "maskrcnn_path_inputs": mrcnn_nms,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
-"""Synthetic detection data (counterpart of ``SyntheticDetection`` in
+"""Synthetic detection and instance-segmentation data (counterparts of
+``SyntheticDetection`` and ``SyntheticInstanceSegmentation`` in
 ``cvpytorch_tpu/data/datasets/synthetic.py``): the same seeds give the same
-images and boxes as the JAX package.
+images, boxes and masks as the JAX package.
 
 A train-stage ``LOAD_NUM`` > 1 makes each item a group: the indexed sample
 and ``LOAD_NUM - 1`` others drawn with Python's ``random`` (the mosaic
@@ -68,3 +69,30 @@ class SyntheticDetection(Dataset):
         }
         return {"image": img,
                 "target": None if self.stage == "infer" else target}
+
+
+@DATASETS.register(name="SyntheticInstanceSegmentation")
+class SyntheticInstanceSegmentation(SyntheticDetection):
+    """Detection boxes plus axis-aligned rectangular instance masks
+    rasterised at ``MASK_SIZE`` over the full image canvas: the target
+    contract of ``CocoSegmentation``."""
+
+    MASK_SIZE = 64
+
+    def __init__(self, data_cfg=None, dictionary=None, transform=None,
+                 target_transform=None, stage="train"):
+        super().__init__(data_cfg, dictionary, transform, target_transform, stage)
+        self.mask_size = int(getattr(data_cfg, "MASK_SIZE", None) or self.MASK_SIZE)
+
+    def _load_one(self, idx):
+        sample = super()._load_one(idx)
+        t = sample["target"]
+        if t is not None:
+            h, w = self.size
+            s = self.mask_size
+            masks = np.zeros((len(t["boxes"]), s, s), np.float32)
+            for i, (x0, y0, x1, y1) in enumerate(t["boxes"]):
+                masks[i, int(round(y0 * s / h)):int(round(y1 * s / h)),
+                      int(round(x0 * s / w)):int(round(x1 * s / w))] = 1.0
+            t["masks"] = masks
+        return sample

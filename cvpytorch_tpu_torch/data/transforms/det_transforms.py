@@ -93,6 +93,10 @@ class RandomHorizontalFlip:
                 boxes = t["boxes"].copy()
                 boxes[:, [0, 2]] = w - t["boxes"][:, [2, 0]]
                 t["boxes"] = boxes
+                if t.get("masks") is not None:
+                    # the masks span the whole image, so they flip with it
+                    # (the JAX transform leaves them unflipped)
+                    t["masks"] = np.ascontiguousarray(t["masks"][..., ::-1])
         return sample
 
 
@@ -179,9 +183,9 @@ def make_device_aug_collate(max_boxes: int = 32, tile: int = 640,
 def make_det_collate(max_boxes: int = 64):
     """Padded fixed-shape detection batch: targets padded to ``max_boxes``
     with a validity mask, plus the letterbox ``pads``/``scales``, the image
-    ``height``/``width`` and ``image_id``.  (The JAX collate also pads
-    masks, keypoints and areas for the families that have them; they come
-    with those families.)"""
+    ``height``/``width``, ``image_id`` and, when the samples carry them,
+    the instance ``masks`` (B, max_boxes, Hm, Wm).  (The JAX collate also
+    pads keypoints and areas; they come with the keypoint family.)"""
 
     def det_collate(samples):
         images = np.stack([s["image"] for s in samples])
@@ -194,6 +198,7 @@ def make_det_collate(max_boxes: int = 64):
         heights = np.zeros((B,), np.int32)
         widths = np.zeros((B,), np.int32)
         img_ids = np.zeros((B,), np.int64)
+        masks = None
         for i, s in enumerate(samples):
             t = s.get("target")
             heights[i], widths[i] = s["image"].shape[:2]
@@ -204,6 +209,11 @@ def make_det_collate(max_boxes: int = 64):
                 boxes[i, :n] = t["boxes"][:n]
                 labels[i, :n] = t["labels"][:n]
                 valid[i, :n] = True
+                if t.get("masks") is not None and len(t["masks"]):
+                    if masks is None:
+                        mh = t["masks"].shape[-1]
+                        masks = np.zeros((B, max_boxes, mh, mh), np.float32)
+                    masks[i, :n] = t["masks"][:n]
             pads[i] = t.get("pads", (0, 0))
             scales[i] = t.get("scales", (1, 1))
             if "height" in t:
@@ -216,6 +226,8 @@ def make_det_collate(max_boxes: int = 64):
             "pads": pads, "scales": scales,
             "height": heights, "width": widths,
         }
+        if masks is not None:
+            target["masks"] = masks
         return {"image": images, "target": target, "image_id": img_ids}
 
     return det_collate

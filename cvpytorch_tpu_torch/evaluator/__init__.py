@@ -1,5 +1,6 @@
 """Evaluator factory (counterpart of ``cvpytorch_tpu/evaluator/__init__.py``):
-selects by ``cfg.EVALUATOR.NAME``.  The port has the COCO box protocol."""
+selects by ``cfg.EVALUATOR.NAME``.  The port has the COCO protocol
+for boxes and masks."""
 from __future__ import annotations
 
 from ..registry import EVALUATORS

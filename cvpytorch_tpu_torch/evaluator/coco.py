@@ -1,5 +1,5 @@
-"""COCO-protocol box evaluator (a copy of the box path of
-``cvpytorch_tpu/evaluator/coco.py``, numpy only).
+"""COCO-protocol box and mask evaluator (a copy of the bbox and segm paths
+of ``cvpytorch_tpu/evaluator/coco.py``, numpy only).
 
 Protocol (pycocotools ``cocoeval.py`` semantics):
 * IoU thresholds 0.50:0.05:0.95, 101 recall points;
@@ -8,13 +8,18 @@ Protocol (pycocotools ``cocoeval.py`` semantics):
 * crowd GT are ignore-matched with IoU = intersection/det_area and may
   match many detections;
 * greedy best-IoU matching in score order, non-ignored GT preferred;
+* segm: IoU of binary masks on the dataset's raster (one product of the
+  flattened masks), areas in mask pixels;
 * the 12-metric summary (mAP, AP_50, AP_75, AP_small/medium/large,
-  Recall_1/10/100, Recall_small/medium/large), prefixed ``bbox_``, and
-  ``performance`` = the ``eval_type`` metric.
+  Recall_1/10/100, Recall_small/medium/large) of each IoU type, prefixed
+  ``bbox_`` / ``segm_``, and ``performance`` = the ``eval_type`` metric
+  (``mAP`` is the bbox one).
 
 The matcher is the JAX package's pure-Python loop; its native C matcher
-(``cvpytorch_tpu/native``) is not copied yet, so evaluation costs host
-time that grows with detections × ground truth.
+and RLE codec (``cvpytorch_tpu/native``) are not copied yet, so evaluation
+costs host time that grows with detections × ground truth.  The JAX
+package takes masks of 256² or more through the RLE codec, which gives
+the same IoU for binary masks.
 """
 from __future__ import annotations
 
@@ -48,6 +53,26 @@ def _box_iou(dt, gt, crowd):
     union = area_d[:, None] + area_g[None, :] - inter
     denom = np.where(crowd[None, :], area_d[:, None], union)
     return inter / np.maximum(denom, 1e-9)
+
+
+def _mask_iou(dt_masks, gt_masks, crowd):
+    """Binary-mask IoU (D, G) as one BLAS product; crowd GT use
+    intersection/det_area."""
+    D, G = len(dt_masks), len(gt_masks)
+    if D == 0 or G == 0:
+        return np.zeros((D, G))
+    d_flat = dt_masks.reshape(D, -1).astype(bool)
+    g_flat = gt_masks.reshape(G, -1).astype(bool)
+    inter = (d_flat.astype(np.float32) @ g_flat.astype(np.float32).T).astype(float)
+    area_d = d_flat.sum(-1).astype(float)
+    area_g = g_flat.sum(-1).astype(float)
+    union = area_d[:, None] + area_g[None, :] - inter
+    denom = np.where(crowd[None, :], area_d[:, None], union)
+    return inter / np.maximum(denom, 1e-9)
+
+
+def _mask_areas(m):
+    return m.astype(bool).sum(axis=tuple(range(1, m.ndim))).astype(float)
 
 
 def _box_areas(b):
@@ -92,11 +117,16 @@ def _evaluate_img(ious, gt_ignore_base, gt_crowd, gt_areas, dt_areas,
     return dtm, dtig, npig
 
 
-class COCOEvalBoxes:
-    """Accumulates per-image records and produces the 12 COCO stats."""
+class COCOEval:
+    """Accumulates per-image records of one IoU type ('bbox' or 'segm') and
+    produces the 12 COCO stats."""
 
-    def __init__(self, num_classes: int):
+    def __init__(self, num_classes: int, iou_type: str = "bbox"):
+        if iou_type not in ("bbox", "segm"):
+            raise ValueError(f"iou_type {iou_type!r}: the port evaluates "
+                             "bbox and segm (keypoints: ROADMAP, Queue 1)")
         self.num_classes = num_classes
+        self.iou_type = iou_type
         self.reset()
 
     def reset(self):
@@ -105,8 +135,9 @@ class COCOEvalBoxes:
         self.records = [{a: [] for a in AREA_KEYS} for _ in range(self.num_classes)]
 
     def add_image(self, gt_boxes, gt_labels, det_boxes, det_scores,
-                  det_labels, gt_crowd=None):
-        """All arrays unpadded, boxes xyxy original-image pixels."""
+                  det_labels, gt_crowd=None, gt_masks=None, det_masks=None):
+        """All arrays unpadded, boxes xyxy original-image pixels; segm
+        takes the (n, Hm, Wm) masks too."""
         gt_boxes = np.asarray(gt_boxes, np.float64).reshape(-1, 4)
         gt_labels = np.asarray(gt_labels).reshape(-1)
         det_boxes = np.asarray(det_boxes, np.float64).reshape(-1, 4)
@@ -124,8 +155,14 @@ class COCOEvalBoxes:
             db, ds = det_boxes[d_sel], det_scores[d_sel]
             order = np.argsort(-ds, kind="stable")[:MAX_DETS[-1]]
             db, ds = db[order], ds[order]
-            ious = _box_iou(db, gb, crowd)
-            gt_areas, dt_areas = _box_areas(gb), _box_areas(db)
+            if self.iou_type == "segm":
+                gm = np.asarray(gt_masks)[g_sel]
+                dm = np.asarray(det_masks)[d_sel][order]
+                ious = _mask_iou(dm, gm, crowd)
+                gt_areas, dt_areas = _mask_areas(gm), _mask_areas(dm)
+            else:
+                ious = _box_iou(db, gb, crowd)
+                gt_areas, dt_areas = _box_areas(gb), _box_areas(db)
             for a in AREA_KEYS:
                 dtm, dtig, npig = _evaluate_img(
                     ious, crowd.copy(), crowd, gt_areas, dt_areas, AREA_RNG[a])
@@ -219,24 +256,22 @@ class CocoEvaluator(BaseEvaluator):
     def __init__(self, dataset=None, num_classes: int | None = None,
                  eval_type: str = "mAP", iou_types=("bbox",), **_):
         super().__init__(dataset)
-        if tuple(iou_types) != ("bbox",):
-            raise NotImplementedError(
-                f"iou_types {tuple(iou_types)}: the port evaluates boxes only "
-                "so far (ROADMAP, Queue 1)")
         self.num_classes = num_classes or getattr(dataset, "num_classes", None)
         if not self.num_classes:
             raise ValueError("num_classes required")
         self.eval_type = eval_type
+        self.iou_types = tuple(iou_types)
         self.id2name = getattr(dataset, "id2name", {})
         self.reset()
 
     def reset(self):
-        self._eval = COCOEvalBoxes(self.num_classes)
+        self._evals = {t: COCOEval(self.num_classes, t) for t in self.iou_types}
 
     def update(self, targets, preds):
         """targets: padded dict {'boxes','labels','valid','pads','scales'
-        [,'crowd']} (GT in network pixels, un-letterboxed here); preds: the
-        NMS output dict, already un-letterboxed by the model."""
+        [,'crowd'][,'masks']} (GT in network pixels, un-letterboxed here);
+        preds: the NMS output dict, already un-letterboxed by the model,
+        with 'masks' (B, K, Hm, Wm) pasted instance masks for segm."""
         t_boxes = np.asarray(targets["boxes"])
         t_labels = np.asarray(targets["labels"])
         t_valid = np.asarray(targets["valid"])
@@ -256,20 +291,30 @@ class CocoEvaluator(BaseEvaluator):
                 gb[:, [0, 2]] = (gb[:, [0, 2]] - pads[i, 0]) / scales[i, 0]
                 gb[:, [1, 3]] = (gb[:, [1, 3]] - pads[i, 1]) / scales[i, 1]
             pv = p_valid[i]
-            self._eval.add_image(gb, t_labels[i][gv], p_boxes[i][pv],
-                                 p_scores[i][pv], p_labels[i][pv],
-                                 gt_crowd=t_crowd[i][gv])
+            for t, ev in self._evals.items():
+                kw = {}
+                if t == "segm":
+                    kw = dict(gt_masks=np.asarray(targets["masks"])[i][gv],
+                              det_masks=np.asarray(preds["masks"])[i][pv])
+                ev.add_image(gb, t_labels[i][gv], p_boxes[i][pv],
+                             p_scores[i][pv], p_labels[i][pv],
+                             gt_crowd=t_crowd[i][gv], **kw)
 
     def evaluate(self) -> dict:
-        stats = self._eval.summarize()
-        out = {f"bbox_{k}": v for k, v in stats.items()}
-        out["performance"] = max(stats["mAP"], 0.0)
-        out["mAP"] = stats["mAP"]
-        out["AP50"] = stats["AP_50"]
-        out["AP75"] = stats["AP_75"]
-        for c in range(self.num_classes):
-            if not np.isnan(self._eval._per_class_ap[c]):
-                out[f"AP_{self.id2name.get(c, c)}"] = float(self._eval._per_class_ap[c])
+        out = {"performance": 0.0}
+        for t, ev in self._evals.items():
+            stats = ev.summarize()
+            for k, v in stats.items():
+                out[f"{t}_{k}"] = v
+                if k == "mAP":
+                    out["performance"] += max(v, 0.0)
+            if t == "bbox":
+                out["mAP"] = stats["mAP"]
+                out["AP50"] = stats["AP_50"]
+                out["AP75"] = stats["AP_75"]
+                for c in range(self.num_classes):
+                    if not np.isnan(ev._per_class_ap[c]):
+                        out[f"AP_{self.id2name.get(c, c)}"] = float(ev._per_class_ap[c])
         if self.eval_type in out:
             out["performance"] = out[self.eval_type]
         return out

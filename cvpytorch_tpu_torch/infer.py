@@ -43,13 +43,20 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_model(cfg, dictionary) -> torch.nn.Module:
+def build_model(cfg, dictionary, dataset=None) -> torch.nn.Module:
+    """The ``USE_MODEL`` model; lowercase ``USE_MODEL`` keys its constructor
+    takes are passed to it.  A model that takes ``mask_size`` gets the
+    dataset's instance-mask raster size unless the config sets it, so the
+    segm evaluator compares masks of one resolution."""
     from . import models as _m  # noqa: F401 (registers)
 
     model_cls = MODELS.get(cfg.USE_MODEL.CLASS)
     params = inspect.signature(model_cls).parameters
     extra = {k: v for k, v in cfg.USE_MODEL.items()
              if k in params and k not in ("dictionary", "model_cfg")}
+    if ("mask_size" in params and "mask_size" not in extra
+            and hasattr(dataset, "mask_size")):
+        extra["mask_size"] = int(dataset.mask_size)
     return model_cls(dictionary=tuple(dictionary), model_cfg=cfg.USE_MODEL,
                      **extra)
 
@@ -85,7 +92,7 @@ def main(argv=None):
     loader = DataLoader(ds, batch_size=int(stage_cfg.get("BATCH_SIZE", 1)),
                         num_workers=int(stage_cfg.get("NUM_WORKER", 4) or 4))
 
-    model = build_model(cfg, dictionary)
+    model = build_model(cfg, dictionary, ds)
     Checkpoints.load_weights_into(model, args.checkpoint)
     model.to(device=device, memory_format=torch.channels_last)
     predict = make_predict_step(model)

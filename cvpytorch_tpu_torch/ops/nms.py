@@ -50,6 +50,7 @@ def batched_nms(
     iou_threshold: float = 0.45,
     score_threshold: float = 0.001,
     max_nms: int = 1024,
+    class_aware: bool = True,
 ):
     """Batched padded NMS.
 
@@ -57,17 +58,25 @@ def batched_nms(
       boxes  (B, N, 4) xyxy in network pixels
       scores (B, N) confidence (obj*cls for YOLO)
       labels (B, N) int class ids
+      class_aware: False suppresses across classes (the RPN's proposals)
     Returns dict with 'boxes' (B,max_det,4), 'scores', 'labels',
-    'valid' (B,max_det) bool, 'num' (B,).
+    'valid' (B,max_det) bool, 'num' (B,).  Scores and boxes are taken to
+    float32 first (bf16 under autocast): ``top_k`` ranks float32 bits and
+    the kernel reads float32 boxes.
     """
     B, N = scores.shape
     k = min(max_nms, N)
+    scores = scores.float()
+    boxes = boxes.float()
     sc = torch.where(scores >= score_threshold, scores, 0.0)
     top_sc, top_idx = top_k(sc, k)  # score-desc order
     top_bx = boxes.gather(1, top_idx[..., None].expand(B, k, 4))
     top_lb = labels.gather(1, top_idx)
-    top_bx_shifted = top_bx + (top_lb.to(torch.float32) * MAX_WH)[..., None]
-    keep = nms_keep(top_bx_shifted.contiguous(), iou_threshold)
+    if class_aware:  # one suppression pass serves all classes
+        shifted = top_bx + (top_lb.to(torch.float32) * MAX_WH)[..., None]
+    else:
+        shifted = top_bx
+    keep = nms_keep(shifted.contiguous(), iou_threshold)
     final_sc = torch.where(keep & (top_sc > 0), top_sc, -1.0)
     if max_det > k:  # pad the candidate set so top_k(max_det) is valid
         pad = max_det - k

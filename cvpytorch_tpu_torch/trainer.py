@@ -113,8 +113,10 @@ class Trainer:
 
     def _parser_model(self):
         """Lowercase USE_MODEL keys the model's constructor takes are
-        passed to it."""
-        self.model = build_model(self.cfg, self.dictionary)
+        passed to it, and the dataset's ``mask_size`` to a model that takes
+        one."""
+        self.model = build_model(self.cfg, self.dictionary,
+                                 self.datasets.get("train") or self.datasets.get("val"))
 
     # ------------------------------------------------------------------
     def _build_train_state(self):

@@ -5,9 +5,20 @@
 submodules carry the Flax names, so the key map is a join of the path:
 
   params/…/conv/kernel (HWIO)     → ….conv.weight (OIHW, transpose(3,2,0,1))
-  params/…/<conv>/bias            → ….bias
+  params/…/fc/kernel (in, out)    → ….fc.weight (out, in), transposed
+  params/…/deconv/kernel (HWIO)   → ….deconv.weight (in, out, kh, kw),
+                                    flipped: K[::-1, ::-1].transpose(2,3,0,1)
+  params/…/<layer>/bias           → ….bias
   params/…/bn/scale | bn/bias     → ….bn.weight | ….bn.bias
   batch_stats/…/bn/mean | bn/var  → ….bn.running_mean | ….bn.running_var
+
+The kernel rule follows the type of the port module that owns the tensor
+(``nn.Linear``, ``nn.ConvTranspose2d``, otherwise a convolution), because
+the three cannot be told apart by shape: a square Dense kernel and a
+ConvTranspose kernel with as many inputs as outputs pass the shape check
+under the wrong rule.  Flax's ``ConvTranspose`` (``transpose_kernel=False``)
+does not flip its kernel; ``nn.ConvTranspose2d`` is the gradient of a
+convolution and does, hence the spatial flip.
 
 The JAX YOLOv5 stem is a 3×3 conv over a 2×2 space-to-depth input, kernel
 (3, 3, 4C, O); where the port's conv is 6×6 over C channels, that kernel is
@@ -53,8 +64,15 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
             yield prefix + (k,), np.asarray(v)
 
 
-def _convert(name: str, arr: np.ndarray, target: torch.Tensor) -> np.ndarray:
-    if arr.ndim == 4:  # conv kernel HWIO → OIHW
+def _convert(name: str, arr: np.ndarray, target: torch.Tensor,
+             owner: nn.Module | None = None) -> np.ndarray:
+    """The tree's leaf ``arr`` in the layout of the port tensor ``target``;
+    ``owner`` is the port module holding it (None: a convolution or BN)."""
+    if isinstance(owner, nn.Linear) and arr.ndim == 2:  # (in, out) → (out, in)
+        arr = arr.T
+    elif isinstance(owner, nn.ConvTranspose2d) and arr.ndim == 4:
+        arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # HWIO → (I, O, kh, kw)
+    elif arr.ndim == 4:  # conv kernel HWIO → OIHW
         if tuple(target.shape[2:]) == (6, 6) and arr.shape[:2] == (3, 3):
             arr = s2d_to_stem6_kernel(arr)
         arr = arr.transpose(3, 2, 0, 1)
@@ -68,6 +86,7 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Copy a Flax ``{'params', 'batch_stats'}`` tree into ``model`` in place."""
     state = {k: v for k, v in model.state_dict().items()
              if not k.endswith("num_batches_tracked")}
+    owners = dict(model.named_modules())
     unmatched, seen = [], set()
     for coll, leaves in (("params", _PARAM_LEAVES),
                          ("batch_stats", _STAT_LEAVES)):
@@ -78,7 +97,7 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
                 unmatched.append("/".join((coll,) + path))
                 continue
             target = state[name]
-            arr = _convert(name, arr, target)
+            arr = _convert(name, arr, target, owners.get(".".join(path[:-1])))
             with torch.no_grad():
                 target.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
             seen.add(name)

@@ -32,7 +32,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "('jax', 'jaxlib', 'flax', 'optax', 'cvpytorch_tpu', 'cv2'))\n"
         "assert not bad, bad\n"
         "for n in ('infer', 'ops.nms_kernel', 'trainer', 'optim.optimizers', "
-        "'optim.schedules', 'ops.augment', 'evaluator.coco'):\n"
+        "'optim.schedules', 'ops.augment', 'evaluator.coco', 'models.rcnn', "
+        "'ops.roi_align', 'ops.masks', 'models.backbones.resnet'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
