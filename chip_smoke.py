@@ -42,7 +42,23 @@
    boxes; compares R50-FPN at B = 1, f32, on the card and on the CPU (in
    eval mode the FPN and RPN maps within 1e-4 and the proposal sets
    equal; the losses of a train-mode forward within 1e-3 relative).
-6. Kernel checks, after every host-clock timing: ``nms_keep`` against
+6. Segmentation phases: ``conf/cityscapes_deeplabv3plus.yml`` (ResNet-50
+   at output stride 8, separable ASPP, low-level fusion, FCN aux head)
+   and ``conf/cityscapes_unet.yml``, each as written (19 classes, AMP,
+   SGD 0.9 with weight decay 1e-4, PolyLR, warmup, batch 8, 512×1024
+   crops with flip and photometric distortion) on SyntheticSegmentation
+   at the 1024×2048 Cityscapes frame: trained through ``Trainer.run()``
+   (4 and 2 steps), validated on 16 images (mIoU), the checkpoint served
+   through ``infer.main`` as palette PNGs checked against the predict
+   step's argmax; ``nms_keep`` is not launched on these paths.  Times the
+   AMP and f32 train steps at batch 8 (CUDA events, peak memory), the
+   val and predict steps; for DeepLabV3+ also the host's loader rate,
+   each transform's time on one item and the PNG decoder on a
+   1024×2048 RGB frame, and R50 at 512×1024, B = 1, f32 on the card
+   against the CPU (eval-mode logits within 1e-4 of their largest value,
+   argmax equal on ≥ 99.9 % of the pixels, train-mode losses within
+   1e-3 relative).
+7. Kernel checks, after every host-clock timing: ``nms_keep`` against
    ``nms_keep_plain`` on the card, bit-exact, over B in {1, 3, 32} x K in
    {1, 63, 64, 65, 300, 1000, 1024} x every threshold the detectors use,
    with clustered, class-offset boxes of 3 and of 80 classes and a dense
@@ -50,7 +66,7 @@
    IoU equals 0.6; then constructed pairs at IoU == thr, one f32 ulp
    either side, with no overlap and with non-finite coordinates, held
    against the plain version and numpy's f32 division.
-7. Device phase, last because a profiler session slows the host's later
+8. Device phase, last because a profiler session slows the host's later
    launches: the device time of each of the two NMS kernels of a call
    (torch.profiler) on the inputs timed above and against the number of
    64-box tiles, and the device operations one call runs, counted from the
@@ -59,7 +75,7 @@
    device busy and idle share and the top operations of the device
    augmentation alone, of the YOLOv5 AMP train step with it, and of the
    Mask R-CNN AMP train step with the share of the ROIAlign gathers and
-   of their backward.
+   of their backward, and of the DeepLabV3+ and UNet AMP train steps.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -687,49 +703,10 @@ def train_phase(workdir: Path) -> dict:
     setting = train_config(workdir)
     cfg = CommonConfiguration.from_file(str(setting))
     trainer = trainer_mod.Trainer(cfg)  # on cuda, the entry point's default
-
-    # instruments, outside the port: each step's loss (read after the run,
-    # so no step waits for it), and the wall time of every epoch and of
-    # the evaluator's calls
-    losses, times = [], {"train_epoch": [], "val_epoch": [], "evaluator": 0.0}
-    real_make_train_step = trainer_mod.make_train_step
-
-    def recording_make_train_step(*args, **kwargs):
-        step = real_make_train_step(*args, **kwargs)
-
-        def recorded(state, batch):
-            state, metrics = step(state, batch)
-            losses.append(metrics["loss"])
-            return state, metrics
-        return recorded
-
-    def timed(fn, key):
-        def run(*args, **kwargs):
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            if key == "evaluator":
-                times[key] += time.perf_counter() - t0
-            else:
-                times[key].append(time.perf_counter() - t0)
-            return out
-        return run
-
-    trainer.train_epoch = timed(trainer.train_epoch, "train_epoch")
-    trainer.val_epoch = timed(trainer.val_epoch, "val_epoch")
-    trainer.evaluator.update = timed(trainer.evaluator.update, "evaluator")
-    trainer.evaluator.evaluate = timed(trainer.evaluator.evaluate, "evaluator")
-    trainer_mod.make_train_step = recording_make_train_step
-    try:
-        # the main path of this phase, counts read just around it
-        nms_keep.launches = 0
-        t0 = time.perf_counter()
-        state = trainer.run()
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
-        launches = nms_keep.launches
-    finally:
-        trainer_mod.make_train_step = real_make_train_step
+    # the main path of this phase, counts read just around it
+    run = run_instrumented(trainer, trainer_mod)
+    state, times, run_s, launches = (run[k] for k in ("state", "times", "run_s", "launches"))
+    losses = [m["loss"] for m in run["metrics"]]
     steps = TRAIN_STEPS_PER_EPOCH * TRAIN_EPOCHS
     loss = torch.stack(losses).float().cpu()
     if len(losses) != steps or state.step != steps:
@@ -975,20 +952,14 @@ def capture_nms_inputs():
     return seen, lambda: setattr(nms_mod, "nms_keep", nms_keep)
 
 
-def maskrcnn_phase(workdir: Path) -> tuple[dict, object]:
-    """Mask R-CNN R50-FPN at 800² trained through ``Trainer.run()`` (bbox
-    and segm validation) and served through ``infer.main`` on the card."""
+def run_instrumented(trainer, trainer_mod) -> dict:
+    """``trainer.run()`` with ``nms_keep``'s count set to 0 just before and
+    read just after, every step's metrics recorded (tensors, read after the
+    run, so no step waits for them), and the host-clock walls of each
+    train epoch, each val epoch and the evaluator's calls."""
     import torch
 
-    from cvpytorch_tpu_torch import infer
-    from cvpytorch_tpu_torch import trainer as trainer_mod
-    from cvpytorch_tpu_torch.config import CommonConfiguration
     from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
-
-    workdir.mkdir()
-    setting = maskrcnn_config(workdir)
-    cfg = CommonConfiguration.from_file(str(setting))
-    trainer = trainer_mod.Trainer(cfg)
 
     metrics, times, val = [], {"train_epoch": [], "val_epoch": [], "evaluator": 0.0}, []
     real_make_train_step = trainer_mod.make_train_step
@@ -1022,7 +993,6 @@ def maskrcnn_phase(workdir: Path) -> tuple[dict, object]:
     trainer.evaluator.evaluate = timed(trainer.evaluator.evaluate, "evaluator")
     trainer_mod.make_train_step = recording_make_train_step
     try:
-        # the main path of this phase, counts read just around it
         nms_keep.launches = 0
         t0 = time.perf_counter()
         state = trainer.run()
@@ -1031,6 +1001,27 @@ def maskrcnn_phase(workdir: Path) -> tuple[dict, object]:
         launches = nms_keep.launches
     finally:
         trainer_mod.make_train_step = real_make_train_step
+    return {"state": state, "metrics": metrics, "times": times, "val": val,
+            "run_s": run_s, "launches": launches}
+
+
+def maskrcnn_phase(workdir: Path) -> tuple[dict, object]:
+    """Mask R-CNN R50-FPN at 800² trained through ``Trainer.run()`` (bbox
+    and segm validation) and served through ``infer.main`` on the card."""
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+
+    workdir.mkdir()
+    setting = maskrcnn_config(workdir)
+    cfg = CommonConfiguration.from_file(str(setting))
+    trainer = trainer_mod.Trainer(cfg)
+    # the main path of this phase, counts read just around it
+    run = run_instrumented(trainer, trainer_mod)
+    state, metrics, times, run_s, launches = (
+        run[k] for k in ("state", "metrics", "times", "run_s", "launches"))
+    val = run["val"]
     names = ("rpn_obj_loss", "rpn_reg_loss", "cls_loss", "box_loss", "mask_loss", "loss")
     if len(metrics) != MASKRCNN_STEPS or state.step != MASKRCNN_STEPS:
         raise AssertionError(f"{len(metrics)} steps recorded, state at step {state.step}")
@@ -1080,7 +1071,7 @@ def maskrcnn_phase(workdir: Path) -> tuple[dict, object]:
     }, trainer
 
 
-def maskrcnn_batches(trainer) -> dict:
+def first_batches(trainer) -> dict:
     """The first host batch of the train loader and of the val loader, on
     the card."""
     import torch
@@ -1090,6 +1081,52 @@ def maskrcnn_batches(trainer) -> dict:
     return {stage: map_arrays(next(iter(trainer.dataloaders[stage])),
                               lambda a: torch.from_numpy(a).cuda())
             for stage in ("train", "val")}
+
+
+def train_step_timing(trainer, batch, n: int, iters: int) -> tuple[dict, object]:
+    """The AMP and f32 train steps on ``batch`` (``n`` images, already on
+    the card) from the same seeded weights, by CUDA events over ``iters``
+    steps after 2 warm-up steps, and the peak memory of each; an f32 step
+    that does not fit is reported and skipped, an AMP step that does not
+    fit fails.  Returns the numbers and the AMP run's state."""
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.train_state import create_train_state, make_train_step
+
+    def fresh_state():
+        torch.manual_seed(0)
+        model = build_model(trainer.cfg, trainer.dictionary, trainer.datasets["train"]).to(
+            "cuda", memory_format=torch.channels_last)
+        return create_train_state(model, build_optimizer(trainer.cfg, model,
+                                                         trainer.lr_schedule))
+
+    out = {"batch": n}
+    for name, amp in (("amp", True), ("f32", False)):
+        torch.cuda.empty_cache()
+        state = fresh_state()
+        step = make_train_step(amp=amp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            ms = cuda_time_ms(lambda: step(state, batch), iters=iters, warmup=2)
+        except torch.OutOfMemoryError:
+            out[f"{name}_step_ms"] = None
+            out[f"{name}_out_of_memory_at_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            print(f"{name} train step at batch {n}: out of memory at "
+                  f"{out[f'{name}_out_of_memory_at_gb']:.2f} GB", flush=True)
+            del state, step
+            continue
+        out[f"{name}_step_ms"] = ms
+        out[f"{name}_images_per_s"] = n / ms * 1e3
+        out[f"{name}_max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if amp:
+            amp_state = state
+        del state, step
+    if out["amp_step_ms"] is None:
+        raise AssertionError(f"the AMP train step does not fit at batch {n}")
+    return out, amp_state
 
 
 def maskrcnn_timing(trainer, batches) -> tuple[dict, dict]:
@@ -1102,44 +1139,12 @@ def maskrcnn_timing(trainer, batches) -> tuple[dict, dict]:
     step: bit-exact, and each timed."""
     import torch
 
-    from cvpytorch_tpu_torch.infer import build_model
     from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
-    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
     from cvpytorch_tpu_torch.train_state import (
-        create_train_state, make_eval_step, make_predict_step, make_train_step)
+        make_eval_step, make_predict_step, make_train_step)
 
-    def fresh_state():
-        torch.manual_seed(0)
-        model = build_model(trainer.cfg, trainer.dictionary, trainer.datasets["train"]).to(
-            "cuda", memory_format=torch.channels_last)
-        return create_train_state(model, build_optimizer(trainer.cfg, model,
-                                                         trainer.lr_schedule))
-
-    out = {"batch": MASKRCNN_BATCH}
     train_b, val_b = batches["train"], batches["val"]
-    for name, amp in (("amp", True), ("f32", False)):
-        torch.cuda.empty_cache()
-        state = fresh_state()
-        step = make_train_step(amp=amp)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        try:
-            ms = cuda_time_ms(lambda: step(state, train_b), iters=5, warmup=2)
-        except torch.OutOfMemoryError:
-            out[f"{name}_step_ms"] = None
-            out[f"{name}_out_of_memory_at_gb"] = torch.cuda.max_memory_allocated() / 1e9
-            print(f"Mask R-CNN {name} train step at batch {MASKRCNN_BATCH}: out of memory "
-                  f"at {out[f'{name}_out_of_memory_at_gb']:.2f} GB", flush=True)
-            del state, step
-            continue
-        out[f"{name}_step_ms"] = ms
-        out[f"{name}_images_per_s"] = MASKRCNN_BATCH / ms * 1e3
-        out[f"{name}_max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        if amp:
-            amp_state = state
-        del state, step
-    if out["amp_step_ms"] is None:
-        raise AssertionError("the AMP train step does not fit at batch 16")
+    out, amp_state = train_step_timing(trainer, train_b, MASKRCNN_BATCH, iters=5)
 
     # the path's own NMS inputs: the RPN's of a train step, the detections'
     # of a val step
@@ -1254,6 +1259,252 @@ def maskrcnn_card_vs_cpu(trainer, batches) -> dict:
     return {"tried": tried}
 
 
+SEG_BATCH = 8  # TRAIN and VAL BATCH_SIZE of both Cityscapes configs
+SEG_FRAME = [1024, 2048]  # a Cityscapes frame: RandomScaleCrop and Resize work on it
+SEG_VAL_IMAGES = 16  # one val epoch of 2 batches
+SEG_STEPS = {"deeplabv3plus": 4, "unet": 2}  # one epoch each
+
+
+def seg_config(workdir: Path, name: str) -> Path:
+    """``conf/cityscapes_<name>.yml`` as written (its model, 19 SEG_CLASSES
+    from ``conf/dicts/cityscapes_dict.yml``, AMP, SGD 0.9 with weight decay
+    1e-4, PolyLR 0.9, linear warmup of 500 iterations, batch 8, its
+    512×1024 crop, flip, photometric distortion, Resize, ToTensor and
+    Normalize, mIoU evaluation) with the dataset swapped for
+    SyntheticSegmentation at the 1024×2048 Cityscapes frame; cut to one
+    epoch of ``SEG_STEPS[name]`` steps validated on 16 images.  The INFER
+    stage (one batch) serves the checkpoint afterwards."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / f"cityscapes_{name}.yml"))
+    data = cfg.DATASET
+    data.CLASS = "SyntheticSegmentation"
+    data.DICTIONARY = str(ROOT / data.DICTIONARY)
+    synthetic = {"SIZE": SEG_FRAME, "SEED": 0}
+    data.TRAIN.update({**synthetic, "LENGTH": SEG_BATCH * SEG_STEPS[name]})
+    data.VAL.update({**synthetic, "LENGTH": SEG_VAL_IMAGES})
+    data.INFER = {**dict(data.VAL), "LENGTH": SEG_BATCH}
+    cfg.EVALUATOR.EVAL_INTERVALS = 1
+    cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+                "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
+    path = workdir / f"cityscapes_{name}_synthetic.json"
+    path.write_text(json.dumps(cfg, default=lambda c: c.data))
+    return path
+
+
+def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
+    """``conf/cityscapes_<name>.yml`` trained through ``Trainer.run()``
+    (mIoU validation) and served through ``infer.main`` on the card."""
+    import torch
+
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.data.loader import DataLoader
+    from cvpytorch_tpu_torch.data.png import decode
+    from cvpytorch_tpu_torch.data.transforms import build_transforms
+    from cvpytorch_tpu_torch.registry import DATASETS
+    from cvpytorch_tpu_torch.train_state import make_predict_step
+
+    steps = SEG_STEPS[name]
+    workdir.mkdir()
+    setting = seg_config(workdir, name)
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    # the main path of this phase, counts read just around it
+    run = run_instrumented(trainer, trainer_mod)
+    state, metrics, times, run_s, launches = (
+        run[k] for k in ("state", "metrics", "times", "run_s", "launches"))
+    val = run["val"]
+    if len(metrics) != steps or state.step != steps:
+        raise AssertionError(f"{len(metrics)} steps recorded, state at step {state.step}")
+    losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"non-finite train loss: {losses}")
+    if launches:  # the segmentation path runs no NMS
+        raise AssertionError(f"nms_keep launched {launches} times on the {name} path")
+    (val_metrics,) = val
+    if not 0 <= val_metrics["mIoU"] <= 1 or val_metrics["performance"] != val_metrics["mIoU"]:
+        raise AssertionError(f"val mIoU {val_metrics['mIoU']}")
+    print(f"{name} Trainer.run(): {steps} steps in {run_s:.2f} s (host clock, from model "
+          f"build to the last checkpoint), losses {losses}, val mIoU {val_metrics['mIoU']} "
+          f"PA {val_metrics['PA']}", flush=True)
+
+    # the last checkpoint serves one batch through the infer CLI: palette
+    # PNGs of the argmax the predict step gives on the same images
+    out_dir = workdir / "served"
+    infer.main(["--setting", str(setting), "--checkpoint",
+                str(Path(trainer.checkpoints.save_dir) / "last.pt"), "--out", str(out_dir)])
+    files = sorted(out_dir.iterdir())
+    if [f.name for f in files] != [f"{i:06d}.png" for i in range(SEG_BATCH)]:
+        raise AssertionError(f"served files {[f.name for f in files]}")
+    infer_cfg = trainer.cfg.DATASET.INFER
+    infer_ds = DATASETS.get(trainer.cfg.DATASET.CLASS)(
+        data_cfg=infer_cfg, dictionary=trainer.dictionary, stage="infer",
+        transform=build_transforms("SEG_CLASSES", infer_cfg.get("TRANSFORMS"), "infer"))
+    images = torch.from_numpy(next(iter(DataLoader(infer_ds, SEG_BATCH)))["image"]).cuda()
+    want = make_predict_step(state.model)(images).cpu().numpy()
+    palette = bytes(infer.CITYSCAPES_PALETTE)
+    for f, w in zip(files, want):
+        index, ctype, plte = decode(f.read_bytes())
+        if ctype != 3 or plte != palette or index.shape != (*w.shape, 1):
+            raise AssertionError(f"{f.name}: colour type {ctype}, shape {index.shape}")
+        if not np.array_equal(index[..., 0], w):
+            raise AssertionError(f"{f.name}: {int((index[..., 0] != w).sum())} pixels "
+                                 "differ from the predict step's argmax")
+    classes = len(np.unique(want))
+    print(f"infer.main on the trained {name}: {SEG_BATCH} palette PNGs of {want.shape[1:]} "
+          f"equal to the predict step's argmax ({classes} classes present)", flush=True)
+    return {
+        "steps": steps,
+        "nms_keep_launches": launches,
+        "losses": losses,
+        "run_s": run_s,
+        "train_epoch_s": times["train_epoch"][0],
+        "fed_images_per_s": SEG_BATCH * steps / times["train_epoch"][0],
+        "val_epoch_s": times["val_epoch"][0],
+        "val_evaluator_s": times["evaluator"],
+        "val_evaluator_share": times["evaluator"] / times["val_epoch"][0],
+        "val_mIoU": val_metrics["mIoU"],
+        "served_images": SEG_BATCH,
+        "served_classes_present": classes,
+    }, trainer
+
+
+def seg_timing(trainer, batches, iters: int) -> tuple[dict, object]:
+    """The AMP and f32 train steps at batch 8 (``train_step_timing``), the
+    f32 val step and the serving predict step at batch 8."""
+    import torch
+
+    from cvpytorch_tpu_torch.train_state import make_eval_step, make_predict_step
+
+    out, amp_state = train_step_timing(trainer, batches["train"], SEG_BATCH, iters)
+    torch.cuda.empty_cache()
+    val_b = batches["val"]
+    eval_step = make_eval_step()
+    out["val_step_ms"] = cuda_time_ms(lambda: eval_step(amp_state, val_b), iters=3, warmup=1)
+    predict = make_predict_step(amp_state.model)
+    out["bs8_predict_ms"] = cuda_time_ms(lambda: predict(val_b["image"]), iters=3, warmup=1)
+    out["bs8_predict_images_per_s"] = SEG_BATCH / out["bs8_predict_ms"] * 1e3
+    return out, amp_state
+
+
+def _png_bytes(pixels: np.ndarray, row_filter: int) -> bytes:
+    """An RGB PNG of ``pixels`` (H, W, 3) whose every row carries
+    ``row_filter`` (1 Sub or 4 Paeth), for timing the decoder."""
+    import struct
+    import zlib
+
+    h, w, _ = pixels.shape
+    x = pixels.reshape(h, -1).astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 3:] = x[:, :-3]
+    if row_filter == 1:
+        pred = a
+    else:
+        b = np.zeros_like(x)
+        b[1:] = x[:-1]
+        c = np.zeros_like(x)
+        c[1:, 3:] = x[:-1, :-3]
+        pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+        pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((h, 1), row_filter, np.uint8),
+                           ((x - pred) % 256).astype(np.uint8)], 1)
+
+    def chunk(kind, data):
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def seg_host_timing(trainer, n_items: int = 4) -> dict:
+    """The host's side of the fed rate, with no device work: the train
+    loader's rate over its epoch (8 worker threads), and on one thread the
+    draw of one synthetic 1024×2048 frame and each transform of the
+    train and val pipelines on it, over ``n_items`` items; the PNG
+    decoder on one 1024×2048 RGB frame whose rows are all Sub (the
+    vectorised path) or all Paeth (the anti-diagonal path)."""
+    from cvpytorch_tpu_torch.data.png import decode
+
+    loader = trainer.dataloaders["train"]
+    t0 = time.perf_counter()
+    n = sum(len(b["image"]) for b in loader)
+    out = {"host_loader_images_per_s": n / (time.perf_counter() - t0)}
+    for stage in ("train", "val"):
+        ds = trainer.datasets[stage]
+        pipeline, ds.transform = ds.transform, None
+        try:
+            t0 = time.perf_counter()
+            samples = [ds[i] for i in range(n_items)]
+            ms = {"draw_1024x2048": (time.perf_counter() - t0) * 1e3 / n_items}
+            for t in pipeline.transforms:
+                t0 = time.perf_counter()
+                samples = [t(s) for s in samples]
+                ms[type(t).__name__] = (time.perf_counter() - t0) * 1e3 / n_items
+        finally:
+            ds.transform = pipeline
+        out[f"host_{stage}_item_ms_one_thread"] = ms
+    frame = trainer.datasets["val"].__class__(
+        trainer.cfg.DATASET.VAL, trainer.dictionary, stage="infer")[0]["image"]
+    for name, f in (("sub", 1), ("paeth", 4)):
+        data = _png_bytes(frame[..., ::-1], f)
+        t0 = time.perf_counter()
+        decoded, _, _ = decode(data)
+        out[f"png_decode_1024x2048_rgb_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(decoded, frame[..., ::-1]):
+            raise AssertionError(f"PNG decode of the {name} frame differs from its pixels")
+    return out
+
+
+def seg_card_vs_cpu(trainer, batches) -> dict:
+    """DeepLabV3+ R50 at 512×1024, B = 1, f32 with TF32 off, from the same
+    seeded weights on the card and on the CPU, dropout off: in eval mode
+    the logits within 1e-4 of their largest value and the argmax equal on
+    at least 99.9 % of the pixels; the losses of a train-mode forward (BN
+    on the statistics of the one image) within 1e-3 relative."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the step makers turn it off")
+    image = batches["train"]["image"][:1]
+    target = batches["train"]["target"][:1]
+    torch.manual_seed(0)
+    base = build_model(trainer.cfg, trainer.dictionary)
+    for m in base.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    seen = {}
+    for device in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(device, memory_format=torch.channels_last)
+        x = image.to(device)
+        with torch.no_grad():
+            model.eval()
+            logits = model._logits(model.head, model.backbone(x.permute(0, 3, 1, 2)),
+                                   x.shape[1:3])
+            _, losses = model.train()(x, target.to(device), mode="train")
+        seen[device] = {"logits": logits.cpu(), "losses": {k: float(v) for k, v in losses.items()}}
+    cpu, card = seen["cpu"], seen["cuda"]
+    out = {
+        "logits_max_rel_err": float((card["logits"] - cpu["logits"]).abs().max()
+                                    / cpu["logits"].abs().max()),
+        "argmax_equal_share": float((card["logits"].argmax(1) == cpu["logits"].argmax(1))
+                                    .float().mean()),
+        "train_loss_rel": {k: abs(card["losses"][k] - v) / max(abs(v), 1e-12)
+                           for k, v in cpu["losses"].items()},
+        "train_loss_cpu": cpu["losses"], "train_loss_card": card["losses"]}
+    print(f"DeepLabV3+ card vs CPU, f32, B=1, 512x1024: {json.dumps(out)}", flush=True)
+    if not (out["logits_max_rel_err"] <= 1e-4 and out["argmax_equal_share"] >= 0.999):
+        raise AssertionError(f"eval-mode logits differ, card vs CPU: {out}")
+    if not max(out["train_loss_rel"].values()) <= 1e-3:
+        raise AssertionError(f"train losses differ card vs CPU: {out}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1284,11 +1535,27 @@ def main() -> int:
         torch.cuda.empty_cache()
         mrcnn, mrcnn_trainer = maskrcnn_phase(Path(tmp) / "maskrcnn")
         print(json.dumps({"maskrcnn": mrcnn, "card": card}), flush=True)
-        mrcnn_batches = maskrcnn_batches(mrcnn_trainer)
+        mrcnn_batches = first_batches(mrcnn_trainer)
         mrcnn_timing, mrcnn_extra = maskrcnn_timing(mrcnn_trainer, mrcnn_batches)
         print(json.dumps({"maskrcnn_timing": mrcnn_timing, "card": card}), flush=True)
         mrcnn_check = maskrcnn_card_vs_cpu(mrcnn_trainer, mrcnn_batches)
         print(json.dumps({"maskrcnn_card_vs_cpu": mrcnn_check, "card": card}), flush=True)
+        seg = {}
+        for name in SEG_STEPS:
+            torch.cuda.empty_cache()
+            result, seg_trainer = seg_phase(Path(tmp) / f"seg_{name}", name)
+            print(json.dumps({name: result, "card": card}), flush=True)
+            batches = first_batches(seg_trainer)
+            steps_timed, amp_state = seg_timing(seg_trainer, batches,
+                                                iters=5 if name == "deeplabv3plus" else 3)
+            print(json.dumps({f"{name}_timing": steps_timed, "card": card}), flush=True)
+            if name == "deeplabv3plus":  # both configs share the host pipelines
+                print(json.dumps({"seg_host_timing": seg_host_timing(seg_trainer),
+                                  "card": card}), flush=True)
+                print(json.dumps({"deeplabv3plus_card_vs_cpu": seg_card_vs_cpu(
+                    seg_trainer, batches), "card": card}), flush=True)
+            seg[name] = {"result": result, "timing": steps_timed, "state": amp_state,
+                         "batch": batches["train"]}
         checks = kernel_checks()
         # the profiler last: its sessions slow the host's launches afterwards
         split = device_phase({**times.pop("inputs"), "path_input": path_input})
@@ -1313,6 +1580,14 @@ def main() -> int:
             "device_busy_ms"] / mrcnn_timing["amp_step_ms"]
         print(json.dumps({"maskrcnn_amp_train_step_profile": mrcnn_profile,
                           "nms_keep_device_ms": mrcnn_split, "card": card}), flush=True)
+        seg_step = make_train_step(amp=True)
+        for name, run in seg.items():
+            torch.cuda.empty_cache()
+            prof = profile_device(lambda: seg_step(run["state"], run["batch"]), steps=3, top=15)
+            prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / run[
+                "timing"]["amp_step_ms"]
+            print(json.dumps({f"{name}_amp_train_step_profile": prof, "card": card}),
+                  flush=True)
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
     print(json.dumps({"nms_keep_B1_K1024": {**times["B1"], **split["B1"],
@@ -1328,7 +1603,9 @@ def main() -> int:
         "replaces": "cvpytorch_tpu/ops/pallas/nms_kernel.py:23",
         "launches": mrcnn["launches"],
         "launches_by_path": {"infer": path["launches"], "train": train["launches"],
-                             "maskrcnn_train_and_val": mrcnn["launches"]},
+                             "maskrcnn_train_and_val": mrcnn["launches"],
+                             **{f"{name}_train_and_val": run["result"]["nms_keep_launches"]
+                                for name, run in seg.items()}},
         "max_abs_err": checks["max_abs_err"],
         "ms": times["B32"]["ms"],
         "plain_ms": times["B32"]["plain_ms"],

@@ -154,3 +154,16 @@ def load_dictionary(path: str, task: str | None = None):
             f"DICTIONARY_NAME to select one: {path}")
     (task_key, classes), = payload.items()
     return task_key, classes
+
+
+def dictionary_to_names_weights(classes: list) -> tuple[list[str], list[float]]:
+    """Flatten [{name: weight}, ...] into (names, weights)."""
+    names, weights = [], []
+    for item in classes:
+        if isinstance(item, Mapping):
+            (name, weight), = item.items()
+        else:
+            name, weight = str(item), 1.0
+        names.append(name)
+        weights.append(float(weight))
+    return names, weights

@@ -1,2 +1,2 @@
 """Datasets of the port.  Importing it registers them."""
-from . import synthetic  # noqa: F401
+from . import cityscapes, synthetic  # noqa: F401

@@ -1,7 +1,8 @@
-"""Synthetic detection and instance-segmentation data (counterparts of
-``SyntheticDetection`` and ``SyntheticInstanceSegmentation`` in
+"""Synthetic segmentation, detection and instance-segmentation data
+(counterparts of ``SyntheticSegmentation``, ``SyntheticDetection`` and
+``SyntheticInstanceSegmentation`` in
 ``cvpytorch_tpu/data/datasets/synthetic.py``): the same seeds give the same
-images, boxes and masks as the JAX package.
+images, masks and boxes as the JAX package.
 
 A train-stage ``LOAD_NUM`` > 1 makes each item a group: the indexed sample
 and ``LOAD_NUM - 1`` others drawn with Python's ``random`` (the mosaic
@@ -14,6 +15,45 @@ import numpy as np
 
 from ...registry import DATASETS
 from .base import Dataset
+
+
+@DATASETS.register(name="SyntheticSegmentation")
+class SyntheticSegmentation(Dataset):
+    """Images with coloured rectangles; the target is the (H, W) uint8 map
+    of the rectangles' class ids (0 elsewhere).  Class c paints the image
+    with 50·c mod 256: the JAX dataset assigns 50·c to a uint8 array,
+    which wrapped under numpy 1 and raises under numpy 2 for c ≥ 6.
+    Infer-stage samples carry no target."""
+
+    def __init__(self, data_cfg=None, dictionary=None, transform=None,
+                 target_transform=None, stage="train"):
+        super().__init__(data_cfg, dictionary, transform, target_transform, stage)
+        self.length = int(getattr(data_cfg, "LENGTH", None) or 64)
+        size = getattr(data_cfg, "SIZE", None) or [64, 64]
+        self.size = tuple(size)
+        self.n_cls = max(len(self.dictionary), 2)
+        self._rng = np.random.RandomState(
+            int(getattr(data_cfg, "SEED", None) or 0) + (1 if stage != "train" else 0)
+        )
+        self._seeds = self._rng.randint(0, 2**31 - 1, size=self.length)
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        rng = np.random.RandomState(self._seeds[idx])
+        h, w = self.size
+        img = rng.randint(0, 30, (h, w, 3)).astype(np.uint8)
+        mask = np.zeros((h, w), dtype=np.uint8)
+        for cls in range(1, self.n_cls):
+            if rng.rand() < 0.8:
+                x0, y0 = rng.randint(0, w // 2), rng.randint(0, h // 2)
+                bw, bh = rng.randint(w // 8, w // 2), rng.randint(h // 8, h // 2)
+                img[y0:y0 + bh, x0:x0 + bw] = (50 * cls) % 256
+                mask[y0:y0 + bh, x0:x0 + bw] = cls
+        sample = {"image": img,
+                  "target": None if self.stage == "infer" else mask}
+        return self.transform(sample) if self.transform else sample
 
 
 @DATASETS.register(name="SyntheticDetection")

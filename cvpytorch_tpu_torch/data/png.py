@@ -1,0 +1,152 @@
+"""PNG codec on the standard library's ``zlib`` (the card's machine has
+neither OpenCV nor PIL).
+
+* ``write_palette_png(path, index, palette)`` — an 8-bit palette image
+  (colour type 3), every row unfiltered, the palette as given;
+* ``imread(path, grayscale=False)`` — what ``cv2.imread`` returns for an
+  8-bit, non-interlaced gray, gray+alpha, RGB, RGBA or palette PNG: (H, W,
+  3) uint8 BGR, alpha dropped, gray replicated; with ``grayscale`` the
+  (H, W) map of a gray file (a colour file raises: OpenCV converts it with
+  libpng's own weights, which are not copied here).
+
+The reader undoes the five row filters.  None, Sub (a cumulative sum mod
+256 along the row) and Up are vectorised row by row.  Average and Paeth
+depend on the pixel to the left, so an image that has such rows is
+reconstructed by anti-diagonals instead: pixel (y, x) needs only (y, x−1),
+(y−1, x) and (y−1, x−1), so each diagonal is one vectorised step (H + W − 1
+steps).
+"""
+from __future__ import annotations
+
+import struct
+import zlib
+
+import numpy as np
+
+_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples per pixel
+
+
+def _chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def write_palette_png(path: str, index: np.ndarray, palette) -> None:
+    """``index`` (H, W) uint8 palette indices; ``palette`` a flat R, G, B
+    sequence of at most 256 colours."""
+    index = np.ascontiguousarray(index, dtype=np.uint8)
+    if index.ndim != 2:
+        raise ValueError(f"palette PNG takes an (H, W) map, not {index.shape}")
+    pal = bytes(int(v) for v in palette)
+    if not pal or len(pal) % 3 or len(pal) > 768:
+        raise ValueError(f"palette of {len(pal)} values is not 1-256 RGB colours")
+    h, w = index.shape
+    rows = np.concatenate([np.zeros((h, 1), np.uint8), index], axis=1)  # filter 0
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE)
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0)))
+        f.write(_chunk(b"PLTE", pal))
+        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_chunk(b"IEND", b""))
+
+
+def _read_chunks(data: bytes):
+    if data[:8] != _SIGNATURE:
+        raise ValueError("not a PNG file")
+    pos = 8
+    while pos + 12 <= len(data):
+        (n,) = struct.unpack(">I", data[pos:pos + 4])
+        kind, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        (crc,) = struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])
+        if zlib.crc32(kind + body) & 0xFFFFFFFF != crc:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        yield kind, body
+        if kind == b"IEND":
+            return
+        pos += 12 + n
+    raise ValueError("PNG file ends before IEND")
+
+
+def _paeth(a, b, c):
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter_rows(types: np.ndarray, data: np.ndarray, bpp: int) -> np.ndarray:
+    """None, Sub and Up rows, one vectorised step per row."""
+    out = np.empty_like(data)
+    prev = np.zeros(data.shape[1], np.uint8)
+    for y, t in enumerate(types):
+        row = data[y]
+        if t == 1:
+            row = np.cumsum(row.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+        elif t == 2:
+            row = row + prev
+        out[y] = prev = row
+    return out
+
+
+def _unfilter_diagonals(types: np.ndarray, data: np.ndarray, bpp: int) -> np.ndarray:
+    """Any mix of the five filters, one vectorised step per anti-diagonal."""
+    h, stride = data.shape
+    w = stride // bpp
+    filt = data.reshape(h, w, bpp).astype(np.int16)
+    rec = np.zeros((h + 1, w + 1, bpp), np.int16)  # a zero row and column in front
+    t = types.astype(np.int64)
+    for d in range(h + w - 1):
+        ys = np.arange(max(0, d - w + 1), min(h, d + 1))
+        xs = d - ys
+        a, b, c = rec[ys + 1, xs], rec[ys, xs + 1], rec[ys, xs]
+        ty = t[ys][:, None]
+        pred = np.where(ty == 1, a, np.where(ty == 2, b, np.where(
+            ty == 3, (a + b) >> 1, np.where(ty == 4, _paeth(a, b, c), 0))))
+        rec[ys + 1, xs + 1] = (filt[ys, xs] + pred) & 255
+    return rec[1:, 1:].astype(np.uint8).reshape(h, stride)
+
+
+def decode(data: bytes) -> tuple[np.ndarray, int, bytes | None]:
+    """PNG bytes → ((H, W, samples) uint8, colour type, PLTE or None)."""
+    header, palette, idat = None, None, []
+    for kind, body in _read_chunks(data):
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = body
+        elif kind == b"IDAT":
+            idat.append(body)
+    if header is None:
+        raise ValueError("PNG file has no IHDR")
+    w, h, depth, ctype, _, _, interlace = header
+    if depth != 8 or ctype not in _SAMPLES or interlace:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type {ctype}, "
+                         f"interlace {interlace} (8-bit, non-interlaced only)")
+    bpp = _SAMPLES[ctype]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != h * (1 + w * bpp):
+        raise ValueError(f"PNG data holds {raw.size} bytes, not {h * (1 + w * bpp)}")
+    raw = raw.reshape(h, 1 + w * bpp)
+    types, filtered = raw[:, 0], raw[:, 1:]
+    if types.max(initial=0) > 4:
+        raise ValueError(f"PNG row filter {types.max()} does not exist")
+    unfilter = _unfilter_diagonals if (types >= 3).any() else _unfilter_rows
+    return unfilter(types, filtered, bpp).reshape(h, w, bpp), ctype, palette
+
+
+def imread(path: str, grayscale: bool = False) -> np.ndarray:
+    with open(path, "rb") as f:
+        pixels, ctype, palette = decode(f.read())
+    if grayscale:
+        if ctype not in (0, 4):
+            raise ValueError(f"{path}: grayscale reading of a colour PNG is not supported")
+        return np.ascontiguousarray(pixels[..., 0])
+    if ctype in (0, 4):
+        return np.repeat(pixels[..., :1], 3, axis=2)
+    if ctype == 3:
+        if palette is None:
+            raise ValueError(f"{path}: palette PNG without PLTE")
+        lut = np.zeros((256, 3), np.uint8)
+        colours = np.frombuffer(palette, np.uint8).reshape(-1, 3)
+        lut[:len(colours)] = colours
+        pixels = lut[pixels[..., 0]]
+    return np.ascontiguousarray(pixels[..., 2::-1])

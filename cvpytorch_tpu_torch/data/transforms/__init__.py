@@ -4,7 +4,7 @@
 The task namespace is selected by the dictionary name
 (``DATASET.DICTIONARY_NAME``) and the pipeline is the *ordered*
 ``TRANSFORMS:`` mapping of TransformName → kwargs.  The port has the
-detection namespace so far.
+detection and segmentation namespaces so far.
 """
 from __future__ import annotations
 
@@ -26,6 +26,10 @@ class Compose:
 
 
 def _get_namespace(task: str) -> dict:
+    if task == "seg":
+        from .seg_transforms import SEG_TRANSFORMS
+
+        return SEG_TRANSFORMS
     if task in ("det", "ins"):
         from .det_transforms import DET_TRANSFORMS
 

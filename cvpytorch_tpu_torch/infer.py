@@ -6,7 +6,9 @@ config, dictionary, dataset (stage ``infer``) and model, loads the
 weights through ``Checkpoints.load_weights_into`` (a bare ``state_dict``,
 or a trainer checkpoint, whose EMA weights it takes when it has them),
 runs the predict step over the loader and writes detections to
-``out_dir/predictions.json``.
+``out_dir/predictions.json``, or for segmentation (``SEG_CLASSES``) one
+8-bit palette PNG a prediction, ``out_dir/{index:06d}.png`` with
+``CITYSCAPES_PALETTE``, written by ``data/png.py``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA that
 raises.  Serving is float32: making the predict step turns both TF32
@@ -26,12 +28,28 @@ import torch
 
 from .config import CommonConfiguration, load_dictionary
 from .data.loader import DataLoader
+from .data.png import write_palette_png
 from .data.transforms import build_transforms
 from .registry import DATASETS, MODELS
 from .train_state import make_predict_step
 from .utils.checkpoints import Checkpoints
 
 logger = logging.getLogger("cvpytorch_tpu_torch")
+
+TASKS = ("DET_CLASSES", "INS_CLASSES", "SEG_CLASSES")
+
+# Cityscapes palette, one RGB triple per train id
+CITYSCAPES_PALETTE = [
+    128, 64, 128, 244, 35, 232, 70, 70, 70, 102, 102, 156, 190, 153, 153,
+    153, 153, 153, 250, 170, 30, 220, 220, 0, 107, 142, 35, 152, 251, 152,
+    70, 130, 180, 220, 20, 60, 255, 0, 0, 0, 0, 142, 0, 0, 70, 0, 60, 100,
+    0, 80, 100, 0, 0, 230, 119, 11, 32,
+]
+
+
+def save_seg_mask(pred, path: str, palette=None) -> None:
+    """(H, W) class ids → an 8-bit palette PNG."""
+    write_palette_png(path, pred, palette or CITYSCAPES_PALETTE)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -76,9 +94,10 @@ def main(argv=None):
         _, dictionary = load_dictionary(cfg.DATASET.DICTIONARY,
                                         cfg.DATASET.DICTIONARY_NAME)
     dictionary_name = cfg.DATASET.DICTIONARY_NAME or "CLS_CLASSES"
-    if dictionary_name not in ("DET_CLASSES", "INS_CLASSES"):
+    if dictionary_name not in TASKS:
         raise NotImplementedError(
-            f"the port serves detection only so far, not {dictionary_name}")
+            f"the port serves detection and segmentation only so far, not "
+            f"{dictionary_name} (ROADMAP, Queue 1)")
 
     from .data import datasets as _d  # noqa: F401 (registers)
 
@@ -98,9 +117,14 @@ def main(argv=None):
     predict = make_predict_step(model)
 
     os.makedirs(args.out, exist_ok=True)
-    results = []
+    results, n_seg = [], 0
     for batch in loader:
         images = torch.from_numpy(batch["image"]).to(device)
+        if dictionary_name == "SEG_CLASSES":
+            for p in predict(images).to(torch.uint8).cpu().numpy():
+                save_seg_mask(p, os.path.join(args.out, f"{n_seg:06d}.png"))
+                n_seg += 1
+            continue
         preds = {k: v.cpu().numpy() for k, v in predict(images).items()}
         for i in range(len(batch["image"])):
             v = preds["valid"][i]
@@ -112,7 +136,7 @@ def main(argv=None):
     if results:
         with open(os.path.join(args.out, "predictions.json"), "w") as f:
             json.dump(results, f)
-    logger.info("wrote %d predictions to %s", len(results), args.out)
+    logger.info("wrote %d predictions to %s", len(results) + n_seg, args.out)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,13 @@
 """Shared model building blocks (counterpart of
 ``cvpytorch_tpu/models/bricks.py``): channel/depth rounding, the
-activation table and ``ConvBNAct``.
+activation table, ``BatchNorm2d``, ``ConvBNAct`` and
+``DepthwiseSeparableConv``.
 
 ``nn.BatchNorm2d`` normalises with the biased batch variance and stores
 the unbiased one in ``running_var``, which is what the JAX package's
 BatchNorm fork imitates; the YOLO bricks use torch momentum 0.03 and
-eps 1e-3 (flax momentum 0.97).
+eps 1e-3 (flax momentum 0.97).  BN momentum is always torch's: flax
+momentum m is torch momentum 1 − m.
 """
 from __future__ import annotations
 
@@ -52,6 +54,27 @@ def get_activation(name: str | None) -> Callable:
     return ACTIVATIONS[name.lower()]
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that also trains on one value per channel (the
+    global-pool branch of a segmentation head at batch 1), as the JAX
+    BatchNorm does: the output is the bias, the running variance decays
+    towards 0 (Bessel's factor n / max(n − 1, 1) is 1).  torch's raises
+    there."""
+
+    def forward(self, x):
+        if not (self.training and x.numel() == x.shape[1]):
+            return super().forward(x)
+        with torch.no_grad():
+            self.running_mean.lerp_(x.detach().reshape(-1).to(self.running_mean), self.momentum)
+            self.running_var.mul_(1 - self.momentum)
+            self.num_batches_tracked += 1
+        # x minus its own mean is 0 (with 0 gradient), whatever 1/√(0 + eps)
+        # scales it by
+        shape = (1, -1, 1, 1)
+        return ((x - x.mean((0, 2, 3), keepdim=True)) * self.weight.reshape(shape)
+                + self.bias.reshape(shape))
+
+
 class ConvBNAct(nn.Module):
     """conv + BN + activation; submodules ``conv`` and ``bn`` carry the
     JAX tree's names.  ``padding`` None → ((k-1)//2)·dilation."""
@@ -66,8 +89,27 @@ class ConvBNAct(nn.Module):
             padding = (kernel_size - 1) // 2 * dilation
         self.conv = nn.Conv2d(in_channels, out_channels, kernel_size, stride,
                               padding, dilation, groups, bias=use_bias)
-        self.bn = nn.BatchNorm2d(out_channels, eps=bn_eps, momentum=bn_momentum)
+        self.bn = BatchNorm2d(out_channels, eps=bn_eps, momentum=bn_momentum)
         self.act = get_activation(act)
 
     def forward(self, x):
         return self.act(self.bn(self.conv(x)))
+
+
+class DepthwiseSeparableConv(nn.Module):
+    """Depthwise ``ConvBNAct`` ``dw`` (groups = in_channels), then a 1×1
+    ``ConvBNAct`` ``pw``, each with the activation.  The Flax depthwise
+    kernel (kh, kw, 1, C) carries to torch's (C, 1, kh, kw) by the usual
+    HWIO → OIHW transpose."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1, act: str | None = "relu",
+                 bn_momentum: float = 0.03, bn_eps: float = 1e-3):
+        super().__init__()
+        bn = dict(act=act, bn_momentum=bn_momentum, bn_eps=bn_eps)
+        self.dw = ConvBNAct(in_channels, in_channels, kernel_size, stride,
+                            groups=in_channels, dilation=dilation, **bn)
+        self.pw = ConvBNAct(in_channels, out_channels, 1, 1, **bn)
+
+    def forward(self, x):
+        return self.pw(self.dw(x))

@@ -14,6 +14,9 @@ count, and the steps change it in place:
   weights when EMA is on, float32;
 * ``make_predict_step`` — serving, ``mode="infer"``, float32.
 
+Both return what the model returns: a detector's dict of padded
+detections, a segmentor's (B, H, W) argmax map.  Images stay NHWC.
+
 Every step maker turns both TF32 switches off for the process
 (``torch.backends.cudnn.allow_tf32``, on by PyTorch's default, and
 ``torch.backends.cuda.matmul.allow_tf32``), so a float32 operation is

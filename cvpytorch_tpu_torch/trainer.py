@@ -12,8 +12,10 @@ Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA that
 raises.  With ``DATASET.TRAIN.DEVICE_AUG`` the host only letterboxes the
 LOAD_NUM=4 raw tiles of each sample; mosaic, affine, HSV, flip and
 normalise run on the device inside the train step, from a generator
-seeded by (SEED + 7919, step).  Single device: the JAX package's mesh
-(``PARALLEL``) and ``PROFILER`` hook are not ported yet.
+seeded by (SEED + 7919, step).  Segmentation (``SEG_CLASSES``) batches
+stack the images and the (H, W) label maps, and the evaluator gets the
+host labels and the argmax maps as uint8.  Single device: the JAX
+package's mesh (``PARALLEL``) and ``PROFILER`` hook are not ported yet.
 """
 from __future__ import annotations
 
@@ -23,11 +25,11 @@ import math
 import torch
 
 from .config import CommonConfiguration, load_dictionary
-from .data.loader import DataLoader, DevicePrefetcher, map_arrays
+from .data.loader import DataLoader, DevicePrefetcher, default_collate, map_arrays
 from .data.transforms import build_transforms
 from .data.transforms.det_transforms import make_det_collate, make_device_aug_collate
 from .evaluator import build_evaluator
-from .infer import build_model, resolve_device
+from .infer import TASKS, build_model, resolve_device
 from .ops.augment import fused_det_augment, step_generator
 from .optim.optimizers import build_optimizer
 from .optim.schedules import build_lr_scheduler
@@ -71,9 +73,10 @@ class Trainer:
                 self.cfg.DATASET.DICTIONARY, self.cfg.DATASET.DICTIONARY_NAME)
         self.dictionary_name = (self.cfg.DATASET.DICTIONARY_NAME
                                 if self.cfg.DATASET else None) or "CLS_CLASSES"
-        if self.dictionary_name not in ("DET_CLASSES", "INS_CLASSES"):
+        if self.dictionary_name not in TASKS:
             raise NotImplementedError(
-                f"the port trains detection only so far, not {self.dictionary_name}")
+                f"the port trains detection and segmentation only so far, not "
+                f"{self.dictionary_name} (ROADMAP, Queue 1)")
 
     def _parser_datasets(self):
         ds_cls = DATASETS.get(self.cfg.DATASET.CLASS)
@@ -97,6 +100,8 @@ class Trainer:
                 tile = int(dev_aug.get("TILE", size // 2))
                 collate = make_device_aug_collate(max_boxes // 4, tile)
                 self._device_aug_size = size
+            elif self.dictionary_name == "SEG_CLASSES":
+                collate = default_collate  # stacks images and label maps
             else:
                 collate = make_det_collate(max_boxes)
             self.dataloaders[stage] = DataLoader(
@@ -223,6 +228,9 @@ class Trainer:
 
         def prepared():
             for i, batch in enumerate(loader):
+                if not isinstance(batch["target"], dict):  # label maps
+                    yield batch
+                    continue
                 extra = {"epoch": epoch}
                 if self._device_aug_size:
                     extra["aug_step"] = epoch * len(loader) + i
@@ -247,6 +255,14 @@ class Trainer:
                 writer.add_scalar(f"loss/train_{k}", m.global_avg, epoch)
         return state
 
+    def _host_predictions(self, preds):
+        """Detection dicts to numpy; a (B, H, W) argmax map as uint8 (int32
+        past 256 classes), a quarter of its int64 copy."""
+        if isinstance(preds, dict):
+            return {k: v.cpu().numpy() for k, v in preds.items()}
+        dtype = torch.uint8 if len(self.dictionary) <= 256 else torch.int32
+        return preds.to(dtype).cpu().numpy()
+
     def val_epoch(self, epoch, state, eval_step, writer):
         self.evaluator.reset()
         loss_logger = LossLogger()
@@ -255,8 +271,7 @@ class Trainer:
             loss_dict, preds = eval_step(state, map_arrays(
                 batch, lambda a: torch.from_numpy(a).to(self.device)))
             loss_logger.update({k: float(v) for k, v in loss_dict.items()})
-            self.evaluator.update(targets_host,
-                                  {k: v.cpu().numpy() for k, v in preds.items()})
+            self.evaluator.update(targets_host, self._host_predictions(preds))
         metrics = self.evaluator.evaluate()
         perf = float(metrics.get("performance", 0.0))
         self.logger.info(

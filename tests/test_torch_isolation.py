@@ -1,7 +1,7 @@
-"""The port stands alone: it imports neither JAX, the JAX package nor
-OpenCV, its kernel module imports without nvcc, and its entry points refuse
-to fall back to the CPU when CUDA is absent and the caller did not ask for
-it."""
+"""The port stands alone: it imports neither JAX, the JAX package,
+OpenCV nor PIL, its kernel module imports without nvcc, and its entry
+points refuse to fall back to the CPU when CUDA is absent and the caller
+did not ask for it."""
 import os
 import subprocess
 import sys
@@ -29,11 +29,14 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'optax', 'cvpytorch_tpu', 'cv2'))\n"
+        "('jax', 'jaxlib', 'flax', 'optax', 'cvpytorch_tpu', 'cv2', 'PIL'))\n"
         "assert not bad, bad\n"
         "for n in ('infer', 'ops.nms_kernel', 'trainer', 'optim.optimizers', "
         "'optim.schedules', 'ops.augment', 'evaluator.coco', 'models.rcnn', "
-        "'ops.roi_align', 'ops.masks', 'models.backbones.resnet'):\n"
+        "'ops.roi_align', 'ops.masks', 'models.backbones.resnet', 'data.png', "
+        "'data.transforms.imgproc', 'data.transforms.seg_transforms', "
+        "'data.datasets.cityscapes', 'evaluator.segmentation', 'models.segmentor', "
+        "'models.unet', 'models.heads.seg_heads', 'models.losses.seg_loss'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -7,6 +7,7 @@ from cvpytorch_tpu.evaluator.coco import CocoEvaluator as JaxCocoEvaluator
 from cvpytorch_tpu_torch.evaluator import build_evaluator
 from cvpytorch_tpu_torch.config import CommonConfiguration
 from cvpytorch_tpu_torch.evaluator.coco import CocoEvaluator
+from cvpytorch_tpu_torch.evaluator.segmentation import SegmentationEvaluator
 
 
 def batch(seed, B=4, M=6, K=12, C=3):
@@ -59,5 +60,8 @@ def test_coco_box_metrics_equal_jax(eval_type):
 def test_build_evaluator_names():
     cfg = CommonConfiguration({"EVALUATOR": {"NAME": "coco_detection", "EVAL_TYPE": "mAP"}})
     assert isinstance(build_evaluator(cfg, DS()), CocoEvaluator)
+    seg = build_evaluator(CommonConfiguration(
+        {"EVALUATOR": {"NAME": "segmentation", "EVAL_TYPE": "mIoU"}}), DS())
+    assert isinstance(seg, SegmentationEvaluator) and seg.num_classes == 3
     with pytest.raises(KeyError, match="ROADMAP"):
-        build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "segmentation"}}), DS())
+        build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "voc_detection"}}), DS())
