@@ -27,7 +27,10 @@
    the fed rate of epoch 2 and the val epoch; peak memory.  Then one f32
    train step at 640², B = 2, on the card against the same step on the
    CPU (loss within 1e-4 relative), and one AMP step (loss within 5e-2 of
-   the f32 loss).
+   the f32 loss).  Then the letterbox's host time on one thread (the
+   OpenCV-exact ``imgproc.resize_linear`` against the ``F.interpolate``
+   resize it replaced, on the same 640² and 427×640 frames) beside the
+   YOLOv5 loader rate.
 5. Mask R-CNN phase: ``conf/coco_maskrcnn.yml`` (R50-FPN, 80 classes,
    AMP, SGD 0.9, MultiStepLR, warmup, bbox + segm evaluation) on
    SyntheticInstanceSegmentation at 800² (MASK_SIZE 112), trained through
@@ -58,15 +61,39 @@
    against the CPU (eval-mode logits within 1e-4 of their largest value,
    argmax equal on ≥ 99.9 % of the pixels, train-mode losses within
    1e-3 relative).
-7. Kernel checks, after every host-clock timing: ``nms_keep`` against
+7. Classification phase: ``conf/mini-imagenet.yml`` as written
+   (MobileNetV2 classifier, 100 classes, RandomResizedCrop 224, flip,
+   ColorJitter, AdamW, cosine, warmup, AMP, batch 64) on
+   SyntheticClassification at 375×500: ``Trainer.run()`` for 4 steps,
+   mAcc validation of 128 images, the checkpoint served through
+   ``infer.main`` (class ids equal to the predict step's argmax), 0
+   ``nms_keep`` launches; the AMP and f32 train steps at batch 64 and at
+   bench.py's batch 256, the val and predict steps, peak memory; each
+   host transform's time and the loader rate; MobileNetV2 at B = 2, f32,
+   card vs CPU (logits within 1e-4 of their largest value, loss 1e-4).
+8. NanoDet-Plus phase: ``conf/coco_nanodetplus.yml`` as written
+   (ShuffleNetV2 x1.0, GhostPAN, 80 classes, letterbox 320, flip,
+   ColorHSV, AdamW, cosine, warmup, AMP, EMA, batch 96) on
+   SyntheticDetection at 427×640: ``Trainer.run()`` for 4 steps, bbox
+   validation of 96 images (``nms_keep`` once per val batch), the
+   checkpoint served through ``infer.main`` (once more per served batch;
+   boxes equal to the predict step's un-letterboxed to the 427×640
+   frame); the AMP and f32 train steps at batch 96 and at bench.py's
+   batch 128, the DSL assigner alone (time and peak memory), the val and
+   predict steps; ``nms_keep`` bit-exact on the path's (96, 1024) val
+   input and timed; host transforms and loader rate; card vs CPU at B = 2,
+   f32 (head outputs within 1e-4 of their largest value, the DSL
+   assignment equal, losses 1e-4).
+9. Kernel checks, after every host-clock timing: ``nms_keep`` against
    ``nms_keep_plain`` on the card, bit-exact, over B in {1, 3, 32} x K in
    {1, 63, 64, 65, 300, 1000, 1024} x every threshold the detectors use,
    with clustered, class-offset boxes of 3 and of 80 classes and a dense
    set where most boxes of a class overlap, score ties and a pair whose
-   IoU equals 0.6; then constructed pairs at IoU == thr, one f32 ulp
+   IoU equals 0.6, and NanoDet-Plus's (96, 1024) case of 80 classes in a
+   320² canvas; then constructed pairs at IoU == thr, one f32 ulp
    either side, with no overlap and with non-finite coordinates, held
    against the plain version and numpy's f32 division.
-8. Device phase, last because a profiler session slows the host's later
+10. Device phase, last because a profiler session slows the host's later
    launches: the device time of each of the two NMS kernels of a call
    (torch.profiler) on the inputs timed above and against the number of
    64-box tiles, and the device operations one call runs, counted from the
@@ -75,7 +102,9 @@
    device busy and idle share and the top operations of the device
    augmentation alone, of the YOLOv5 AMP train step with it, and of the
    Mask R-CNN AMP train step with the share of the ROIAlign gathers and
-   of their backward, and of the DeepLabV3+ and UNet AMP train steps.
+   of their backward, and of the DeepLabV3+, UNet, MobileNetV2 and
+   NanoDet-Plus AMP train steps (NanoDet-Plus's (96, 1024) NMS input
+   among the kernel inputs).
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -259,7 +288,7 @@ def kernel_checks() -> dict:
     import torch
 
     from cvpytorch_tpu_torch.ops.nms_cases import (
-        THRESHOLDS, iou_f32, near_threshold_pairs, nms_inputs)
+        NANODET_CASE, THRESHOLDS, iou_f32, nanodet_inputs, near_threshold_pairs, nms_inputs)
     from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
 
     launches_before = nms_keep.launches
@@ -293,6 +322,12 @@ def kernel_checks() -> dict:
             print(f"nms_keep {kind} B={B}: bit-exact at thresholds "
                   f"{THRESHOLDS}; kept at {THRESHOLDS[-1]}: " + ", ".join(kept),
                   flush=True)
+    for thr in THRESHOLDS:
+        check(torch.from_numpy(nanodet_inputs(seed=11)).cuda(), thr,
+              f"NanoDet-Plus {NANODET_CASE} thr={thr}")
+        n_cases += 1
+    print(f"nms_keep NanoDet-Plus case {NANODET_CASE}: bit-exact at thresholds {THRESHOLDS}",
+          flush=True)
     for thr in THRESHOLDS:
         pairs, counts = near_threshold_pairs(thr)
         got = check(torch.from_numpy(pairs).cuda(), thr, f"near-threshold pairs {thr}")
@@ -1071,24 +1106,14 @@ def maskrcnn_phase(workdir: Path) -> tuple[dict, object]:
     }, trainer
 
 
-def first_batches(trainer) -> dict:
-    """The first host batch of the train loader and of the val loader, on
-    the card."""
-    import torch
-
-    from cvpytorch_tpu_torch.data.loader import map_arrays
-
-    return {stage: map_arrays(next(iter(trainer.dataloaders[stage])),
-                              lambda a: torch.from_numpy(a).cuda())
-            for stage in ("train", "val")}
-
-
-def train_step_timing(trainer, batch, n: int, iters: int) -> tuple[dict, object]:
+def train_step_timing(trainer, batch, n: int, iters: int,
+                      ema_decay: float = 0.0) -> tuple[dict, object]:
     """The AMP and f32 train steps on ``batch`` (``n`` images, already on
     the card) from the same seeded weights, by CUDA events over ``iters``
     steps after 2 warm-up steps, and the peak memory of each; an f32 step
     that does not fit is reported and skipped, an AMP step that does not
-    fit fails.  Returns the numbers and the AMP run's state."""
+    fit fails.  ``ema_decay`` > 0 keeps an EMA copy, as the recipe does.
+    Returns the numbers and the AMP run's state."""
     import torch
 
     from cvpytorch_tpu_torch.infer import build_model
@@ -1100,13 +1125,14 @@ def train_step_timing(trainer, batch, n: int, iters: int) -> tuple[dict, object]
         model = build_model(trainer.cfg, trainer.dictionary, trainer.datasets["train"]).to(
             "cuda", memory_format=torch.channels_last)
         return create_train_state(model, build_optimizer(trainer.cfg, model,
-                                                         trainer.lr_schedule))
+                                                         trainer.lr_schedule),
+                                  use_ema=ema_decay > 0)
 
     out = {"batch": n}
     for name, amp in (("amp", True), ("f32", False)):
         torch.cuda.empty_cache()
         state = fresh_state()
-        step = make_train_step(amp=amp)
+        step = make_train_step(amp=amp, ema_decay=ema_decay)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         try:
@@ -1370,24 +1396,6 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
     }, trainer
 
 
-def seg_timing(trainer, batches, iters: int) -> tuple[dict, object]:
-    """The AMP and f32 train steps at batch 8 (``train_step_timing``), the
-    f32 val step and the serving predict step at batch 8."""
-    import torch
-
-    from cvpytorch_tpu_torch.train_state import make_eval_step, make_predict_step
-
-    out, amp_state = train_step_timing(trainer, batches["train"], SEG_BATCH, iters)
-    torch.cuda.empty_cache()
-    val_b = batches["val"]
-    eval_step = make_eval_step()
-    out["val_step_ms"] = cuda_time_ms(lambda: eval_step(amp_state, val_b), iters=3, warmup=1)
-    predict = make_predict_step(amp_state.model)
-    out["bs8_predict_ms"] = cuda_time_ms(lambda: predict(val_b["image"]), iters=3, warmup=1)
-    out["bs8_predict_images_per_s"] = SEG_BATCH / out["bs8_predict_ms"] * 1e3
-    return out, amp_state
-
-
 def _png_bytes(pixels: np.ndarray, row_filter: int) -> bytes:
     """An RGB PNG of ``pixels`` (H, W, 3) whose every row carries
     ``row_filter`` (1 Sub or 4 Paeth), for timing the decoder."""
@@ -1418,15 +1426,11 @@ def _png_bytes(pixels: np.ndarray, row_filter: int) -> bytes:
             + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
 
 
-def seg_host_timing(trainer, n_items: int = 4) -> dict:
+def host_pipeline_timing(trainer, n_items: int = 4) -> dict:
     """The host's side of the fed rate, with no device work: the train
-    loader's rate over its epoch (8 worker threads), and on one thread the
-    draw of one synthetic 1024×2048 frame and each transform of the
-    train and val pipelines on it, over ``n_items`` items; the PNG
-    decoder on one 1024×2048 RGB frame whose rows are all Sub (the
-    vectorised path) or all Paeth (the anti-diagonal path)."""
-    from cvpytorch_tpu_torch.data.png import decode
-
+    loader's rate over its epoch (its worker threads), and on one thread
+    the draw of one synthetic frame and each transform of the train and
+    val pipelines on it, over ``n_items`` items."""
     loader = trainer.dataloaders["train"]
     t0 = time.perf_counter()
     n = sum(len(b["image"]) for b in loader)
@@ -1437,7 +1441,8 @@ def seg_host_timing(trainer, n_items: int = 4) -> dict:
         try:
             t0 = time.perf_counter()
             samples = [ds[i] for i in range(n_items)]
-            ms = {"draw_1024x2048": (time.perf_counter() - t0) * 1e3 / n_items}
+            h, w = samples[0]["image"].shape[:2]
+            ms = {f"draw_{h}x{w}": (time.perf_counter() - t0) * 1e3 / n_items}
             for t in pipeline.transforms:
                 t0 = time.perf_counter()
                 samples = [t(s) for s in samples]
@@ -1445,6 +1450,16 @@ def seg_host_timing(trainer, n_items: int = 4) -> dict:
         finally:
             ds.transform = pipeline
         out[f"host_{stage}_item_ms_one_thread"] = ms
+    return out
+
+
+def seg_host_timing(trainer, n_items: int = 4) -> dict:
+    """``host_pipeline_timing`` on the 1024×2048 frames, and the PNG
+    decoder on one 1024×2048 RGB frame whose rows are all Sub (the
+    vectorised path) or all Paeth (the anti-diagonal path)."""
+    from cvpytorch_tpu_torch.data.png import decode
+
+    out = host_pipeline_timing(trainer, n_items)
     frame = trainer.datasets["val"].__class__(
         trainer.cfg.DATASET.VAL, trainer.dictionary, stage="infer")[0]["image"]
     for name, f in (("sub", 1), ("paeth", 4)):
@@ -1505,6 +1520,496 @@ def seg_card_vs_cpu(trainer, batches) -> dict:
     return out
 
 
+CLS_BATCH = 64  # TRAIN and VAL BATCH_SIZE of conf/mini-imagenet.yml
+CLS_MILESTONE_BATCH = 256  # bench.py's case_cls
+CLS_FRAME = [375, 500]  # ImageNet's typical frame: the crop and resize do real work
+CLS_STEPS = 4  # one epoch
+CLS_VAL_IMAGES = 128  # one val epoch of 2 batches
+
+
+def cls_config(workdir: Path) -> Path:
+    """``conf/mini-imagenet.yml`` as written (MobileNetV2 classifier, 100
+    CLS_CLASSES from ``conf/dicts/mini-imagenet_dict.yml``, RandomResizedCrop
+    224, flip, ColorJitter, AdamW with weight decay 0.01, cosine schedule,
+    linear warmup, AMP, batch 64, mAcc evaluation) with the dataset swapped
+    for SyntheticClassification at 375×500; cut to one epoch of 4 steps
+    validated on 128 images.  The INFER stage (one batch) serves the
+    checkpoint afterwards."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / "mini-imagenet.yml"))
+    data = cfg.DATASET
+    data.CLASS = "SyntheticClassification"
+    data.DICTIONARY = str(ROOT / data.DICTIONARY)
+    synthetic = {"SIZE": CLS_FRAME, "SEED": 0}
+    data.TRAIN.update({**synthetic, "LENGTH": CLS_BATCH * CLS_STEPS})
+    data.VAL.update({**synthetic, "LENGTH": CLS_VAL_IMAGES})
+    data.INFER = {**dict(data.VAL), "LENGTH": CLS_BATCH}
+    cfg.EVALUATOR.EVAL_INTERVALS = 1
+    cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+                "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
+    path = workdir / "mini_imagenet_synthetic.json"
+    path.write_text(json.dumps(cfg, default=lambda c: c.data))
+    return path
+
+
+def infer_batch(trainer, n: int):
+    """The first ``n`` images of the config's INFER stage, as ``infer.main``
+    reads them, on the card, with the stage's letterbox ``pads``/``scales``
+    when it records them."""
+    import torch
+
+    from cvpytorch_tpu_torch.data.loader import DataLoader
+    from cvpytorch_tpu_torch.data.transforms import build_transforms
+    from cvpytorch_tpu_torch.infer import LETTERBOX_KEYS
+    from cvpytorch_tpu_torch.registry import DATASETS
+
+    stage = trainer.cfg.DATASET.INFER
+    ds = DATASETS.get(trainer.cfg.DATASET.CLASS)(
+        data_cfg=stage, dictionary=trainer.dictionary, stage="infer",
+        transform=build_transforms(trainer.dictionary_name, stage.get("TRANSFORMS"), "infer"))
+    batch = next(iter(DataLoader(ds, n, num_workers=8)))
+    extra = {k: torch.from_numpy(np.stack(batch[k])).cuda()
+             for k in LETTERBOX_KEYS if k in batch}
+    return torch.from_numpy(batch["image"]).cuda(), extra
+
+
+def cls_phase(workdir: Path) -> tuple[dict, object]:
+    """``conf/mini-imagenet.yml`` trained through ``Trainer.run()`` (mAcc
+    validation) and served through ``infer.main`` on the card: the served
+    class ids equal the predict step's argmax; no NMS on this path."""
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.train_state import make_predict_step
+
+    workdir.mkdir()
+    setting = cls_config(workdir)
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    # the main path of this phase, counts read just around it
+    run = run_instrumented(trainer, trainer_mod)
+    state, metrics, times, run_s, launches = (
+        run[k] for k in ("state", "metrics", "times", "run_s", "launches"))
+    if len(metrics) != CLS_STEPS or state.step != CLS_STEPS:
+        raise AssertionError(f"{len(metrics)} steps recorded, state at step {state.step}")
+    losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    if set(losses) != {"loss", "ce_loss"} or not all(np.isfinite(v).all()
+                                                      for v in losses.values()):
+        raise AssertionError(f"train losses {losses}")
+    if launches:  # classification runs no NMS
+        raise AssertionError(f"nms_keep launched {launches} times on the classification path")
+    (val_metrics,) = run["val"]
+    if not (0 <= val_metrics["mAcc"] <= 1 and val_metrics["performance"] == val_metrics["mAcc"]):
+        raise AssertionError(f"val mAcc {val_metrics['mAcc']}")
+    print(f"MobileNetV2 Trainer.run(): {CLS_STEPS} steps in {run_s:.2f} s (host clock, from "
+          f"model build to the last checkpoint), losses {losses}, val mAcc "
+          f"{val_metrics['mAcc']} Acc {val_metrics['Acc']}, nms_keep launches 0", flush=True)
+
+    out_dir = workdir / "served"
+    infer.main(["--setting", str(setting), "--checkpoint",
+                str(Path(trainer.checkpoints.save_dir) / "last.pt"), "--out", str(out_dir)])
+    served = json.loads((out_dir / "predictions.json").read_text())
+    images, _ = infer_batch(trainer, CLS_BATCH)
+    want = make_predict_step(state.model)(images).cpu().tolist()
+    if served != want:
+        raise AssertionError(f"served class ids differ from the predict step's argmax at "
+                             f"{sum(a != b for a, b in zip(served, want))} of {len(want)}")
+    print(f"infer.main on the trained MobileNetV2: {len(served)} class ids equal to the predict "
+          f"step's argmax ({len(set(served))} distinct)", flush=True)
+    return {
+        "steps": CLS_STEPS,
+        "nms_keep_launches": launches,
+        "losses": losses,
+        "run_s": run_s,
+        "train_epoch_s": times["train_epoch"][0],
+        "fed_images_per_s": CLS_BATCH * CLS_STEPS / times["train_epoch"][0],
+        "val_epoch_s": times["val_epoch"][0],
+        "val_evaluator_s": times["evaluator"],
+        "val_evaluator_share": times["evaluator"] / times["val_epoch"][0],
+        "val_mAcc": val_metrics["mAcc"],
+        "served_images": len(served),
+    }, trainer
+
+
+def loader_batch(trainer, stage: str, n: int) -> dict:
+    """``n`` images and their targets from the ``stage`` loader's first
+    batches, concatenated, on the card."""
+    import torch
+
+    parts, have = [], 0
+    for batch in trainer.dataloaders[stage]:
+        parts.append(batch)
+        have += len(batch["image"])
+        if have >= n:
+            break
+    if have < n:
+        raise AssertionError(f"the {stage} loader holds {have} images, not {n}")
+
+    def cat(*xs):
+        return torch.from_numpy(np.concatenate(xs)[:n]).cuda()
+
+    target = parts[0]["target"]
+    if isinstance(target, dict):
+        target = {k: cat(*(p["target"][k] for p in parts)) for k in target}
+    else:
+        target = cat(*(p["target"] for p in parts))
+    return {"image": cat(*(p["image"] for p in parts)), "target": target}
+
+
+def milestone_timing(trainer, n: int, milestone: int | None, iters: int,
+                     ema_decay: float = 0.0) -> tuple[dict, dict, dict]:
+    """The AMP and f32 train steps at the config's batch ``n`` and, unless
+    None, at the bench milestone's batch ``milestone``
+    (``train_step_timing``), the f32 val step and the serving predict step
+    at ``n``.  Returns the numbers, the AMP states and the batches they
+    ran on: ``train`` and ``val`` (the first ``n`` images of each loader)
+    and ``milestone`` (its first ``milestone`` train images)."""
+    import torch
+
+    from cvpytorch_tpu_torch.train_state import make_eval_step, make_predict_step
+
+    batches = {"train": loader_batch(trainer, "train", n), "val": loader_batch(trainer, "val", n)}
+    out, amp_state = train_step_timing(trainer, batches["train"], n, iters, ema_decay)
+    states = {"train": amp_state}
+    torch.cuda.empty_cache()
+    if milestone:
+        batches["milestone"] = loader_batch(trainer, "train", milestone)
+        out[f"milestone_bs{milestone}"], states["milestone"] = train_step_timing(
+            trainer, batches["milestone"], milestone, iters, ema_decay)
+        torch.cuda.empty_cache()
+    eval_step = make_eval_step()
+    out["val_step_ms"] = cuda_time_ms(lambda: eval_step(amp_state, batches["val"]),
+                                      iters=5, warmup=1)
+    predict = make_predict_step(amp_state.model)
+    out[f"bs{n}_predict_ms"] = cuda_time_ms(lambda: predict(batches["val"]["image"]),
+                                            iters=5, warmup=1)
+    out[f"bs{n}_predict_images_per_s"] = n / out[f"bs{n}_predict_ms"] * 1e3
+    return out, states, batches
+
+
+def card_vs_cpu(trainer, batches, forward, check) -> dict:
+    """``forward(model, batch)`` (a dict of tensors) on the card and on the
+    CPU at B = 2, f32 with TF32 off, from the same seeded weights with
+    dropout off; ``check(cpu, card)`` compares the two and raises."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the step makers turn it off")
+    two = _tree(batches["train"], lambda t: t[:2])
+    torch.manual_seed(0)
+    base = build_model(trainer.cfg, trainer.dictionary, trainer.datasets["train"])
+    for m in base.modules():
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    seen = {}
+    for device in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(device, memory_format=torch.channels_last)
+        seen[device] = _tree(forward(model, _tree(two, lambda t: t.to(device))),
+                             lambda t: t.detach().cpu())
+    return check(seen["cpu"], seen["cuda"])
+
+
+def max_rel_err(a, b) -> float:
+    return float((a - b).abs().max() / max(float(b.abs().max()), 1e-12))
+
+
+def cls_card_vs_cpu(trainer, batches) -> dict:
+    """MobileNetV2 at 224², B = 2: eval-mode logits within 1e-4 of their
+    largest value, the train-mode loss within 1e-4 relative."""
+    import torch
+
+    def forward(model, batch):
+        x = batch["image"]
+        with torch.no_grad():
+            logits = model.eval().backbone(x.permute(0, 3, 1, 2))
+            loss, _ = model.train()(x, batch["target"], mode="train")
+        return {"logits": logits, "loss": loss}
+
+    def check(cpu, card):
+        out = {"logits_max_rel_err": max_rel_err(card["logits"], cpu["logits"]),
+               "argmax_equal": bool(torch.equal(card["logits"].argmax(-1),
+                                                cpu["logits"].argmax(-1))),
+               "loss_cpu": float(cpu["loss"]), "loss_card": float(card["loss"]),
+               "loss_rel": abs(float(card["loss"]) - float(cpu["loss"])) / abs(float(cpu["loss"]))}
+        print(f"MobileNetV2 card vs CPU, f32, B=2, 224²: {json.dumps(out)}", flush=True)
+        if not (out["logits_max_rel_err"] <= 1e-4 and out["loss_rel"] <= 1e-4):
+            raise AssertionError(f"MobileNetV2 card vs CPU: {out}")
+        return out
+
+    return card_vs_cpu(trainer, batches, forward, check)
+
+
+NANODET_BATCH = 96  # TRAIN and VAL BATCH_SIZE of conf/coco_nanodetplus.yml
+NANODET_MILESTONE_BATCH = 128  # bench.py's case_nanodet
+NANODET_FRAME = [427, 640]  # a common COCO frame; 320/640 is not an exact half of 427
+NANODET_STEPS = 4  # one epoch
+NANODET_VAL_IMAGES = 96  # one val epoch of 1 batch
+
+
+def nanodet_config(workdir: Path) -> Path:
+    """``conf/coco_nanodetplus.yml`` as written (ShuffleNetV2 x1.0 with
+    leaky ReLU, GhostPAN 96 with 4 levels, 80 DET_CLASSES, MAX_BOXES 64,
+    letterbox 320, flip, ColorHSV p=1, AdamW with weight decay 0.05,
+    cosine schedule, linear warmup of 500 iterations, AMP, EMA, batch 96,
+    bbox evaluation) with the dataset swapped for SyntheticDetection at
+    427×640; cut to one epoch of 4 steps validated on 96 images.  The
+    INFER stage (one batch) serves the checkpoint afterwards."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / "coco_nanodetplus.yml"))
+    data = cfg.DATASET
+    data.CLASS = "SyntheticDetection"
+    data.DICTIONARY = str(ROOT / data.DICTIONARY)
+    synthetic = {"SIZE": NANODET_FRAME, "SEED": 0}
+    data.TRAIN.update({**synthetic, "LENGTH": NANODET_BATCH * NANODET_STEPS})
+    data.VAL.update({**synthetic, "LENGTH": NANODET_VAL_IMAGES})
+    data.INFER = {**dict(data.VAL), "LENGTH": NANODET_BATCH}
+    cfg.EVALUATOR.EVAL_INTERVALS = 1
+    cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+                "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
+    path = workdir / "coco_nanodetplus_synthetic.json"
+    path.write_text(json.dumps(cfg, default=lambda c: c.data))
+    return path
+
+
+def nanodet_phase(workdir: Path) -> tuple[dict, object]:
+    """``conf/coco_nanodetplus.yml`` trained through ``Trainer.run()`` (bbox
+    validation through ``nms_keep``) and served through ``infer.main`` on
+    the card: ``nms_keep`` once per val batch, then once per served batch;
+    the served boxes are the predict step's, un-letterboxed to the
+    427×640 frame."""
+    import torch
+
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+    from cvpytorch_tpu_torch.train_state import make_predict_step
+
+    workdir.mkdir()
+    setting = nanodet_config(workdir)
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    # the main path of this phase, counts read just around it
+    run = run_instrumented(trainer, trainer_mod)
+    state, metrics, times, run_s, launches = (
+        run[k] for k in ("state", "metrics", "times", "run_s", "launches"))
+    names = ("qfl_loss", "bbox_loss", "dfl_loss", "loss")
+    if len(metrics) != NANODET_STEPS or state.step != NANODET_STEPS:
+        raise AssertionError(f"{len(metrics)} steps recorded, state at step {state.step}")
+    losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    if set(losses) != set(names) or not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"train losses {losses}")
+    val_batches = -(-NANODET_VAL_IMAGES // NANODET_BATCH)
+    if launches != val_batches:
+        raise AssertionError(f"nms_keep launched {launches} times for {val_batches} val batches")
+    (val_metrics,) = run["val"]
+    if not np.isfinite(val_metrics["mAP"]):
+        raise AssertionError(f"val mAP {val_metrics['mAP']}")
+    print(f"NanoDet-Plus Trainer.run(): {NANODET_STEPS} steps in {run_s:.2f} s (host clock, "
+          f"from model build to the last checkpoint), losses {losses}, nms_keep launches "
+          f"{launches} for {val_batches} val batches, val mAP {val_metrics['mAP']}", flush=True)
+
+    # the last checkpoint (its EMA weights) serves one batch through the CLI
+    t0 = time.perf_counter()
+    infer.main(["--setting", str(setting), "--checkpoint",
+                str(Path(trainer.checkpoints.save_dir) / "last.pt"),
+                "--out", str(workdir / "served")])
+    cli_s = time.perf_counter() - t0
+    served_launches = nms_keep.launches - launches
+    if served_launches != 1:
+        raise AssertionError(f"nms_keep launched {served_launches} times serving 1 batch")
+    served = json.loads((workdir / "served" / "predictions.json").read_text())
+    images, letterbox = infer_batch(trainer, NANODET_BATCH)
+    predict = make_predict_step(state.ema)
+    net = predict(images)
+    pads, scales = (letterbox[k].cpu().numpy() for k in ("pads", "scales"))
+    if len(served) != NANODET_BATCH:
+        raise AssertionError(f"{len(served)} predictions for {NANODET_BATCH} images")
+    n_dets = 0
+    for i, p in enumerate(served):
+        v = net["valid"][i].cpu().numpy()
+        boxes = net["boxes"][i].cpu().numpy()[v]
+        want = (boxes - np.tile(pads[i], 2)) / np.tile(scales[i], 2)
+        if p["labels"] != net["labels"][i][net["valid"][i]].tolist() or not np.allclose(
+                np.reshape(p["boxes"], (-1, 4)), want, atol=1e-3, rtol=1e-5):
+            raise AssertionError(f"served image {i} differs from the predict step "
+                                 "un-letterboxed")
+        n_dets += len(p["labels"])
+    print(f"infer.main on the trained NanoDet-Plus: {NANODET_BATCH} images, {n_dets} detections "
+          f"in the {NANODET_FRAME[0]}×{NANODET_FRAME[1]} frame's pixels (pads {pads[0].tolist()}, "
+          f"scale {scales[0][0]:.4f}), nms_keep launches {nms_keep.launches}", flush=True)
+    del predict, net
+    torch.cuda.empty_cache()
+    return {
+        "steps": NANODET_STEPS,
+        "launches": launches,
+        "served_launches": served_launches,
+        "losses": losses,
+        "run_s": run_s,
+        "train_epoch_s": times["train_epoch"][0],
+        "fed_images_per_s": NANODET_BATCH * NANODET_STEPS / times["train_epoch"][0],
+        "val_epoch_s": times["val_epoch"][0],
+        "val_evaluator_s": times["evaluator"],
+        "val_evaluator_share": times["evaluator"] / times["val_epoch"][0],
+        "val_mAP": val_metrics["mAP"],
+        "infer_cli_s": cli_s,
+        "served_detections": n_dets,
+    }, trainer
+
+
+def nanodet_nms_input(state, val_batch) -> tuple[dict, tuple]:
+    """``nms_keep`` against ``nms_keep_plain`` on the path's own input, the
+    (96, 1024) class-offset boxes of a val step: bit-exact, and timed.
+    Returns the record and the (boxes, thr) input."""
+    import torch
+
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+    from cvpytorch_tpu_torch.train_state import make_eval_step
+
+    seen, restore = capture_nms_inputs()
+    try:
+        make_eval_step(use_ema=True)(state, val_batch)
+    finally:
+        restore()
+    (boxes, thr), = seen
+    if tuple(boxes.shape) != (NANODET_BATCH, 1024, 4) or thr != state.model.iou_threshold:
+        raise AssertionError(f"NanoDet NMS input {tuple(boxes.shape)} thr {thr}")
+    launches_before = nms_keep.launches
+    got, want = nms_keep(boxes, thr), nms_keep_plain(boxes, thr)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"nms_keep != nms_keep_plain on the NanoDet val input: "
+                             f"{int((got != want).sum())} flags differ")
+    out = {"shape": list(boxes.shape), "thr": thr, "kept": int(got.sum()), "bit_exact": True,
+           "ms": nms_event_ms(boxes, thr),
+           "plain_ms": cuda_time_ms(lambda: nms_keep_plain(boxes, thr), iters=3, warmup=1)}
+    nms_keep.launches = launches_before  # comparison launches do not count
+    print(f"nms_keep on the NanoDet-Plus val input: {json.dumps(out)}", flush=True)
+    return out, (boxes, thr)
+
+
+def nanodet_card_vs_cpu(trainer, batches) -> dict:
+    """NanoDet-Plus at 320², B = 2: eval-mode head outputs within 1e-4 of
+    their largest value; in train mode the DSL assignment of the CPU's
+    predictions equal on the card (``matched_gt``) and the losses within
+    1e-4 relative."""
+    import torch
+
+    from cvpytorch_tpu_torch.models.assigners.dsl_assigner import dsl_assign
+    from cvpytorch_tpu_torch.models.heads.nanodet_head import decode_nanodet
+
+    def forward(model, batch):
+        x, t = batch["image"], batch["target"]
+        with torch.no_grad():
+            head, _, priors = model.eval()._forward(x, train=False)
+            _, losses = model.train()(x, t, mode="train")
+            preds, _, _ = model._forward(x, train=True)
+        return {"head": head, "priors": priors, "train_preds": preds,
+                "losses": losses, "target": t}
+
+    def check(cpu, card):
+        model = trainer.model
+        # the assigner on one input (the CPU's train-mode predictions) on both devices
+        matched = {}
+        for device in ("cpu", "cuda"):
+            cls, dec, _ = decode_nanodet(cpu["train_preds"].to(device), cpu["priors"].to(device),
+                                         model.num_classes, model.reg_max)
+            t = {k: v.to(device) for k, v in cpu["target"].items()}
+            matched[device] = dsl_assign(cls, cpu["priors"].to(device), dec, t["boxes"],
+                                         t["labels"], t["valid"])["matched_gt"].cpu()
+        out = {"head_max_rel_err": max_rel_err(card["head"], cpu["head"]),
+               "dsl_matched_gt_equal": bool(torch.equal(matched["cpu"], matched["cuda"])),
+               "dsl_positives": int((matched["cpu"] >= 0).sum()),
+               "train_loss_rel": {k: abs(float(card["losses"][k]) - float(v)) / max(abs(float(v)),
+                                                                                    1e-12)
+                                  for k, v in cpu["losses"].items()},
+               "train_loss_cpu": {k: float(v) for k, v in cpu["losses"].items()}}
+        print(f"NanoDet-Plus card vs CPU, f32, B=2, 320²: {json.dumps(out)}", flush=True)
+        if not (out["head_max_rel_err"] <= 1e-4 and out["dsl_matched_gt_equal"]
+                and max(out["train_loss_rel"].values()) <= 1e-4):
+            raise AssertionError(f"NanoDet-Plus card vs CPU: {out}")
+        return out
+
+    return card_vs_cpu(trainer, batches, forward, check)
+
+
+def dsl_timing(state, batch) -> dict:
+    """The DSL assigner alone on one train batch's predictions (the model
+    in eval mode, bf16 autocast, as in the AMP step): CUDA events over 3
+    calls after 1, and its peak memory above what was allocated before."""
+    import torch
+
+    from cvpytorch_tpu_torch.models.assigners.dsl_assigner import dsl_assign
+    from cvpytorch_tpu_torch.models.heads.nanodet_head import decode_nanodet
+    from cvpytorch_tpu_torch.train_state import prepare_images
+
+    model, t = state.model, batch["target"]
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        preds, _, priors = model.eval()._forward(prepare_images(batch["image"]), train=False)
+    cls, dec, _ = decode_nanodet(preds.float(), priors, model.num_classes, model.reg_max)
+
+    def call():
+        return dsl_assign(cls, priors, dec, t["boxes"], t["labels"], t["valid"])
+
+    positives = int((call()["matched_gt"] >= 0).sum())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(call, iters=3, warmup=1)
+    out = {"B_P_M_C": [*cls.shape[:2], t["boxes"].shape[1], cls.shape[2]], "ms": ms,
+           "peak_above_inputs_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "positives": positives}
+    print(f"DSL assigner alone: {json.dumps(out)}", flush=True)
+    return out
+
+
+def letterbox_timing(n: int = 20) -> dict:
+    """Host ms of one letterbox on one thread, the OpenCV-exact
+    ``imgproc.resize_linear`` that the port's ``Resize`` runs against a
+    ``torch.nn.functional.interpolate`` bilinear resize of the same shape
+    (what the letterbox ran before it equalled OpenCV), on the same
+    frames: 640² to 320² (YOLOv5's DEVICE_AUG tile, an exact half) and
+    427×640 to 214×320 (NanoDet-Plus)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cvpytorch_tpu_torch.data.transforms.det_transforms import Resize
+
+    def interpolate(img, oh, ow):
+        x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
+        y = F.interpolate(x.float(), size=(oh, ow), mode="bilinear", align_corners=False)
+        return y.round().clamp(0, 255).to(torch.uint8)[0].permute(1, 2, 0).contiguous().numpy()
+
+    out = {}
+    rng = np.random.RandomState(0)
+    threads = torch.get_num_threads()
+    with torch.inference_mode():
+        torch.set_num_threads(1)
+        try:
+            for (h, w), size in (((640, 640), 320), ((427, 640), 320)):
+                frame = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+                resize = Resize((size, size))
+                scale = min(size / h, size / w)
+                oh, ow = int(round(h * scale)), int(round(w * scale))
+                times = {}
+                for name, fn in (("letterbox_resize_linear", lambda: resize({"image": frame})),
+                                 ("interpolate", lambda: interpolate(frame, oh, ow))):
+                    fn()
+                    t0 = time.perf_counter()
+                    for _ in range(n):
+                        fn()
+                    times[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3 / n
+                out[f"{h}x{w}_to_{oh}x{ow}"] = times
+        finally:
+            torch.set_num_threads(threads)
+    print(f"letterbox host ms, one thread: {json.dumps(out)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1530,12 +2035,18 @@ def main() -> int:
         print(json.dumps({"train": train, "card": card}))
         timing, aug_batch = train_timing(trainer)
         print(json.dumps({"train_timing": timing, "card": card}))
+        # the OpenCV-exact letterbox against the interpolate resize it
+        # replaced, beside the YOLOv5 loader rate it feeds
+        print(json.dumps({"letterbox_host_ms_one_thread": letterbox_timing(),
+                          "yolov5_host_loader_images_per_s": timing["host_loader_images_per_s"],
+                          "card": card}), flush=True)
         check = train_step_check(trainer, aug_batch)
         print(json.dumps({"train_step_check": check, "card": card}))
         torch.cuda.empty_cache()
         mrcnn, mrcnn_trainer = maskrcnn_phase(Path(tmp) / "maskrcnn")
         print(json.dumps({"maskrcnn": mrcnn, "card": card}), flush=True)
-        mrcnn_batches = first_batches(mrcnn_trainer)
+        mrcnn_batches = {stage: loader_batch(mrcnn_trainer, stage, MASKRCNN_BATCH)
+                         for stage in ("train", "val")}
         mrcnn_timing, mrcnn_extra = maskrcnn_timing(mrcnn_trainer, mrcnn_batches)
         print(json.dumps({"maskrcnn_timing": mrcnn_timing, "card": card}), flush=True)
         mrcnn_check = maskrcnn_card_vs_cpu(mrcnn_trainer, mrcnn_batches)
@@ -1545,20 +2056,43 @@ def main() -> int:
             torch.cuda.empty_cache()
             result, seg_trainer = seg_phase(Path(tmp) / f"seg_{name}", name)
             print(json.dumps({name: result, "card": card}), flush=True)
-            batches = first_batches(seg_trainer)
-            steps_timed, amp_state = seg_timing(seg_trainer, batches,
-                                                iters=5 if name == "deeplabv3plus" else 3)
+            steps_timed, states, batches = milestone_timing(
+                seg_trainer, SEG_BATCH, None, iters=5 if name == "deeplabv3plus" else 3)
             print(json.dumps({f"{name}_timing": steps_timed, "card": card}), flush=True)
             if name == "deeplabv3plus":  # both configs share the host pipelines
                 print(json.dumps({"seg_host_timing": seg_host_timing(seg_trainer),
                                   "card": card}), flush=True)
                 print(json.dumps({"deeplabv3plus_card_vs_cpu": seg_card_vs_cpu(
                     seg_trainer, batches), "card": card}), flush=True)
-            seg[name] = {"result": result, "timing": steps_timed, "state": amp_state,
+            seg[name] = {"result": result, "timing": steps_timed, "state": states["train"],
                          "batch": batches["train"]}
+        torch.cuda.empty_cache()
+        cls, cls_trainer = cls_phase(Path(tmp) / "cls")
+        print(json.dumps({"cls": cls, "card": card}), flush=True)
+        cls_timed, cls_states, cls_batches = milestone_timing(
+            cls_trainer, CLS_BATCH, CLS_MILESTONE_BATCH, iters=10)
+        print(json.dumps({"cls_timing": cls_timed, "card": card}), flush=True)
+        print(json.dumps({"cls_host_timing": host_pipeline_timing(cls_trainer, n_items=16),
+                          "card": card}), flush=True)
+        print(json.dumps({"cls_card_vs_cpu": cls_card_vs_cpu(cls_trainer, cls_batches),
+                          "card": card}), flush=True)
+        torch.cuda.empty_cache()
+        nanodet, nd_trainer = nanodet_phase(Path(tmp) / "nanodet")
+        print(json.dumps({"nanodet": nanodet, "card": card}), flush=True)
+        nd_timed, nd_states, nd_batches = milestone_timing(
+            nd_trainer, NANODET_BATCH, NANODET_MILESTONE_BATCH, iters=5, ema_decay=0.9999)
+        nd_state = nd_states["train"]
+        nd_timed["dsl_assign"] = dsl_timing(nd_state, nd_batches["train"])
+        print(json.dumps({"nanodet_timing": nd_timed, "card": card}), flush=True)
+        nd_nms, nd_input = nanodet_nms_input(nd_state, nd_batches["val"])
+        print(json.dumps({"nanodet_host_timing": host_pipeline_timing(nd_trainer, n_items=16),
+                          "card": card}), flush=True)
+        print(json.dumps({"nanodet_card_vs_cpu": nanodet_card_vs_cpu(nd_trainer, nd_batches),
+                          "card": card}), flush=True)
         checks = kernel_checks()
         # the profiler last: its sessions slow the host's launches afterwards
-        split = device_phase({**times.pop("inputs"), "path_input": path_input})
+        split = device_phase({**times.pop("inputs"), "path_input": path_input,
+                              "nanodet_val_input": nd_input})
         train_step_fn, aug_fn = _profiled_train_state(trainer)
         print(json.dumps({"device_aug_profile": profile_device(aug_fn, steps=3, top=8),
                           "card": card}), flush=True)
@@ -1588,6 +2122,22 @@ def main() -> int:
                 "timing"]["amp_step_ms"]
             print(json.dumps({f"{name}_amp_train_step_profile": prof, "card": card}),
                   flush=True)
+        # each config's batch and its bench milestone's (bs256, bs128)
+        for name, states, batches, timed, milestone, ema in (
+                ("cls", cls_states, cls_batches, cls_timed, CLS_MILESTONE_BATCH, 0.0),
+                ("nanodet", nd_states, nd_batches, nd_timed, NANODET_MILESTONE_BATCH,
+                 0.9999)):
+            for run, key, amp_ms in (
+                    ("train", name, timed["amp_step_ms"]),
+                    ("milestone", f"{name}_bs{milestone}",
+                     timed[f"milestone_bs{milestone}"]["amp_step_ms"])):
+                torch.cuda.empty_cache()
+                step = make_train_step(amp=True, ema_decay=ema)
+                prof = profile_device(lambda: step(states[run], batches[run]), steps=3,
+                                      top=15)
+                prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / amp_ms
+                print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
+                      flush=True)
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
     print(json.dumps({"nms_keep_B1_K1024": {**times["B1"], **split["B1"],
@@ -1596,16 +2146,24 @@ def main() -> int:
     for name, t in mrcnn_nms.items():
         t["bound_ms"], _ = nms_bound_ms(*t["shape"][:2])
         t.update(mrcnn_split[name])
+    nd_nms["bound_ms"], _ = nms_bound_ms(*nd_nms["shape"][:2])
+    nd_nms["bound_ms_milestone_B128"], _ = nms_bound_ms(NANODET_MILESTONE_BATCH, 1024)
+    nd_nms.update(split["nanodet_val_input"])
+    # each path's main run: the count set to 0 just before and read just after
+    by_path = {"infer": path["launches"], "train": train["launches"],
+               "maskrcnn_train_and_val": mrcnn["launches"],
+               **{f"{name}_train_and_val": run["result"]["nms_keep_launches"]
+                  for name, run in seg.items()},
+               "cls_train_and_val": cls["nms_keep_launches"],
+               "nanodet_train_and_val": nanodet["launches"],
+               "nanodet_served": nanodet["served_launches"]}
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
         "route": "cuda",
         "source": "cvpytorch_tpu_torch/csrc/nms_kernel.cu",
         "replaces": "cvpytorch_tpu/ops/pallas/nms_kernel.py:23",
-        "launches": mrcnn["launches"],
-        "launches_by_path": {"infer": path["launches"], "train": train["launches"],
-                             "maskrcnn_train_and_val": mrcnn["launches"],
-                             **{f"{name}_train_and_val": run["result"]["nms_keep_launches"]
-                                for name, run in seg.items()}},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": checks["max_abs_err"],
         "ms": times["B32"]["ms"],
         "plain_ms": times["B32"]["plain_ms"],
@@ -1622,6 +2180,7 @@ def main() -> int:
         "ms_path_input": path["nms_keep_on_path_input_ms"],
         "device_ms_by_kernel": split,
         "maskrcnn_path_inputs": mrcnn_nms,
+        "nanodet_path_input": nd_nms,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""Synthetic segmentation, detection and instance-segmentation data
-(counterparts of ``SyntheticSegmentation``, ``SyntheticDetection`` and
+"""Synthetic classification, segmentation, detection and
+instance-segmentation data (counterparts of ``SyntheticClassification``,
+``SyntheticSegmentation``, ``SyntheticDetection`` and
 ``SyntheticInstanceSegmentation`` in
 ``cvpytorch_tpu/data/datasets/synthetic.py``): the same seeds give the same
 images, masks and boxes as the JAX package.
@@ -15,6 +16,40 @@ import numpy as np
 
 from ...registry import DATASETS
 from .base import Dataset
+
+
+@DATASETS.register(name="SyntheticClassification")
+class SyntheticClassification(Dataset):
+    """Class-conditional noise: class t adds (40·t) mod 256 to uint8 noise
+    in [0, 40) (wrapping) and paints every (t + 2)-th column white.  The JAX
+    dataset adds ``np.uint8(40 * t)``, which wrapped under numpy 1 and
+    raises under numpy 2 for t ≥ 7.  Infer-stage samples carry no
+    target."""
+
+    def __init__(self, data_cfg=None, dictionary=None, transform=None,
+                 target_transform=None, stage="train"):
+        super().__init__(data_cfg, dictionary, transform, target_transform, stage)
+        self.length = int(getattr(data_cfg, "LENGTH", None) or 256)
+        size = getattr(data_cfg, "SIZE", None) or [64, 64]
+        self.size = tuple(size)
+        self.n_cls = max(len(self.dictionary), 2)
+        self._rng = np.random.RandomState(
+            int(getattr(data_cfg, "SEED", None) or 0) + (1 if stage != "train" else 0)
+        )
+        self._targets = self._rng.randint(0, self.n_cls, size=self.length)
+        self._seeds = self._rng.randint(0, 2**31 - 1, size=self.length)
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, idx):
+        rng = np.random.RandomState(self._seeds[idx])
+        t = int(self._targets[idx])
+        img = rng.randint(0, 40, (*self.size, 3)).astype(np.uint8)
+        img = img + np.uint8((40 * t) % 256)
+        img[:, :: (t + 2), :] = 255
+        sample = {"image": img, "target": None if self.stage == "infer" else t}
+        return self.transform(sample) if self.transform else sample
 
 
 @DATASETS.register(name="SyntheticSegmentation")

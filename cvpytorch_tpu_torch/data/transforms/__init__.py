@@ -4,7 +4,7 @@
 The task namespace is selected by the dictionary name
 (``DATASET.DICTIONARY_NAME``) and the pipeline is the *ordered*
 ``TRANSFORMS:`` mapping of TransformName → kwargs.  The port has the
-detection and segmentation namespaces so far.
+classification, detection and segmentation namespaces so far.
 """
 from __future__ import annotations
 
@@ -26,6 +26,10 @@ class Compose:
 
 
 def _get_namespace(task: str) -> dict:
+    if task == "cls":
+        from .cls_transforms import CLS_TRANSFORMS
+
+        return CLS_TRANSFORMS
     if task == "seg":
         from .seg_transforms import SEG_TRANSFORMS
 

@@ -1,38 +1,32 @@
 """Detection transforms and collates (counterpart of
 ``cvpytorch_tpu/data/transforms/det_transforms.py``): letterbox ``Resize``,
-``RandomHorizontalFlip``, ``ToTensor``, ``Normalize``, the padded
-``make_det_collate`` and the ``make_device_aug_collate`` of the device
-augmentation.  Samples are ``{'image': HWC uint8 BGR, 'target': {'boxes':
-(N,4) xyxy pixels float32, 'labels': (N,)} or None}``.
+``RandomHorizontalFlip``, ``ColorHSV``, ``ToTensor``, ``Normalize``, the
+padded ``make_det_collate`` and the ``make_device_aug_collate`` of the
+device augmentation.  Samples are ``{'image': HWC uint8 BGR, 'target':
+{'boxes': (N,4) xyxy pixels float32, 'labels': (N,)} or None}``.
 
-The JAX package resizes with OpenCV; the port needs no OpenCV: it resizes
-with ``torch.nn.functional.interpolate`` (bilinear, align_corners=False,
-on the CPU) and pads with numpy.  The two agree within ±1 uint8 level.
-The JAX transforms built on OpenCV (``NEEDS_OPENCV``) are not ported yet;
-naming one raises a ``KeyError``.  Train with ``DEVICE_AUG`` instead: its
-mosaic, affine, HSV and flip run on the device (``ops/augment.py``).
+The JAX package resizes and converts colours with OpenCV; the port needs
+no OpenCV: ``imgproc`` computes ``cv2.resize`` (INTER_LINEAR) and the
+BGR↔HSV conversions to OpenCV's own uint8 arithmetic, so the letterbox
+and ``ColorHSV`` equal the JAX transforms.  The other JAX transforms
+built on OpenCV (``NEEDS_OPENCV``) are not ported yet; naming one raises
+a ``KeyError``.  Train YOLOv5 with ``DEVICE_AUG`` instead: its mosaic,
+affine, HSV and flip run on the device (``ops/augment.py``).
 """
 from __future__ import annotations
 
 import random
 
 import numpy as np
-import torch
-import torch.nn.functional as F
 
-
-def _resize_bilinear(img: np.ndarray, oh: int, ow: int) -> np.ndarray:
-    """HWC uint8 → (oh, ow, C) uint8, bilinear with half-pixel centres."""
-    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)[None]
-    y = F.interpolate(x.float(), size=(oh, ow), mode="bilinear",
-                      align_corners=False)
-    y = y.round().clamp(0, 255).to(torch.uint8)
-    return y[0].permute(1, 2, 0).contiguous().numpy()
+from .imgproc import bgr_to_hsv, hsv_to_bgr, resize_linear
 
 
 class Resize:
     """Letterbox resize; records ``pads`` (left, top) and ``scales``
-    (sw, sh) in the target for un-letterboxing."""
+    (sw, sh) for un-letterboxing: in the target, or, in a sample without
+    one (the infer stage), as keys of the sample, which the infer CLI
+    hands to the model."""
 
     def __init__(self, size, keep_ratio=True, fill=(114, 114, 114)):
         self.size = list(size) if isinstance(size, (list, tuple)) else [size, size]
@@ -48,7 +42,7 @@ class Resize:
             oh, ow = int(round(h * scale)), int(round(w * scale))
             padh, padw = (self.size[0] - oh) / 2, (self.size[1] - ow) / 2
             if (h, w) != (oh, ow):
-                img = _resize_bilinear(img, oh, ow)
+                img = resize_linear(img, (oh, ow))
             top, bottom = int(round(padh - 0.1)), int(round(padh + 0.1))
             left, right = int(round(padw - 0.1)), int(round(padw + 0.1))
             canvas = np.empty((oh + top + bottom, ow + left + right,
@@ -56,24 +50,28 @@ class Resize:
             canvas[...] = np.asarray(self.fill, img.dtype)
             canvas[top:top + oh, left:left + ow] = img
             img = canvas
+            pads = np.array([left, top], np.float32)
+            scales = np.array([scale, scale], np.float32)
             if target is not None:
                 boxes = target["boxes"]
                 if len(boxes):
                     boxes = boxes * scale + np.array([left, top, left, top],
                                                     np.float32)
                 target["boxes"] = boxes
-                target["pads"] = np.array([left, top], np.float32)
-                target["scales"] = np.array([scale, scale], np.float32)
         else:
             sh, sw = self.size[0] / h, self.size[1] / w
-            img = _resize_bilinear(img, self.size[0], self.size[1])
+            img = resize_linear(img, tuple(self.size))
+            pads = np.array([0.0, 0.0], np.float32)
+            scales = np.array([sw, sh], np.float32)
             if target is not None:
                 boxes = target["boxes"]
                 if len(boxes):
                     boxes = boxes * np.array([sw, sh, sw, sh], np.float32)
                 target["boxes"] = boxes
-                target["pads"] = np.array([0.0, 0.0], np.float32)
-                target["scales"] = np.array([sw, sh], np.float32)
+        if target is not None:
+            target["pads"], target["scales"] = pads, scales
+        else:
+            sample["pads"], sample["scales"] = pads, scales
         sample["image"] = img
         sample["target"] = target
         return sample
@@ -100,6 +98,30 @@ class RandomHorizontalFlip:
         return sample
 
 
+class ColorHSV:
+    """HSV gain jitter through lookup tables: after a ``random.random()``
+    coin, the three gains are drawn from numpy's global RNG
+    (``np.random.uniform``), as the JAX transform draws them."""
+
+    def __init__(self, p=0.5, hue=0.015, saturation=0.7, value=0.4):
+        self.p = p
+        self.gains = (hue, saturation, value)
+
+    def __call__(self, sample):
+        if random.random() >= self.p:
+            return sample
+        img = sample["image"]
+        r = np.random.uniform(-1, 1, 3) * self.gains + 1
+        hsv = bgr_to_hsv(img)
+        x = np.arange(256, dtype=r.dtype)
+        luts = (((x * r[0]) % 180).astype(img.dtype),
+                np.clip(x * r[1], 0, 255).astype(img.dtype),
+                np.clip(x * r[2], 0, 255).astype(img.dtype))
+        hsv = np.stack([lut[hsv[..., i]] for i, lut in enumerate(luts)], -1)
+        sample["image"] = hsv_to_bgr(hsv)
+        return sample
+
+
 class ToTensor:
     """BGR→RGB float HWC /255."""
 
@@ -123,7 +145,7 @@ class Normalize:
         return sample
 
 
-NEEDS_OPENCV = ("ColorHSV", "RandomAffine", "RandomAffineWithMosaic",
+NEEDS_OPENCV = ("RandomAffine", "RandomAffineWithMosaic",
                 "GaussianBlur", "MedianBlur", "RandomGrayscale", "RandomGamma",
                 "EqualizeHist", "CLAHE")
 
@@ -141,6 +163,7 @@ class _Transforms(dict):
 DET_TRANSFORMS = _Transforms({
     "Resize": Resize,
     "RandomHorizontalFlip": RandomHorizontalFlip,
+    "ColorHSV": ColorHSV,
     "ToTensor": ToTensor,
     "Normalize": Normalize,
 })

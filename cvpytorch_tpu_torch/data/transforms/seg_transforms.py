@@ -129,10 +129,12 @@ class Pad:
 
 class PhotoMetricDistortion:
     """Brightness, contrast (before or after the HSV step), saturation and
-    hue jitter on the image only."""
+    hue jitter on the image only.  ``p`` (``PhotoMetricDistortion: {p:
+    0.5}`` in most seg configs) is accepted and unused: each step draws
+    its own coin, as in the JAX transform, which takes no ``p``."""
 
     def __init__(self, brightness_delta=32, contrast_range=(0.5, 1.5),
-                 saturation_range=(0.5, 1.5), hue_delta=18):
+                 saturation_range=(0.5, 1.5), hue_delta=18, p=None):
         self.brightness_delta = brightness_delta
         self.contrast_range = contrast_range
         self.saturation_range = saturation_range

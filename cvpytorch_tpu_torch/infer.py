@@ -5,16 +5,20 @@
 config, dictionary, dataset (stage ``infer``) and model, loads the
 weights through ``Checkpoints.load_weights_into`` (a bare ``state_dict``,
 or a trainer checkpoint, whose EMA weights it takes when it has them),
-runs the predict step over the loader and writes detections to
-``out_dir/predictions.json``, or for segmentation (``SEG_CLASSES``) one
-8-bit palette PNG a prediction, ``out_dir/{index:06d}.png`` with
-``CITYSCAPES_PALETTE``, written by ``data/png.py``.
+runs the predict step over the loader and writes ``out_dir/predictions.json``
+— detections, or for classification (``CLS_CLASSES``) the list of class
+ids, one an image, as the JAX CLI writes them — or for segmentation
+(``SEG_CLASSES``) one 8-bit palette PNG a prediction,
+``out_dir/{index:06d}.png`` with ``CITYSCAPES_PALETTE``, written by
+``data/png.py``.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA that
 raises.  Serving is float32: making the predict step turns both TF32
 switches off for the process (``train_state.make_predict_step``).
-Infer-stage samples carry no target, so boxes stay in network pixels (no
-un-letterboxing), as in the JAX CLI.
+Infer-stage samples carry no target; the detection letterbox records
+their ``pads``/``scales`` as batch keys, which go to the model as its
+targets, so served boxes are in the original image's pixels.  (The JAX
+CLI passes no targets and serves network pixels.)
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ import json
 import logging
 import os
 
+import numpy as np
 import torch
 
 from .config import CommonConfiguration, load_dictionary
@@ -36,7 +41,8 @@ from .utils.checkpoints import Checkpoints
 
 logger = logging.getLogger("cvpytorch_tpu_torch")
 
-TASKS = ("DET_CLASSES", "INS_CLASSES", "SEG_CLASSES")
+TASKS = ("CLS_CLASSES", "DET_CLASSES", "INS_CLASSES", "SEG_CLASSES")
+LETTERBOX_KEYS = ("pads", "scales")  # infer-stage batch keys the model takes
 
 # Cityscapes palette, one RGB triple per train id
 CITYSCAPES_PALETTE = [
@@ -96,8 +102,8 @@ def main(argv=None):
     dictionary_name = cfg.DATASET.DICTIONARY_NAME or "CLS_CLASSES"
     if dictionary_name not in TASKS:
         raise NotImplementedError(
-            f"the port serves detection and segmentation only so far, not "
-            f"{dictionary_name} (ROADMAP, Queue 1)")
+            f"the port serves classification, detection and segmentation only "
+            f"so far, not {dictionary_name} (ROADMAP, Queue 1)")
 
     from .data import datasets as _d  # noqa: F401 (registers)
 
@@ -125,7 +131,12 @@ def main(argv=None):
                 save_seg_mask(p, os.path.join(args.out, f"{n_seg:06d}.png"))
                 n_seg += 1
             continue
-        preds = {k: v.cpu().numpy() for k, v in predict(images).items()}
+        if dictionary_name == "CLS_CLASSES":
+            results.extend(predict(images).cpu().numpy().reshape(-1).tolist())
+            continue
+        targets = {k: torch.from_numpy(np.stack(batch[k])).to(device)
+                   for k in LETTERBOX_KEYS if k in batch}
+        preds = {k: v.cpu().numpy() for k, v in predict(images, targets).items()}
         for i in range(len(batch["image"])):
             v = preds["valid"][i]
             results.append({

@@ -1,2 +1,2 @@
 """Model zoo of the port.  Importing it registers the models."""
-from . import rcnn, segmentor, unet, yolov5  # noqa: F401
+from . import classification, nanodet_plus, rcnn, segmentor, unet, yolov5  # noqa: F401

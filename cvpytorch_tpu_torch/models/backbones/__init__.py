@@ -6,7 +6,7 @@ import inspect
 
 from ...registry import BACKBONES
 
-from . import csp_darknet, resnet  # noqa: F401  (importing registers)
+from . import csp_darknet, mobilenetv2, resnet, shufflenetv2  # noqa: F401  (registers)
 
 
 def build_backbone(cfg):

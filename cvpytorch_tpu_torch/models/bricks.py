@@ -48,6 +48,12 @@ ACTIVATIONS: dict[str, Callable] = {
 }
 
 
+def upsample2x_bilinear_align(x):
+    """×2 bilinear upsampling with align_corners=True: output i samples
+    input position i·(H − 1)/(2H − 1)."""
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
+
+
 def get_activation(name: str | None) -> Callable:
     if name is None:
         return ACTIVATIONS["identity"]

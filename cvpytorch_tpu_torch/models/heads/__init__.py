@@ -1,2 +1,2 @@
 """Heads of the port.  Importing it registers them."""
-from . import seg_heads  # noqa: F401
+from . import nanodet_head, seg_heads  # noqa: F401

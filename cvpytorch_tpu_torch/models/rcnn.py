@@ -263,8 +263,8 @@ class MaskRCNN(nn.Module):
         feats = self.fpn(self.backbone(images.permute(0, 3, 1, 2)))
         obj_logits, reg_deltas, anchors, proposals, prop_valid = \
             self._rpn_proposals(feats, images)
-        if mode == "infer":
-            return self._predict(feats, proposals, prop_valid, images, None)
+        if mode == "infer":  # targets: the infer stage's pads/scales, if any
+            return self._predict(feats, proposals, prop_valid, images, targets)
 
         f32 = torch.autocast(images.device.type, enabled=False)
         with f32:

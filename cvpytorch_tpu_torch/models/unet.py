@@ -23,14 +23,8 @@ from torch import nn
 
 from ..config import dictionary_to_names_weights
 from ..registry import MODELS
-from .bricks import BatchNorm2d
+from .bricks import BatchNorm2d, upsample2x_bilinear_align
 from .losses.seg_loss import build_seg_loss, cross_entropy_2d
-
-
-def upsample2x_bilinear_align(x):
-    """×2 bilinear upsampling with align_corners=True: output i samples
-    input position i·(H − 1)/(2H − 1)."""
-    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=True)
 
 
 class DoubleConv(nn.Module):

@@ -13,21 +13,28 @@ import numpy as np
 THRESHOLDS = (0.45, 0.5, 0.6, 0.65, 0.7)
 
 
+# NanoDet-Plus-320's val and serving input: batch 96, its 2125 priors cut
+# to max_nms 1024, 80 COCO classes, boxes in a 320² canvas, iou_threshold 0.6
+NANODET_CASE = {"B": 96, "K": 1024, "n_classes": 80, "canvas": 320, "thr": 0.6}
+
+
 def nms_inputs(B: int, K: int, seed: int, n_classes: int = 3,
-               dense: bool = False) -> np.ndarray:
+               dense: bool = False, canvas: int = 640) -> np.ndarray:
     """(B, K, 4) f32 boxes as ``batched_nms`` hands them to ``nms_keep``:
-    clustered boxes in a 640 canvas (K/16 clusters, or with ``dense`` 4
-    tight ones, where most boxes of a class overlap), score order with
-    ties (scores rounded to 2 decimals, stable sort), class offsets
-    label*4096, and boxes 0 and 1 of every image at IoU exactly equal to
-    0.6 (kept at 0.6)."""
+    clustered boxes in a ``canvas``² image (K/16 clusters, or with
+    ``dense`` 4 tight ones, where most boxes of a class overlap; sides of
+    10–60 pixels at 640, scaled with the canvas), score order with ties
+    (scores rounded to 2 decimals, stable sort), class offsets label*4096,
+    and boxes 0 and 1 of every image at IoU exactly equal to 0.6 (kept at
+    0.6)."""
     rng = np.random.RandomState(seed)
     n_clusters = 4 if dense else max(K // 16, 1)
-    centers = rng.rand(B, n_clusters, 2) * 600 + 20
+    s = canvas / 640
+    centers = rng.rand(B, n_clusters, 2) * (canvas - 40) + 20
     which = rng.randint(0, n_clusters, (B, K))
     c = (np.take_along_axis(centers, which[..., None], 1)
          + rng.randn(B, K, 2) * (1 if dense else 4))
-    wh = rng.rand(B, K, 2) * 50 + 10
+    wh = rng.rand(B, K, 2) * (50 * s) + 10 * s
     boxes = np.concatenate([c - wh / 2, c + wh / 2], -1).astype(np.float32)
     scores = np.round(rng.rand(B, K), 2).astype(np.float32)
     order = np.argsort(-scores, axis=1, kind="stable")
@@ -38,6 +45,12 @@ def nms_inputs(B: int, K: int, seed: int, n_classes: int = 3,
         boxes[:, 1] = [100, 100, 110, 106]
         labels[:, :2] = 0
     return (boxes + (labels * 4096.0)[..., None]).astype(np.float32)
+
+
+def nanodet_inputs(seed: int) -> np.ndarray:
+    """``nms_inputs`` at ``NANODET_CASE``'s shape, classes and canvas."""
+    c = NANODET_CASE
+    return nms_inputs(c["B"], c["K"], seed, n_classes=c["n_classes"], canvas=c["canvas"])
 
 
 def iou_f32(a: np.ndarray, b: np.ndarray) -> np.ndarray:

@@ -139,14 +139,15 @@ def make_eval_step(use_ema: bool = False):
 
 
 def make_predict_step(model: nn.Module):
-    """Returns ``predict_step(images) -> predictions``: the model in
-    ``eval()`` under ``torch.inference_mode()``, float32, on the device the
-    images are on."""
+    """Returns ``predict_step(images, targets=None) -> predictions``: the
+    model in ``eval()`` under ``torch.inference_mode()``, float32, on the
+    device the images are on.  ``targets`` (a detector's letterbox
+    ``pads``/``scales``) go to the model as they are."""
     _float32_everywhere()
 
-    def predict_step(images: torch.Tensor):
+    def predict_step(images: torch.Tensor, targets=None):
         model.eval()
         with torch.inference_mode():
-            return model(prepare_images(images), mode="infer")
+            return model(prepare_images(images), targets, mode="infer")
 
     return predict_step

@@ -12,9 +12,10 @@ Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA that
 raises.  With ``DATASET.TRAIN.DEVICE_AUG`` the host only letterboxes the
 LOAD_NUM=4 raw tiles of each sample; mosaic, affine, HSV, flip and
 normalise run on the device inside the train step, from a generator
-seeded by (SEED + 7919, step).  Segmentation (``SEG_CLASSES``) batches
-stack the images and the (H, W) label maps, and the evaluator gets the
-host labels and the argmax maps as uint8.  Single device: the JAX
+seeded by (SEED + 7919, step).  Classification (``CLS_CLASSES``) and
+segmentation (``SEG_CLASSES``) batches stack the images and the labels
+(class ids, or (H, W) label maps), and the evaluator gets the host labels
+and the argmax as uint8.  Single device: the JAX
 package's mesh (``PARALLEL``) and ``PROFILER`` hook are not ported yet.
 """
 from __future__ import annotations
@@ -75,8 +76,8 @@ class Trainer:
                                 if self.cfg.DATASET else None) or "CLS_CLASSES"
         if self.dictionary_name not in TASKS:
             raise NotImplementedError(
-                f"the port trains detection and segmentation only so far, not "
-                f"{self.dictionary_name} (ROADMAP, Queue 1)")
+                f"the port trains classification, detection and segmentation only "
+                f"so far, not {self.dictionary_name} (ROADMAP, Queue 1)")
 
     def _parser_datasets(self):
         ds_cls = DATASETS.get(self.cfg.DATASET.CLASS)
@@ -100,8 +101,8 @@ class Trainer:
                 tile = int(dev_aug.get("TILE", size // 2))
                 collate = make_device_aug_collate(max_boxes // 4, tile)
                 self._device_aug_size = size
-            elif self.dictionary_name == "SEG_CLASSES":
-                collate = default_collate  # stacks images and label maps
+            elif self.dictionary_name in ("CLS_CLASSES", "SEG_CLASSES"):
+                collate = default_collate  # stacks images and labels
             else:
                 collate = make_det_collate(max_boxes)
             self.dataloaders[stage] = DataLoader(
@@ -228,7 +229,7 @@ class Trainer:
 
         def prepared():
             for i, batch in enumerate(loader):
-                if not isinstance(batch["target"], dict):  # label maps
+                if not isinstance(batch["target"], dict):  # class ids, label maps
                     yield batch
                     continue
                 extra = {"epoch": epoch}
@@ -256,8 +257,9 @@ class Trainer:
         return state
 
     def _host_predictions(self, preds):
-        """Detection dicts to numpy; a (B, H, W) argmax map as uint8 (int32
-        past 256 classes), a quarter of its int64 copy."""
+        """Detection dicts to numpy; an argmax (class ids, or (B, H, W)
+        maps) as uint8 (int32 past 256 classes), a quarter of its int64
+        copy."""
         if isinstance(preds, dict):
             return {k: v.cpu().numpy() for k, v in preds.items()}
         dtype = torch.uint8 if len(self.dictionary) <= 256 else torch.int32

@@ -36,7 +36,13 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "'ops.roi_align', 'ops.masks', 'models.backbones.resnet', 'data.png', "
         "'data.transforms.imgproc', 'data.transforms.seg_transforms', "
         "'data.datasets.cityscapes', 'evaluator.segmentation', 'models.segmentor', "
-        "'models.unet', 'models.heads.seg_heads', 'models.losses.seg_loss'):\n"
+        "'models.unet', 'models.heads.seg_heads', 'models.losses.seg_loss', "
+        "'models.backbones.mobilenetv2', 'models.losses.cls_loss', 'models.classification', "
+        "'data.transforms.cls_transforms', 'data.datasets.mini_imagenet', "
+        "'evaluator.classification', 'models.backbones.shufflenetv2', "
+        "'models.necks.ghost_pan', 'models.losses.gfl_loss', "
+        "'models.assigners.dsl_assigner', 'models.heads.nanodet_head', "
+        "'models.nanodet_plus'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -15,7 +15,7 @@ from cvpytorch_tpu.ops import nms as jnms
 from cvpytorch_tpu.ops.pallas.nms_kernel import pallas_nms_keep
 from cvpytorch_tpu_torch.ops import nms_kernel
 from cvpytorch_tpu_torch.ops.nms_cases import (
-    THRESHOLDS, iou_f32, near_threshold_pairs, nms_inputs)
+    NANODET_CASE, THRESHOLDS, iou_f32, nanodet_inputs, near_threshold_pairs, nms_inputs)
 from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep_plain
 
 
@@ -41,6 +41,22 @@ def test_plain_matches_jax_at_ragged_k(K, thr):
     assert np.array_equal(got, pallas)
     if K >= 2:
         assert got[1] == (thr >= 0.6)  # IoU(box 0, box 1) == f32(0.6)
+
+
+def test_plain_matches_jax_on_the_nanodet_input():
+    """NanoDet-Plus-320's (96, 1024) NMS input (80 classes, 320² canvas, thr
+    0.6): the plain version over the whole batch, and JAX ``nms_keep_mask``
+    (XLA; the Pallas kernel in interpret mode takes minutes at K = 1024)
+    on four of its images, equal."""
+    boxes = nanodet_inputs(seed=11)
+    assert boxes.shape == (NANODET_CASE["B"], NANODET_CASE["K"], 4)
+    thr = NANODET_CASE["thr"]
+    got = nms_keep_plain(torch.from_numpy(boxes), thr).numpy()
+    scores = np.arange(NANODET_CASE["K"], 0, -1).astype(np.float32)
+    for i in (0, 1, 47, 95):
+        keep, _ = jnms.nms_keep_mask(jnp.asarray(boxes[i]), jnp.asarray(scores), thr)
+        assert np.array_equal(got[i], np.asarray(keep))
+    assert 0 < got.sum() < got.size
 
 
 @pytest.mark.parametrize("thr", THRESHOLDS)

@@ -174,6 +174,27 @@ def test_val_and_infer_predictions_match_jax(pair):
     assert_predictions_equal(ti, ji)
 
 
+def test_infer_with_the_letterbox_serves_original_pixels(pair):
+    """Given the infer stage's ``pads``/``scales``, the served boxes are the
+    JAX infer boxes un-letterboxed by the JAX ``unletterbox_boxes``."""
+    from cvpytorch_tpu.ops.boxes import unletterbox_boxes as jax_unletterbox
+
+    jm, variables, tm = pair
+    x = images(SEED)
+    pads = np.array([[0, 8], [4, 0]], np.float32)
+    scales = np.array([[0.5, 0.5], [0.8, 0.8]], np.float32)
+    ji = jax.jit(lambda v, img: jm.apply(v, img, mode="infer"))(variables, jnp.asarray(x))
+    want = jax_unletterbox(ji["boxes"], jnp.asarray(pads)[:, None], jnp.asarray(scales)[:, None])
+    with torch.no_grad():
+        ti = tm.eval()(torch.from_numpy(x), {"pads": torch.from_numpy(pads),
+                                             "scales": torch.from_numpy(scales)}, mode="infer")
+    valid = np.asarray(ji["valid"])
+    np.testing.assert_array_equal(ti["valid"].numpy(), valid)
+    assert valid.any()
+    np.testing.assert_allclose(ti["boxes"].numpy()[valid], np.asarray(want)[valid],
+                               atol=1e-3, rtol=1e-4)
+
+
 def test_mask_size_must_equal_the_dataset_raster(pair):
     _, _, tm = pair
     tgt = targets()

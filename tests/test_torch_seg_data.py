@@ -46,6 +46,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ((37, 53, 3), (64, 64)),      # upscale
     ((100, 150, 3), (71, 97)),    # downscale
     ((64, 128, 3), (32, 64)),     # exactly half: OpenCV's 2×2 area mean
+    ((30, 44), (15, 22)),         # exactly half, one channel
     ((20, 33), (41, 5)),          # one channel, mixed
     ((48, 80, 3), (48, 80)),      # same size: a copy
     ((9, 7, 3), (200, 150)),      # large upscale: clamped edges
@@ -60,12 +61,30 @@ def test_resizes_equal_opencv(src, dst):
                                   cv2.resize(img, (w, h), interpolation=cv2.INTER_NEAREST))
 
 
+def test_resize_linear_equals_opencv_on_random_shapes():
+    """60 seeded draws of source and target sizes (1–200 → 1–300 a side;
+    gray, 1, 3 or 4 channels): equal to ``cv2.resize``, and each random
+    window equal to the crop of the full resize."""
+    rng = np.random.RandomState(0)
+    for _ in range(60):
+        (H, W), (oh, ow) = rng.randint(1, 200, 2), rng.randint(1, 300, 2)
+        C = rng.choice([0, 1, 3, 4])
+        img = rng.randint(0, 256, (H, W, C) if C else (H, W)).astype(np.uint8)
+        got = imgproc.resize_linear(img, (oh, ow))
+        want = cv2.resize(img, (ow, oh), interpolation=cv2.INTER_LINEAR)
+        np.testing.assert_array_equal(got, want.reshape(got.shape))
+        assert got.shape == (oh, ow) + img.shape[2:]
+        rows, cols = slice(rng.randint(0, oh), None), slice(None, rng.randint(1, ow + 1))
+        np.testing.assert_array_equal(imgproc.resize_linear(img, (oh, ow), rows, cols),
+                                      got[rows, cols])
+
+
 def test_resize_window_is_the_crop_of_the_full_resize():
     img = np.random.RandomState(1).randint(0, 256, (100, 200, 3)).astype(np.uint8)
     rows, cols = slice(20, 90), slice(5, 300)
     for fn in (imgproc.resize_linear, imgproc.resize_nearest):
-        np.testing.assert_array_equal(fn(img, (173, 311), rows, cols),
-                                      fn(img, (173, 311))[rows, cols])
+        for size in ((173, 311), (50, 100)):  # (50, 100): the exact half
+            np.testing.assert_array_equal(fn(img, size, rows, cols), fn(img, size)[rows, cols])
 
 
 def test_hsv_round_trip_equals_opencv_on_every_input():
@@ -163,6 +182,33 @@ def test_config_pipelines_equal_jax(config, stage):
         assert got["image"].shape == (128, 256, 3) and got["image"].dtype == np.float32
         np.testing.assert_array_equal(got["image"], want["image"])
         np.testing.assert_array_equal(got["target"], want["target"])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_photometric_distortion_takes_p_and_equals_jax(seed):
+    """``PhotoMetricDistortion: {p: 0.5}`` (42 of the seg configs) builds,
+    and under one ``random`` seed equals the JAX transform, which takes no
+    ``p``: each step draws its own coin."""
+    sample = seg_sample(seed)
+    random.seed(seed)
+    want = jax_seg.PhotoMetricDistortion()(copy.deepcopy(sample))
+    after_jax = random.random()
+    random.seed(seed)
+    got = build_transforms("SEG_CLASSES", {"PhotoMetricDistortion": {"p": 0.5}})(
+        copy.deepcopy(sample))
+    assert random.random() == after_jax
+    np.testing.assert_array_equal(got["image"], want["image"])
+
+
+def test_cityscapes_deeplabv3_pipeline_builds():
+    """``conf/cityscapes_deeplabv3.yml`` passes ``p`` to
+    PhotoMetricDistortion; its TRAIN and VAL pipelines build."""
+    cfg = CommonConfiguration.from_file(os.path.join(ROOT, "conf", "cityscapes_deeplabv3.yml"))
+    assert cfg.DATASET.TRAIN.TRANSFORMS.PhotoMetricDistortion.p == 0.5
+    for stage in ("TRAIN", "VAL"):
+        pipeline = build_transforms("SEG_CLASSES", cfg.DATASET.get(stage).TRANSFORMS,
+                                    stage.lower())
+        assert pipeline.transforms
 
 
 def test_unported_transforms_name_the_roadmap():

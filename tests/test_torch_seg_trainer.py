@@ -138,7 +138,7 @@ def test_trainer_validates_miou_and_serves_the_jax_predictions(tmp_path, monkeyp
 
 
 def test_trainer_refuses_the_tasks_it_does_not_train(tmp_path):
-    for name in ("CLS_CLASSES", "KEYPOINT_CLASSES"):
+    for name in ("KEYPOINT_CLASSES",):
         path = tmp_path / f"{name}.json"
         path.write_text(json.dumps({name: [{"a": 1.0}]}))
         cfg = CommonConfiguration({"DATASET": {"DICTIONARY": str(path),
