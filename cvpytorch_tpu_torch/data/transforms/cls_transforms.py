@@ -6,15 +6,14 @@ OpenCV; these compute the same on ``imgproc`` (OpenCV's uint8
 INTER_LINEAR and BGR↔HSV arithmetic) and draw from Python's ``random``
 in the same order, so that one seed gives the JAX transform's output.
 ``RGB2BGR``, ``ToTensor`` (the label becomes int32) and ``Normalize`` are
-the segmentation namespace's.  ``RandomRotation`` needs OpenCV's warp and
-raises (ROADMAP, Queue 1 item 3)."""
+the segmentation namespace's."""
 from __future__ import annotations
 
 import random
 
 import numpy as np
 
-from .imgproc import bgr_to_hsv, hsv_to_bgr, resize_linear
+from .imgproc import bgr_to_hsv, hsv_to_bgr, resize_linear, rotation_matrix_2d, warp_affine
 from .seg_transforms import RGB2BGR, Normalize, ToTensor
 
 
@@ -110,6 +109,25 @@ class RandomVerticalFlip:
         return sample
 
 
+class RandomRotation:
+    """With probability ``p``, a rotation by an angle drawn from
+    ``degrees`` (a pair, or ±degrees) about the image centre, bilinear,
+    with a black border."""
+
+    def __init__(self, degrees=10, p: float = 0.5):
+        self.degrees = degrees if isinstance(degrees, (list, tuple)) else (-degrees, degrees)
+        self.p = p
+
+    def __call__(self, sample):
+        if random.random() < self.p:
+            img = sample["image"]
+            h, w = img.shape[:2]
+            angle = random.uniform(*self.degrees)
+            m = rotation_matrix_2d((w / 2, h / 2), angle, 1.0)
+            sample["image"] = warp_affine(img, m, (w, h))
+        return sample
+
+
 class ColorJitter:
     """With probability ``p``: brightness (± ``brightness``·255), contrast
     (a factor from ``contrast``) on the float image, clipped to uint8, then
@@ -147,9 +165,6 @@ class ColorJitter:
 
 class _Transforms(dict):
     def __missing__(self, name):
-        if name == "RandomRotation":
-            raise KeyError("RandomRotation (OpenCV's warpAffine in the JAX package) is "
-                           "not ported yet (ROADMAP, Queue 1 item 3)")
         raise KeyError(f"no classification transform {name!r} in the port")
 
 
@@ -159,6 +174,7 @@ CLS_TRANSFORMS = _Transforms({
     "CenterCrop": CenterCrop,
     "RandomHorizontalFlip": RandomHorizontalFlip,
     "RandomVerticalFlip": RandomVerticalFlip,
+    "RandomRotation": RandomRotation,
     "ColorJitter": ColorJitter,
     "RGB2BGR": RGB2BGR,
     "ToTensor": ToTensor,

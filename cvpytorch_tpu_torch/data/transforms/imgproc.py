@@ -1,6 +1,9 @@
-"""OpenCV's uint8 image operations that the segmentation transforms use,
-in numpy, to the bit where OpenCV's own arithmetic is integer
-(``cv2`` is not on the card's machine).
+"""OpenCV 5.0.0's uint8 image operations that the host transforms use, in
+numpy, to the bit (``cv2`` is not on the card's machine).  Below; then the
+warps (``warp_affine``, ``warp_perspective``, ``rotation_matrix_2d``),
+``resize_area``, ``gaussian_blur``, ``median_blur``, ``bgr_to_gray``,
+``equalize_hist``, ``clahe`` and the 8-bit Lab pair, each described where
+it is defined.
 
 * ``resize_linear`` — ``cv2.resize(..., INTER_LINEAR)`` on uint8: the
   half-pixel source coordinate in float32, horizontal weights rounded to
@@ -180,3 +183,588 @@ def hsv_to_bgr(hsv: np.ndarray) -> np.ndarray:
     bgr[:, :vec] = np.trunc(bgr[:, :vec])
     bgr[:, vec:] = np.rint(bgr[:, vec:])
     return np.clip(bgr, 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Warps.  OpenCV 5's ``warpAffine``/``warpPerspective`` on uint8 compute in
+# float32: the inverse map (inverted in double, then rounded to float32),
+# the source coordinate of each output pixel, ``floor`` and the fractions,
+# then the two horizontal lerps and the vertical one, each a fused
+# multiply-add, rounded to nearest even.  The coordinates are computed one
+# way in the vector body of a row (``fma(M0, x, M1·y + M2)`` with the
+# product and the sum each rounded) and another in its scalar tail, the
+# last ``dst_w mod _WARP_BLOCK`` pixels (``fma(x, M0, y·M1) + M2``).
+# A source pixel outside the image is the border value, blended like any
+# other (BORDER_CONSTANT).
+# ---------------------------------------------------------------------------
+
+_WARP_BLOCK = 16  # float32 lanes of OpenCV's AVX-512 warp kernels (x86-64)
+_F32, _F64 = np.float32, np.float64
+
+
+def _fma32(a, b, c):
+    """float32 ``fma(a, b, c)``: the product of two float32 values is exact
+    in float64, and so is the sum wherever the operands' bits span at most
+    53 (every case of the warps but sums with near-zero fractions, where a
+    float64 rounding could land on a float32 tie: not seen in the tests)."""
+    return (np.asarray(a, _F64) * b + c).astype(_F32)
+
+
+def _invert_affine(M) -> np.ndarray:
+    """OpenCV's inversion of a 2×3 forward map in double (warpAffine
+    without WARP_INVERSE_MAP), rounded to float32 as its kernels take it."""
+    m = np.asarray(M, _F64).reshape(6).copy()
+    d = m[0] * m[4] - m[1] * m[3]
+    d = 1.0 / d if d != 0 else 0.0
+    a11, a22 = m[4] * d, m[0] * d
+    m[0], m[4] = a11, a22
+    m[1] *= -d
+    m[3] *= -d
+    b1 = -m[0] * m[2] - m[1] * m[5]
+    b2 = -m[3] * m[2] - m[4] * m[5]
+    m[2], m[5] = b1, b2
+    return m.astype(_F32)
+
+
+def _invert_3x3(M) -> np.ndarray:
+    """OpenCV's closed-form 3×3 inverse (``invert`` with DECOMP_LU, n = 3),
+    in double, rounded to float32."""
+    s = np.asarray(M, _F64).reshape(3, 3)
+    det = (s[0, 0] * (s[1, 1] * s[2, 2] - s[1, 2] * s[2, 1])
+           - s[0, 1] * (s[1, 0] * s[2, 2] - s[1, 2] * s[2, 0])
+           + s[0, 2] * (s[1, 0] * s[2, 1] - s[1, 1] * s[2, 0]))
+    d = 1.0 / det if det != 0 else 0.0
+    t = np.array([
+        (s[1, 1] * s[2, 2] - s[1, 2] * s[2, 1]) * d,
+        (s[0, 2] * s[2, 1] - s[0, 1] * s[2, 2]) * d,
+        (s[0, 1] * s[1, 2] - s[0, 2] * s[1, 1]) * d,
+        (s[1, 2] * s[2, 0] - s[1, 0] * s[2, 2]) * d,
+        (s[0, 0] * s[2, 2] - s[0, 2] * s[2, 0]) * d,
+        (s[0, 2] * s[1, 0] - s[0, 0] * s[1, 2]) * d,
+        (s[1, 0] * s[2, 1] - s[1, 1] * s[2, 0]) * d,
+        (s[0, 1] * s[2, 0] - s[0, 0] * s[2, 1]) * d,
+        (s[0, 0] * s[1, 1] - s[0, 1] * s[1, 0]) * d])
+    return t.astype(_F32)
+
+
+def _warp_coord(m0, m1, m2, x, y, tail):
+    """m0·x + m1·y + m2 in float32 as OpenCV's vector body (``tail`` False)
+    or scalar tail (True) computes it; x, y broadcast."""
+    if tail:
+        return (_fma32(x, m0, (_F32(m1) * y).astype(_F32)) + _F32(m2)).astype(_F32)
+    return _fma32(m0, x, ((_F32(m1) * y).astype(_F32) + _F32(m2)).astype(_F32))
+
+
+def _coords(coefs, x, y, body):
+    """Coordinates over x (1, w) and y (h, 1): the vector body for the
+    first ``body`` columns, the scalar tail after."""
+    parts = [_warp_coord(*coefs, x[:, :body], y, False),
+             _warp_coord(*coefs, x[:, body:], y, True)]
+    shape = np.broadcast_shapes(x.shape, y.shape)
+    return np.concatenate([np.broadcast_to(p, shape[:1] + p.shape[1:]) for p in parts], 1)
+
+
+def _border_pad(img, border_value):
+    """(H, W, C) image framed by one pixel of the border value, so that a
+    tap index clipped to [-1, H] × [-1, W] (then + 1) reads it."""
+    H, W, C = img.shape
+    pad = np.empty((H + 2, W + 2, C), img.dtype)
+    value = np.asarray(_border(border_value, C), img.dtype)
+    pad[0] = pad[-1] = value
+    pad[:, 0] = pad[:, -1] = value
+    pad[1:-1, 1:-1] = img
+    return pad
+
+
+def _border(border_value, C):
+    """OpenCV's Scalar of ``border_value`` for C channels (a scalar s is
+    (s, 0, 0, 0))."""
+    given = np.atleast_1d(np.asarray(border_value, _F64))[:C]
+    v = np.zeros(C)
+    v[:len(given)] = given
+    return np.clip(np.rint(v), 0, 255)
+
+
+# float32 lerps without fusing stay within 1e-4 of the fused ones for values
+# in [0, 255]; a result that far from a tie rounds the same
+_TIE_MARGIN = _F32(2.0 ** -10)
+
+
+def _lerp_rows(a, p0, p1):
+    """The horizontal step unfused in float32, straight from uint8."""
+    out = np.subtract(p1, p0, dtype=_F32)
+    out *= a
+    out += p0
+    return out
+
+
+def _lerp(a, b, i0, i1, taps):
+    """OpenCV's bilinear step: two horizontal fused multiply-adds on the
+    fraction ``a``, one vertical on ``b``, then round half to even.  It is
+    computed in float32 unfused from the horizontal results ``i0``/``i1``
+    (``_lerp_rows``), and again fused (in float64) where the result lies
+    within ``_TIE_MARGIN`` of a tie, from ``taps(flat indices)``: the four
+    source values (top-left, top-right, bottom-left, bottom-right) there."""
+    out = i1 - i0
+    out *= b
+    out += i0
+    r = np.rint(out)
+    out -= r
+    near = np.flatnonzero(np.abs(out, out=out) > _F32(0.5) - _TIE_MARGIN)
+    if len(near):
+        at = np.unravel_index(near, r.shape)
+        an, bn = (v[tuple(i if n > 1 else 0 for i, n in zip(at, v.shape))]
+                  for v in (a, b))
+        f = [p.astype(_F32) for p in taps(near)]
+        e0 = _fma32(an, f[1] - f[0], f[0])
+        e1 = _fma32(an, f[3] - f[2], f[2])
+        r.reshape(-1)[near] = np.rint(_fma32(bn, e1 - e0, e0))
+    return r.astype(np.uint8)
+
+
+def _as_hwc(img):
+    if img.dtype != np.uint8:
+        raise TypeError(f"the warps take uint8 images, not {img.dtype}")
+    return img if img.ndim == 3 else img[..., None]
+
+
+def _sample(img, sx, sy, border_value, interpolation):
+    """Sample the uint8 (H, W, C) image at float32 source coordinates
+    (h, w), or a row (1, w) of x and a column (h, 1) of y, which the
+    separable path passes: its gathers are then by rows and columns."""
+    H, W, C = img.shape
+    pad = _border_pad(img, border_value)
+    if interpolation == "nearest":
+        ix = np.clip(np.rint(sx), -1, W).astype(np.int64) + 1
+        iy = np.clip(np.rint(sy), -1, H).astype(np.int64) + 1
+        if sx.shape[0] == 1 and sy.shape[1] == 1:
+            return pad[iy[:, 0]][:, ix[0]]
+        return pad[iy, ix]
+    if interpolation != "linear":
+        raise ValueError(f"interpolation {interpolation!r}: 'linear' or 'nearest'")
+    fx, fy = np.floor(sx), np.floor(sy)
+    a = (sx - fx).astype(_F32)[..., None]
+    b = (sy - fy).astype(_F32)[..., None]
+    x0 = np.clip(fx, -1, W).astype(np.int64) + 1
+    x1 = np.clip(fx + 1, -1, W).astype(np.int64) + 1
+    y0 = np.clip(fy, -1, H).astype(np.int64) + 1
+    y1 = np.clip(fy + 1, -1, H).astype(np.int64) + 1
+    if sx.shape[0] == 1 and sy.shape[1] == 1:
+        # the horizontal step once on each source row that output rows
+        # need, its columns as (row, x·C + channel) with np.take; then
+        # the vertical step on the rows each output row takes
+        need, pos = np.unique(np.concatenate([y0[:, 0], y1[:, 0]]), return_inverse=True)
+        rows = pad[need].reshape(len(need), -1)
+        chan = np.arange(C)
+        c0, c1 = ((c[0][:, None] * C + chan).ravel() for c in (x0, x1))
+        a = np.repeat(a.reshape(-1), C)[None, :]
+        horiz = _lerp_rows(a, np.take(rows, c0, axis=1), np.take(rows, c1, axis=1))
+        h = len(y0)
+        top, bottom = pos[:h], pos[h:]
+
+        def taps(i):
+            r, c = i // len(c0), i % len(c0)
+            return [rows[top[r], c0[c]], rows[top[r], c1[c]],
+                    rows[bottom[r], c0[c]], rows[bottom[r], c1[c]]]
+
+        out = _lerp(a, b.reshape(-1, 1), horiz[top], horiz[bottom], taps)
+        return out.reshape(h, -1, C)
+    flat = pad.reshape(-1, C)
+    w2 = W + 2
+    p = [flat[y * w2 + x] for y in (y0, y1) for x in (x0, x1)]
+    return _lerp(a, b, _lerp_rows(a, p[0], p[1]), _lerp_rows(a, p[2], p[3]),
+                 lambda i: [q.reshape(-1)[i] for q in p])
+
+
+def warp_affine(img: np.ndarray, M, dsize: tuple[int, int], border_value=0,
+                interpolation: str = "linear") -> np.ndarray:
+    """``cv2.warpAffine(img, M, dsize, flags=INTER_LINEAR|INTER_NEAREST,
+    borderValue=border_value)`` on uint8 (H, W) or (H, W, C): ``M`` is the
+    forward 2×3 map and ``dsize`` is (w, h), as OpenCV takes them.  Equal
+    to OpenCV 5.0.0 (x86-64, AVX-512 dispatch); nearest rounds the source
+    coordinate half to even.  Where the map has no rotation or shear (the
+    inverse's off-diagonal terms exactly 0), x depends on the column alone
+    and y on the row alone, and the same floats come from a separable
+    gather by rows and columns."""
+    out_2d = img.ndim == 2 or img.shape[2] == 1  # as OpenCV returns it
+    img = _as_hwc(img)
+    w, h = int(dsize[0]), int(dsize[1])
+    m = _invert_affine(M)
+    x = np.arange(w, dtype=_F32)[None, :]
+    y = np.arange(h, dtype=_F32)[:, None]
+    body = w - w % _WARP_BLOCK
+    if m[1] == 0 and m[3] == 0:
+        sx = _coords(m[0:3], x, np.zeros((1, 1), _F32), body)
+        sy = _coords(m[3:6], np.zeros((1, w), _F32), y, body)[:, :1]
+    else:
+        sx = _coords(m[0:3], x, y, body)
+        sy = _coords(m[3:6], x, y, body)
+    out = _sample(img, sx, sy, border_value, interpolation)
+    return out[..., 0] if out_2d else out
+
+
+def warp_perspective(img: np.ndarray, M, dsize: tuple[int, int], border_value=0,
+                     interpolation: str = "linear") -> np.ndarray:
+    """``cv2.warpPerspective`` on uint8, as ``warp_affine``: the 3×3 map
+    inverted in double, source x = X / W and y = Y / W in float32, each of
+    X, Y, W computed as ``warp_affine``'s coordinates."""
+    out_2d = img.ndim == 2 or img.shape[2] == 1  # as OpenCV returns it
+    img = _as_hwc(img)
+    w, h = int(dsize[0]), int(dsize[1])
+    m = _invert_3x3(M)
+    x = np.arange(w, dtype=_F32)[None, :]
+    y = np.arange(h, dtype=_F32)[:, None]
+    body = w - w % _WARP_BLOCK
+    X, Y, Wc = (_coords(m[i:i + 3], x, y, body) for i in (0, 3, 6))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sx, sy = X / Wc, Y / Wc
+    out = _sample(img, sx, sy, border_value, interpolation)
+    return out[..., 0] if out_2d else out
+
+
+def rotation_matrix_2d(center, angle: float, scale: float) -> np.ndarray:
+    """``cv2.getRotationMatrix2D``: the center rounded to float32 (a
+    Point2f), the angle in degrees turned to radians as ``angle·(π/180)``,
+    the rest in double."""
+    cx, cy = (float(_F32(c)) for c in center)
+    r = angle * (np.pi / 180)
+    alpha, beta = np.cos(r) * scale, np.sin(r) * scale
+    return np.array([[alpha, beta, (1 - alpha) * cx - beta * cy],
+                     [-beta, alpha, beta * cx + (1 - alpha) * cy]])
+
+
+def _area_taps(n_in: int, n_out: int):
+    """OpenCV's ``computeResizeAreaTab``: for each output position its
+    source indices and float32 weights, in OpenCV's order (the left
+    partial cell, the whole cells, the right partial cell), padded with
+    zero weights to a common count."""
+    scale = n_in / n_out
+    taps = []
+    for d in range(n_out):
+        f1 = d * scale
+        f2 = f1 + scale
+        cell = min(scale, n_in - f1)
+        s1, s2 = int(np.ceil(f1)), int(np.floor(f2))
+        s2 = min(s2, n_in - 1)
+        s1 = min(s1, s2)
+        t = []
+        if s1 - f1 > 1e-3:
+            t.append((s1 - 1, (s1 - f1) / cell))
+        t += [(s, 1.0 / cell) for s in range(s1, s2)]
+        if f2 - s2 > 1e-3:
+            t.append((s2, min(min(f2 - s2, 1.0), cell) / cell))
+        taps.append(t)
+    k = max(len(t) for t in taps)
+    idx = np.zeros((n_out, k), np.int64)
+    wgt = np.zeros((n_out, k), _F32)
+    for d, t in enumerate(taps):
+        for j, (s, w) in enumerate(t):
+            idx[d, j], wgt[d, j] = s, w
+    return idx, wgt
+
+
+def resize_area(img: np.ndarray, size: tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(..., INTER_AREA)`` on uint8 (H, W[, C]) to a size no
+    larger on either axis, ``size`` = (h, w).  Integer factors on both axes
+    average their cells as OpenCV does (2×2: ``(a + b + c + d + 2) >> 2``;
+    others: the integer sum times float32 1/area, rounded half to even);
+    other factors accumulate float32 cell weights, row by row, in
+    OpenCV's order, and round the sum half to even."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"resize_area takes uint8 images, not {img.dtype}")
+    H, W = img.shape[:2]
+    oh, ow = size
+    if oh > H or ow > W:
+        raise ValueError("resize_area only shrinks; use resize_linear to enlarge")
+    if (oh, ow) == (H, W):
+        return img.copy()
+    sy, sx = H / oh, W / ow
+    if sx == int(sx) and sy == int(sy):
+        fy, fx = int(sy), int(sx)
+        if (fy, fx) == (2, 2):
+            return resize_linear(img, size)
+        block = img[:oh * fy, :ow * fx].reshape((oh, fy, ow, fx) + img.shape[2:])
+        total = block.sum(axis=(1, 3), dtype=np.int32).astype(_F32)
+        total *= _F32(1.0) / _F32(fy * fx)
+        return np.rint(total).astype(np.uint8)
+    xi, xw = _area_taps(W, ow)
+    yi, yw = _area_taps(H, oh)
+    src = img.reshape(H, W, -1)
+    rows = np.zeros((H, ow, src.shape[2]), _F32)
+    for j in range(xi.shape[1]):  # buf[d] += S[s]·alpha, rounded each step
+        rows += src[:, xi[:, j]] * xw[:, j, None]
+    out = rows[yi[:, 0]] * yw[:, 0, None, None]
+    for j in range(1, yi.shape[1]):  # sum += beta·buf
+        out += rows[yi[:, j]] * yw[:, j, None, None]
+    return np.rint(out).astype(np.uint8).reshape((oh, ow) + img.shape[2:])
+
+
+# OpenCV's bit-exact Gaussian kernels for sigma = 0 (``small_gaussian_tab``)
+# as 8-bit fixed point
+_GAUSS_FIXED = {1: [256], 3: [64, 128, 64], 5: [16, 64, 96, 64, 16],
+                7: [8, 28, 56, 72, 56, 28, 8]}
+
+
+def _reflect101(n: int, r: int) -> np.ndarray:
+    i = np.arange(-r, n + r)
+    if n == 1:
+        return np.zeros_like(i)
+    period = 2 * (n - 1)
+    i = np.abs(i) % period
+    return np.where(i >= n, period - i, i)
+
+
+def gaussian_blur(img: np.ndarray, ksize: int = 5) -> np.ndarray:
+    """``cv2.GaussianBlur(img, (k, k), 0)`` on uint8 for k in 1, 3, 5, 7:
+    OpenCV's fixed-point path (kernel weights in 1/256, the horizontal sums
+    exact, the vertical sums exact in 1/65536, rounded half up) with
+    BORDER_REFLECT_101."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"gaussian_blur takes uint8 images, not {img.dtype}")
+    if ksize not in _GAUSS_FIXED:
+        raise ValueError(f"gaussian_blur supports ksize 1, 3, 5, 7, not {ksize}")
+    k = np.asarray(_GAUSS_FIXED[ksize], np.int32)
+    r = ksize // 2
+    H, W = img.shape[:2]
+    src = img.astype(np.int32)
+    cols = src[:, _reflect101(W, r)]
+    horiz = sum(k[j] * cols[:, j:j + W] for j in range(ksize))
+    rows = horiz[_reflect101(H, r)]
+    total = sum(k[j] * rows[j:j + H] for j in range(ksize))
+    return ((total + (1 << 15)) >> 16).astype(np.uint8)
+
+
+def _odd_even_merge_sort(n: int):
+    """Batcher's odd-even merge sort network on ``n`` (a power of 2)
+    positions, as (i, j) compare-exchanges in order (min to i)."""
+    pairs = []
+    p = 1
+    while p < n:
+        k = p
+        while k >= 1:
+            for j in range(k % p, n - k, 2 * k):
+                for i in range(min(k, n - j - k)):
+                    if (i + j) // (2 * p) == (i + j + k) // (2 * p):
+                        pairs.append((i + j, i + j + k))
+            k //= 2
+        p *= 2
+    return pairs
+
+
+def _median_network(count: int):
+    """The compare-exchanges of a sort of ``count`` values that the middle
+    one depends on: Batcher's network on the next power of two, the pads
+    taken as +inf (their exchanges relabel or do nothing), pruned back
+    from the middle position.  Returns (steps, inputs): each step is
+    (i, j, need_min, need_max), and the median ends at position
+    ``count // 2``."""
+    n = 1 << (count - 1).bit_length()
+    inf = set(range(count, n))
+    steps = []
+    for i, j in _odd_even_merge_sort(n):
+        if j in inf:
+            continue  # min(x, inf) = x stays; inf stays at j
+        if i in inf:  # the finite value moves down, inf up: relabel
+            inf.discard(i)
+            inf.add(j)
+            steps.append((i, j, "swap"))
+            continue
+        steps.append((i, j, "cmp"))
+    needed, kept = {count // 2}, []
+    for i, j, kind in reversed(steps):
+        if i not in needed and j not in needed:
+            continue
+        if kind == "swap":  # position i takes j's value, j becomes inf
+            if i in needed:
+                needed.discard(i)
+                needed.add(j)
+            kept.append((i, j, kind, False, False))
+            continue
+        need_min, need_max = i in needed, j in needed
+        needed |= {i, j}
+        kept.append((i, j, kind, need_min, need_max))
+    return kept[::-1]
+
+
+_MEDIAN_NETWORKS = {k: _median_network(k * k) for k in (3, 5)}
+
+
+def median_blur(img: np.ndarray, ksize: int = 5) -> np.ndarray:
+    """``cv2.medianBlur`` on uint8 for ksize 3 or 5: the median of each
+    ksize × ksize window with BORDER_REPLICATE, by a pruned sorting network
+    of elementwise minima and maxima over the window's shifted views."""
+    if img.dtype != np.uint8:
+        raise TypeError(f"median_blur takes uint8 images, not {img.dtype}")
+    if ksize not in _MEDIAN_NETWORKS:
+        raise ValueError(f"median_blur supports ksize 3 and 5, not {ksize}")
+    r = ksize // 2
+    H, W = img.shape[:2]
+    yi = np.clip(np.arange(-r, H + r), 0, H - 1)
+    xi = np.clip(np.arange(-r, W + r), 0, W - 1)
+    pad = img[yi][:, xi]
+    vals = {dy * ksize + dx: pad[dy:dy + H, dx:dx + W]
+            for dy in range(ksize) for dx in range(ksize)}
+    for i, j, kind, need_min, need_max in _MEDIAN_NETWORKS[ksize]:
+        if kind == "swap":
+            vals[i], vals[j] = vals.get(j), None
+            continue
+        a, b = vals[i], vals[j]
+        vals[i] = np.minimum(a, b) if need_min else None
+        vals[j] = np.maximum(a, b) if need_max else None
+    return np.ascontiguousarray(vals[ksize * ksize // 2])
+
+
+def bgr_to_gray(img: np.ndarray) -> np.ndarray:
+    """``COLOR_BGR2GRAY`` on uint8 as OpenCV 5.0.0 computes it: 15-bit
+    integer weights (3735, 19235, 9798), rounded half up; equal over all
+    2^24 colours (OpenCV 4's 14-bit weights are not)."""
+    b, g, r = (img[..., i].astype(np.int32) for i in range(3))
+    return ((b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15).astype(np.uint8)
+
+
+def equalize_hist(img: np.ndarray) -> np.ndarray:
+    """``cv2.equalizeHist`` on a uint8 single-channel image: the lookup
+    table ``round(cumsum · 255 / (N − h[first]))`` in float32 from the
+    first occupied bin on."""
+    hist = np.bincount(img.ravel(), minlength=256)
+    first = int(np.flatnonzero(hist)[0])
+    total = img.size
+    if hist[first] == total:
+        return np.full_like(img, first)
+    scale = _F32(255.0) / _F32(total - hist[first])
+    lut = np.zeros(256, np.uint8)
+    csum = np.cumsum(hist[first + 1:])
+    lut[first + 1:] = np.clip(np.rint(csum.astype(_F32) * scale), 0, 255)
+    return lut[img]
+
+
+def clahe(img: np.ndarray, clip_limit: float = 40.0,
+          tile_grid: tuple[int, int] = (8, 8)) -> np.ndarray:
+    """``cv2.createCLAHE(clip_limit, tile_grid).apply`` on a uint8 (H, W)
+    image: each tile's histogram (the image padded with BORDER_REFLECT_101
+    to a whole number of tiles) clipped at ``int(clip·area/256)`` with the
+    excess spread as OpenCV spreads it, its float32 cumulative lookup
+    table, then the bilinear blend of the four nearest tiles' tables in
+    float32, rounded half to even.  Where either side does not divide by
+    its tile count, OpenCV pads both sides by ``tiles − side mod tiles``
+    (a whole tile on a side that divides)."""
+    if img.dtype != np.uint8 or img.ndim != 2:
+        raise TypeError("clahe takes a uint8 (H, W) image")
+    tx, ty = int(tile_grid[0]), int(tile_grid[1])
+    H, W = img.shape
+    src = img
+    if H % ty or W % tx:
+        # OpenCV pads both axes then, an axis that divides by a whole tile
+        src = img[_reflect101(H, ty)[ty:2 * ty + H - H % ty]]
+        src = src[:, _reflect101(W, tx)[tx:2 * tx + W - W % tx]]
+    th, tw = src.shape[0] // ty, src.shape[1] // tx
+    area = th * tw
+    tiles = src[:ty * th, :tx * tw].reshape(ty, th, tx, tw).transpose(0, 2, 1, 3)
+    tiles = tiles.reshape(ty * tx, area)
+    offsets = (np.arange(ty * tx) * 256)[:, None]
+    hist = np.bincount((tiles + offsets).ravel(),
+                       minlength=ty * tx * 256).reshape(ty * tx, 256)
+    if clip_limit > 0:
+        limit = max(int(clip_limit * area / 256), 1)
+        clipped = np.maximum(hist - limit, 0).sum(1)
+        hist = np.minimum(hist, limit) + (clipped // 256)[:, None]
+        residual = clipped % 256
+        for t in np.flatnonzero(residual):
+            step = max(256 // int(residual[t]), 1)
+            hist[t, np.arange(0, 256, step)[:residual[t]]] += 1
+    scale = _F32(255.0) / _F32(area)
+    lut = np.clip(np.rint(np.cumsum(hist, 1).astype(_F32) * scale), 0, 255)
+    lut = lut.astype(_F32).reshape(ty, tx, 256)
+
+    def axis(n, tile, tiles_n):
+        f = np.arange(n, dtype=_F32) * (_F32(1.0) / _F32(tile)) - _F32(0.5)
+        i1 = np.floor(f).astype(np.int64)
+        frac = (f - i1).astype(_F32)
+        return np.maximum(i1, 0), np.minimum(i1 + 1, tiles_n - 1), frac
+
+    y1, y2, ya = axis(H, th, ty)
+    x1, x2, xa = axis(W, tw, tx)
+    xa1, ya1 = _F32(1) - xa, (_F32(1) - ya)[:, None]
+    ya = ya[:, None]
+    v = img
+    left = lut[y1[:, None], x1[None, :], v] * xa1 + lut[y1[:, None], x2[None, :], v] * xa
+    right = lut[y2[:, None], x1[None, :], v] * xa1 + lut[y2[:, None], x2[None, :], v] * xa
+    return np.clip(np.rint(left * ya1 + right * ya), 0, 255).astype(np.uint8)
+
+
+# OpenCV's 8-bit Lab conversions (sRGB, D65) run on integer tables.  The
+# tables here are built in double, where OpenCV builds them in soft float:
+# BGR2Lab differs from OpenCV 5.0.0 by 1 in a and b on 3.3e-5 of all 2^24
+# colours; Lab2BGR, whose tables this copy reconstructs less closely,
+# differs on 1.9 % of all 2^24 Lab triples, by 1 (2 on 32 triples).
+_D65 = np.array([0.950456, 1.0, 1.088754])
+_SRGB2XYZ = np.array([[0.412453, 0.357580, 0.180423],
+                      [0.212671, 0.715160, 0.072169],
+                      [0.019334, 0.119193, 0.950227]])
+_XYZ2SRGB = np.array([[3.240479, -1.53715, -0.498535],
+                      [-0.969256, 1.875991, 0.041556],
+                      [0.055648, -0.204043, 1.057311]])
+_LAB_SHIFT, _LAB_SHIFT2, _LAB_BASE = 12, 15, 1 << 14
+
+
+def _lab_tables():
+    x = np.arange(256) / 255.0
+    gamma = np.rint(255 * 8 * np.where(x <= 0.04045, x / 12.92,
+                                       ((x + 0.055) / 1.055) ** 2.4)).astype(np.int64)
+    c = np.arange(256 * 3 // 2 * 8) / (255.0 * 8)
+    cbrt = np.rint((1 << _LAB_SHIFT2) * np.where(c < 216 / 24389, c * (841 / 108) + 16 / 116,
+                                                  np.cbrt(c))).astype(np.int64)
+    to_xyz = np.rint((1 << _LAB_SHIFT) * _SRGB2XYZ / _D65[:, None]).astype(np.int64)
+    L = np.arange(256) * 100 / 255
+    small = L <= 8
+    y = np.where(small, L * 27 / 24389, ((L + 16) / 116) ** 3)
+    fy = np.where(small, y * (841 / 108) + 16 / 116, (L + 16) / 116)
+    y_tab = np.rint(y * _LAB_BASE).astype(np.int64)
+    fy_tab = np.rint(fy * _LAB_BASE).astype(np.int64)
+    to_rgb = np.rint((1 << _LAB_SHIFT) * _XYZ2SRGB * _D65[None, :]).astype(np.int64)
+    g = np.arange(4096) / 4096
+    inv_gamma = np.rint(255 * np.where(g <= 0.0031308, 12.92 * g,
+                                       1.055 * g ** (1 / 2.4) - 0.055)).astype(np.int64)
+    return gamma, cbrt, to_xyz, y_tab, fy_tab, to_rgb, inv_gamma
+
+
+(_GAMMA_TAB, _CBRT_TAB, _TO_XYZ, _Y_TAB, _FY_TAB, _TO_RGB,
+ _INV_GAMMA_TAB) = _lab_tables()
+
+
+def _descale(v, n):
+    return (v + (1 << (n - 1))) >> n
+
+
+def bgr_to_lab(img: np.ndarray) -> np.ndarray:
+    """``COLOR_BGR2LAB`` on uint8 (L·255/100, a + 128, b + 128), OpenCV's
+    integer path: sRGB gamma table, 12-bit XYZ weights, cube-root table."""
+    rgb = [_GAMMA_TAB[img[..., k]] for k in (2, 1, 0)]
+    fx, fy, fz = (_CBRT_TAB[_descale(sum(w * c for w, c in zip(row, rgb)), _LAB_SHIFT)]
+                  for row in _TO_XYZ)
+    one = 1 << _LAB_SHIFT2
+    L = _descale((116 * 255 + 50) // 100 * fy - (16 * 255 * one + 50) // 100, _LAB_SHIFT2)
+    a = _descale(500 * (fx - fy) + 128 * one, _LAB_SHIFT2)
+    b = _descale(200 * (fy - fz) + 128 * one, _LAB_SHIFT2)
+    return np.clip(np.stack([L, a, b], -1), 0, 255).astype(np.uint8)
+
+
+def lab_to_bgr(lab: np.ndarray) -> np.ndarray:
+    """``COLOR_LAB2BGR`` on uint8, after OpenCV's integer path: Y and f(Y)
+    tables in 1/2^14, a/500 and b/200 by integer division, the inverse of
+    f, 12-bit sRGB weights, a 4096-entry inverse gamma table."""
+    L, a, b = (lab[..., k].astype(np.int64) for k in range(3))
+    y, fy = _Y_TAB[L], _FY_TAB[L]
+    base = _LAB_BASE
+
+    def f_inv(t):
+        t = t / base
+        return np.rint(np.where(t < 6 / 29, (t - 16 / 116) * (108 / 841), t ** 3)
+                       * base).astype(np.int64)
+
+    x = f_inv(fy + a * base // 500 - 128 * base // 500)
+    z = f_inv(fy - (b * base // 200 - 128 * base // 200))
+    shift = _LAB_SHIFT + 2
+    out = [_INV_GAMMA_TAB[np.clip(_descale(r[0] * x + r[1] * y + r[2] * z, shift), 0, 4095)]
+           for r in _TO_RGB]
+    return np.stack(out[::-1], -1).astype(np.uint8)

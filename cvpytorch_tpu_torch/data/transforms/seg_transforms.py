@@ -8,8 +8,10 @@ OpenCV's uint8 resize and HSV conversions in numpy, and draw from Python's
 ``random`` in the same order, so a seeded run gives the same samples.
 ``RandomScaleCrop`` resizes only the window it crops (the crop's corner
 depends on the resized size alone), which is the crop of the full resize.
-``RandomRotate`` and ``RandAugment`` (OpenCV's warp, PIL's operations)
-are used by no config of the port yet; naming one raises a ``KeyError``.
+``RandomRotate`` warps the image bilinear and the mask nearest on
+``imgproc.warp_affine``.  ``RandAugment`` (PIL's operations in the JAX
+package) is used by no config and not ported; naming it raises a
+``KeyError``.
 """
 from __future__ import annotations
 
@@ -17,7 +19,8 @@ import random
 
 import numpy as np
 
-from .imgproc import bgr_to_hsv, hsv_to_bgr, resize_linear, resize_nearest
+from .imgproc import (bgr_to_hsv, hsv_to_bgr, resize_linear, resize_nearest,
+                      rotation_matrix_2d, warp_affine)
 
 
 def _pad(arr: np.ndarray, ph: int, pw: int, value) -> np.ndarray:
@@ -191,6 +194,30 @@ class ToTensor:
         return sample
 
 
+class RandomRotate:
+    """With probability ``p``, a rotation by an angle drawn from
+    ``degrees`` (a pair, or ±degrees) about the image centre: the image
+    bilinear with a black border, the mask nearest with ``ignore_label``."""
+
+    def __init__(self, degrees=10, p=0.5, ignore_label=255):
+        self.degrees = degrees if isinstance(degrees, (list, tuple)) else (-degrees, degrees)
+        self.p = p
+        self.ignore_label = ignore_label
+
+    def __call__(self, sample):
+        if random.random() >= self.p:
+            return sample
+        img = sample["image"]
+        h, w = img.shape[:2]
+        angle = random.uniform(*self.degrees)
+        m = rotation_matrix_2d((w / 2, h / 2), angle, 1.0)
+        sample["image"] = warp_affine(img, m, (w, h))
+        if sample.get("target") is not None:
+            sample["target"] = warp_affine(np.asarray(sample["target"]), m, (w, h),
+                                           self.ignore_label, "nearest")
+        return sample
+
+
 class Normalize:
     def __init__(self, mean, std):
         self.mean = np.asarray(mean, dtype=np.float32)
@@ -201,15 +228,12 @@ class Normalize:
         return sample
 
 
-NOT_PORTED = ("RandomRotate", "RandAugment")
-
-
 class _Transforms(dict):
     def __missing__(self, name):
-        if name in NOT_PORTED:
+        if name == "RandAugment":
             raise KeyError(
-                f"{name} (OpenCV's warp or PIL's operations in the JAX package) "
-                "is not ported yet (ROADMAP, Queue 1 item 6)")
+                "RandAugment (PIL's operations in the JAX package) is not ported "
+                "yet (ROADMAP, Queue 1 item 6)")
         raise KeyError(f"no segmentation transform {name!r} in the port")
 
 
@@ -220,6 +244,7 @@ SEG_TRANSFORMS = _Transforms({
     "RandomScaleResize": RandomScaleResize,
     "RandomCrop": RandomCrop,
     "Pad": Pad,
+    "RandomRotate": RandomRotate,
     "PhotoMetricDistortion": PhotoMetricDistortion,
     "ColorJitter": ColorJitter,
     "RGB2BGR": RGB2BGR,

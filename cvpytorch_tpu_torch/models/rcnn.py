@@ -203,19 +203,29 @@ class MaskRCNN(nn.Module):
         obj_logits, reg_deltas = self.rpn(feats)
         obj_logits, reg_deltas = obj_logits.float(), reg_deltas.float()
         anchors = make_anchors([f.shape[-2:] for f in feats], device=images.device)
-        boxes = decode_deltas(reg_deltas, anchors[None])
-        h, w = images.shape[1:3]
-        boxes = clip_boxes(boxes, h, w)
-        k = min(self.pre_nms_topk, obj_logits.shape[1])
-        # proposals are constants for the ROI heads; the NMS kernel has no
-        # gradient either
-        top_s, top_i = top_k(torch.sigmoid(obj_logits.detach()), k)
-        top_b = _rows(boxes.detach(), top_i)
-        dets = batched_nms(top_b, top_s, torch.zeros_like(top_i),
+        scores, boxes = self._rpn_candidates(obj_logits, reg_deltas, anchors,
+                                             images.shape[1:3])
+        proposals, valid = self._select_proposals(scores, boxes)
+        return obj_logits, reg_deltas, anchors, proposals, valid
+
+    @staticmethod
+    def _rpn_candidates(obj_logits, reg_deltas, anchors, size):
+        """Every anchor's objectness and its decoded box clipped to the
+        (h, w) frame.  Proposals are constants for the ROI heads; the NMS
+        kernel has no gradient either."""
+        boxes = clip_boxes(decode_deltas(reg_deltas, anchors[None]), *size)
+        return torch.sigmoid(obj_logits.detach()), boxes.detach()
+
+    def _select_proposals(self, scores, boxes):
+        """The pre-NMS top-k of the candidates, suppressed class-agnostically
+        through the NMS kernel: (B, num_proposals, 4) boxes and their mask."""
+        k = min(self.pre_nms_topk, scores.shape[1])
+        top_s, top_i = top_k(scores, k)
+        dets = batched_nms(_rows(boxes, top_i), top_s, torch.zeros_like(top_i),
                            max_det=self.num_proposals,
                            iou_threshold=self.rpn_nms_thresh,
                            score_threshold=0.0, max_nms=k, class_aware=False)
-        return obj_logits, reg_deltas, anchors, dets["boxes"], dets["valid"]
+        return dets["boxes"], dets["valid"]
 
     def _rpn_loss(self, obj_logits, reg_deltas, anchors, targets):
         gt, gv = targets["boxes"].float(), targets["valid"]

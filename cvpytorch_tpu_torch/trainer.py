@@ -270,6 +270,10 @@ class Trainer:
         loss_logger = LossLogger()
         for batch in self.dataloaders["val"]:
             targets_host = batch["target"]
+            if isinstance(targets_host, dict):
+                # the epoch reaches the val targets too, so that a loss
+                # scheduled by epoch reports on the train step's branch
+                batch = {**batch, "target": {**targets_host, "epoch": epoch}}
             loss_dict, preds = eval_step(state, map_arrays(
                 batch, lambda a: torch.from_numpy(a).to(self.device)))
             loss_logger.update({k: float(v) for k, v in loss_dict.items()})

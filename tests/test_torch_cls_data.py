@@ -43,6 +43,8 @@ TRANSFORMS = [
     ("RGB2BGR", {}),
     ("ToTensor", {}),
     ("Normalize", {"mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0.225]}),
+    ("RandomRotation", {"degrees": 10}),
+    ("RandomRotation", {"degrees": [-45, 30], "p": 1.0}),
 ]
 
 
@@ -72,8 +74,17 @@ def test_transform_equals_jax_under_the_same_seed(name, kwargs, seed):
 
 
 def test_random_rotation_raises_naming_the_roadmap():
-    with pytest.raises(KeyError, match="Queue 1 item 3"):
-        build_transforms("CLS_CLASSES", {"RandomRotation": {"degrees": 10}})
+    """``RandomRotation`` no longer raises: it builds from a config and,
+    under one ``random`` seed, equals the JAX transform (OpenCV's
+    ``warpAffine``)."""
+    for seed in range(4):
+        sample = cls_sample(seed)
+        random.seed(seed)
+        want = jax_cls.RandomRotation(degrees=10, p=0.5)(copy.deepcopy(sample))
+        random.seed(seed)
+        got = build_transforms("CLS_CLASSES", {"RandomRotation": {"degrees": 10}})(
+            copy.deepcopy(sample))
+        np.testing.assert_array_equal(got["image"], want["image"])
 
 
 @pytest.mark.parametrize("stage", ["TRAIN", "VAL"])

@@ -17,7 +17,6 @@ import os
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import cvpytorch_tpu.data.datasets  # noqa: F401  (registers the JAX datasets)
@@ -166,6 +165,8 @@ def test_cls_batches_stack_scalar_labels(tmp_path):
     batch = next(iter(trainer.dataloaders["val"]))
     assert batch["image"].shape == (4, 32, 32, 3) and batch["image"].dtype == np.float32
     assert batch["target"].shape == (4,) and batch["target"].dtype == np.int32
-    with pytest.raises(KeyError, match="Queue 1 item 3"):
-        trainer.cfg.DATASET.TRAIN.TRANSFORMS["RandomRotation"] = {}
-        Trainer(trainer.cfg, device="cpu")
+    # RandomRotation (OpenCV's warp in the JAX package) builds in a trainer
+    trainer.cfg.DATASET.TRAIN.TRANSFORMS["RandomRotation"] = {}
+    rotated = Trainer(trainer.cfg, device="cpu")
+    names = [type(t).__name__ for t in rotated.datasets["train"].transform.transforms]
+    assert names[-1] == "RandomRotation"

@@ -1,0 +1,77 @@
+"""Which ``conf/*.yml`` the port builds: each config's TRAIN and VAL
+transform pipelines and its model, as written (weights random, nothing
+run).  The test holds the configs that build now to building; run as a
+script (``python -m tests.test_torch_config_census``) it prints the
+census, each config that does not build with the first error it meets,
+and whether its dataset class is in the port."""
+import glob
+import os
+import sys
+
+import pytest
+import torch
+
+from cvpytorch_tpu_torch.config import CommonConfiguration, load_dictionary
+from cvpytorch_tpu_torch.data import datasets  # noqa: F401  (registers the datasets)
+from cvpytorch_tpu_torch.data.transforms import build_transforms
+from cvpytorch_tpu_torch.infer import build_model
+from cvpytorch_tpu_torch.registry import DATASETS
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(glob.glob(os.path.join(ROOT, "conf", "*.yml")))
+
+# the configs the host detection transforms let build (every YOLOv5
+# config; coco_nanodetplus_m's RandomAffine), and one of each family before
+NOW_BUILD = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "visdrone_yolov5",
+             "coco_nanodetplus_m", "coco_nanodetplus", "mini-imagenet", "cityscapes_unet",
+             "coco_maskrcnn"]
+
+
+def build(path):
+    """Builds the config's pipelines and model; returns None, or the
+    first error as a string."""
+    try:
+        cfg = CommonConfiguration.from_file(path)
+        data = cfg.DATASET
+        name = data.DICTIONARY_NAME or "CLS_CLASSES"
+        dictionary = [{f"c{i}": 1.0} for i in range(4)]
+        if data.DICTIONARY and os.path.exists(os.path.join(ROOT, data.DICTIONARY)):
+            _, dictionary = load_dictionary(os.path.join(ROOT, data.DICTIONARY), name)
+        for stage in ("TRAIN", "VAL"):
+            if data.get(stage) is not None:
+                build_transforms(name, data.get(stage).get("TRANSFORMS"), stage.lower())
+        with torch.device("meta"):
+            build_model(cfg, dictionary)
+    except Exception as e:  # noqa: BLE001  (the census reports every kind)
+        return f"{type(e).__name__}: {str(e).splitlines()[0] if str(e) else ''}"[:160]
+    return None
+
+
+def has_dataset(path):
+    try:
+        DATASETS.get(CommonConfiguration.from_file(path).DATASET.CLASS)
+    except Exception:  # noqa: BLE001
+        return False
+    return True
+
+
+@pytest.mark.parametrize("name", NOW_BUILD)
+def test_config_builds_in_the_port(name):
+    assert build(os.path.join(ROOT, "conf", f"{name}.yml")) is None
+
+
+def main():
+    results = {os.path.basename(p)[:-4]: (build(p), has_dataset(p)) for p in CONFIGS}
+    ok = sorted(n for n, (err, _) in results.items() if err is None)
+    print(f"{len(ok)} of {len(results)} configs build their TRAIN and VAL transforms "
+          f"and model in the port; {sum(results[n][1] for n in ok)} of these also "
+          "have their dataset class")
+    for n in ok:
+        print(f"  builds: {n}{'' if results[n][1] else '  (dataset class not ported)'}")
+    for n, (err, _) in sorted(results.items()):
+        if err is not None:
+            print(f"  fails: {n}: {err}")
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -98,7 +98,8 @@ def test_nanodetplus_pipelines_equal_jax(stage):
 
 
 def test_color_hsv_is_no_longer_refused():
-    assert "ColorHSV" not in det_transforms.NEEDS_OPENCV
+    assert not hasattr(det_transforms, "NEEDS_OPENCV")  # no det transform is refused
+    assert det_transforms.DET_TRANSFORMS["ColorHSV"] is det_transforms.ColorHSV
 
 
 # -- Trainer.run() and infer.main ----------------------------------------------------

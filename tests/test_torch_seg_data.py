@@ -127,6 +127,8 @@ TRANSFORMS = [
     ("RGB2BGR", {}),
     ("ToTensor", {}),
     ("Normalize", {"mean": [0.485, 0.456, 0.406], "std": [0.229, 0.224, 0.225]}),
+    ("RandomRotate", {"degrees": 30, "p": 1.0}),  # image bilinear, mask nearest
+    ("RandomRotate", {"degrees": [-10, 10], "p": 0.5, "ignore_label": 0}),
 ]
 
 
@@ -212,9 +214,11 @@ def test_cityscapes_deeplabv3_pipeline_builds():
 
 
 def test_unported_transforms_name_the_roadmap():
-    for name in ("RandomRotate", "RandAugment"):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            build_transforms("SEG_CLASSES", {name: {}}, "train")
+    """``RandAugment`` (PIL's operations) is the one seg transform not
+    ported; ``RandomRotate`` is (``test_transform_equals_jax_under_the_same_seed``)."""
+    with pytest.raises(KeyError, match="ROADMAP"):
+        build_transforms("SEG_CLASSES", {"RandAugment": {}}, "train")
+    assert build_transforms("SEG_CLASSES", {"RandomRotate": {}}, "train").transforms
 
 
 # -- datasets ---------------------------------------------------------------------

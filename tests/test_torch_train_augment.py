@@ -7,6 +7,7 @@ the same key splits as ``cvpytorch_tpu/ops/augment.py`` makes them.  Then
 the collates, ``LOAD_NUM`` groups, the host flip, the loader's order and
 the device prefetcher (on the CPU).
 """
+import copy
 import random
 import threading
 
@@ -18,6 +19,7 @@ import torch
 
 import cvpytorch_tpu.data.datasets  # noqa: F401  (registers the JAX datasets)
 from cvpytorch_tpu.data import loader as jax_loader
+from cvpytorch_tpu.data.transforms import build_transforms as jax_build_transforms
 from cvpytorch_tpu.data.transforms import det_transforms as jdt
 from cvpytorch_tpu.ops import augment as jaug
 from cvpytorch_tpu_torch.config import CommonConfiguration
@@ -242,10 +244,43 @@ def test_host_flip_matches_jax():
         assert np.array_equal(got["target"]["boxes"], want["target"]["boxes"])
 
 
-def test_opencv_transforms_raise_naming_the_roadmap():
-    for name in tdt.NEEDS_OPENCV:
-        with pytest.raises(KeyError, match="ROADMAP"):
-            build_transforms("DET_CLASSES", {name: {}})
+# keywords for each JAX DET_TRANSFORMS name: a draw where the transform
+# has one (p = 1), small mosaic tiles
+DET_KWARGS = {
+    "Resize": {"size": [48, 64]},
+    "RandomAffineWithMosaic": {"size": [32, 32], "degrees": 5.0, "shear": 2.0},
+    "Normalize": {"mean": [0.5, 0.4, 0.3], "std": [0.2, 0.3, 0.4]},
+    **{name: {"p": 1.0} for name in (
+        "RandomHorizontalFlip", "ColorHSV", "RandomAffine", "GaussianBlur", "MedianBlur",
+        "RandomGrayscale", "RandomGamma", "EqualizeHist", "CLAHE", "RandomFog",
+        "Cutout", "MixUp")},
+}
+
+
+@pytest.mark.parametrize("name", sorted(jdt.DET_TRANSFORMS))
+def test_opencv_transforms_raise_naming_the_roadmap(name):
+    """No JAX detection transform is refused any more: each name builds
+    from a config in the port and, under one seed of ``random`` and of
+    ``np.random``, equals the JAX transform (the CLAHE's Lab round trip
+    to ±1, as ``tests/test_torch_det_host_aug.py`` measures it)."""
+    kwargs = DET_KWARGS.get(name, {})
+    group = samples(4, seed=len(name))
+    sample = group if name == "RandomAffineWithMosaic" else group[0]
+    if name == "Normalize":
+        sample["image"] = sample["image"].astype(np.float32) / 255
+    if name == "MixUp":  # a LOAD_NUM = 2 group
+        sample = group[:2]
+    outputs = []
+    for build in (lambda: jax_build_transforms("DET_CLASSES", {name: kwargs}),
+                  lambda: build_transforms("DET_CLASSES", {name: kwargs})):
+        random.seed(3)
+        np.random.seed(3)
+        outputs.append(build()(copy.deepcopy(sample)))
+    want, got = outputs
+    d = np.abs(got["image"].astype(np.float64) - want["image"])
+    assert d.max() <= (1 if name == "CLAHE" else 0)
+    for key in want["target"]:
+        np.testing.assert_array_equal(got["target"][key], want["target"][key], err_msg=key)
 
 
 class Numbers:
