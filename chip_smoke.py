@@ -6,6 +6,17 @@
 1. Builds every kernel of the serving and training paths from
    ``cvpytorch_tpu_torch/csrc`` with nvcc (sm_90a) and prints the build time
    and what ``-Xptxas -v`` reports (registers, shared memory, spills).
+1b. Image decode phase (host only): builds the host C library
+   (``cvpytorch_tpu_torch/native``: JPEG decoder, PNG row unfilter, COCO
+   RLE codec and matcher) and prints its build time; decodes every JPEG
+   fixture of ``tests/data/torch_jpeg`` and holds its pixels to the sha256
+   of ``cv2.imread``'s in the manifest (the card's machine has no OpenCV);
+   times the decode of the 640×427 4:2:0 fixture on one thread and on 8,
+   and the PNG decode of a 1024×2048 RGB frame of Sub, Average or Paeth
+   rows with its unfilter in C beside the numpy plain version's.  Then a
+   COCO-format directory is written from copies of the fixtures (128 train
+   and 64 val images, seeded boxes and polygons, a crowd and a non-crowd
+   RLE) for the phases below.
 2. Kernel timing: ``nms_keep`` and ``nms_keep_plain`` by CUDA events at
    K = 1024, B in {32, 1}, and on a dense input.
 3. Path phase: full-width YOLOv5-s (80 classes) with seeded random
@@ -46,7 +57,11 @@
    eval mode the FPN and RPN maps within 1e-4; from the CPU's RPN maps the
    candidates' scores within 1e-6 and boxes within 1e-2 px, and from the
    CPU's candidates the proposals equal bit for bit; the losses of a
-   train-mode forward within 1e-3 relative).
+   train-mode forward within 1e-3 relative).  Then ``conf/coco_maskrcnn.yml``'s
+   ``CocoSegmentation`` VAL stage as written on 16 of the COCO JPEG files:
+   one ``val_epoch`` of the trained model with bbox + segm through the host
+   C matcher and RLE IoU (finite metrics, 2 ``nms_keep`` launches), and the
+   evaluator's share of its wall.
 6. Segmentation phases: ``conf/cityscapes_deeplabv3plus.yml`` (ResNet-50
    at output stride 8, separable ASPP, low-level fusion, FCN aux head)
    and ``conf/cityscapes_unet.yml``, each as written (19 classes, AMP,
@@ -57,9 +72,9 @@
    through ``infer.main`` as palette PNGs checked against the predict
    step's argmax; ``nms_keep`` is not launched on these paths.  Times the
    AMP and f32 train steps at batch 8 (CUDA events, peak memory), the
-   val and predict steps; for DeepLabV3+ also the host's loader rate,
-   each transform's time on one item and the PNG decoder on a
-   1024×2048 RGB frame, and R50 at 512×1024, B = 1, f32 on the card
+   val and predict steps; for DeepLabV3+ also the host's loader rate and
+   each transform's time on one item (the PNG decoder is timed in 1b),
+   and R50 at 512×1024, B = 1, f32 on the card
    against the CPU (eval-mode logits within 1e-4 of their largest value,
    argmax equal on ≥ 99.9 % of the pixels, train-mode losses within
    1e-3 relative).
@@ -72,7 +87,10 @@
    ``nms_keep`` launches; the AMP and f32 train steps at batch 64 and at
    bench.py's batch 256, the val and predict steps, peak memory; each
    host transform's time and the loader rate; MobileNetV2 at B = 2, f32,
-   card vs CPU (logits within 1e-4 of their largest value, loss 1e-4).
+   card vs CPU (logits within 1e-4 of their largest value, loss 1e-4);
+   then ``MiniImageNetClassification`` over an ``INDICES`` file of the JPEG
+   fixtures (64 items) through the config's train transforms and loader:
+   the loader's img/s.
 8. NanoDet-Plus phase: ``conf/coco_nanodetplus.yml`` as written
    (ShuffleNetV2 x1.0, GhostPAN, 80 classes, letterbox 320, flip,
    ColorHSV, AdamW, cosine, warmup, AMP, EMA, batch 96) on
@@ -88,17 +106,20 @@
    assignment equal, losses 1e-4).
 8b. YOLOv5 host-augmentation phase (``yolov5_host_aug``), after the
    other phases:
-   ``conf/coco_yolov5_s.yml`` as written, its host pipeline included
-   (mosaic + affine on LOAD_NUM = 4 groups, flip, ColorHSV, Gaussian and
-   median blur, grayscale, ToCXCYWH, ToTensor, Normalize on ``imgproc``,
-   no OpenCV), on SyntheticDetection at 427×640: ``Trainer.run()`` for
-   one epoch of 4 steps at batch 32 with no ``DEVICE_AUG``, bbox
-   validation of 64 images (``nms_keep`` once per val batch), the
-   checkpoint served through ``infer.main`` (once more); prints the train
-   epoch wall and fed rate beside the ``DEVICE_AUG`` phase's, the loader
-   rate, each transform's one-thread ms per item (the three rare ones
-   also forced on), the AMP step on a host batch, and holds ``nms_keep``
-   to ``nms_keep_plain`` bit for bit on the path's val input.
+   ``conf/coco_yolov5_s.yml`` as written, its ``CocoDetection`` reading
+   the COCO directory's JPEG files through the port's decoder and its
+   host pipeline included (mosaic + affine on LOAD_NUM = 4 groups, flip,
+   ColorHSV, Gaussian and median blur, grayscale, ToCXCYWH, ToTensor,
+   Normalize on ``imgproc``, no OpenCV), only ``IMG_DIR``/``ANN_FILE``
+   changed: ``Trainer.run()`` for one epoch of 4 steps at batch 32 with no
+   ``DEVICE_AUG``, bbox validation of 64 images (``nms_keep`` once per val
+   batch), the checkpoint served through ``infer.main`` on 32 images (once
+   more); prints the train epoch wall and fed rate beside the
+   ``DEVICE_AUG`` phase's, the loader rate, an item's one-thread ms split
+   into its 4 JPEG decodes, the rest of the load and each transform (the
+   three rare ones also forced on), the AMP step on a host batch, and
+   holds ``nms_keep`` to ``nms_keep_plain`` bit for bit on the path's val
+   input.
 9. Kernel checks, after every host-clock timing: ``nms_keep`` against
    ``nms_keep_plain`` on the card, bit-exact, over B in {1, 3, 32} x K in
    {1, 63, 64, 65, 300, 1000, 1024} x every threshold the detectors use,
@@ -949,45 +970,42 @@ def _profiled_train_state(trainer):
     return lambda: step(state, raw), lambda: preprocess(raw)
 
 
-HOST_AUG_FRAME = [427, 640]  # a common COCO frame: the mosaic places non-square tiles
 HOST_AUG_STEPS = 4  # one epoch
 HOST_AUG_VAL_IMAGES = 64  # one val epoch of 2 batches
 
 
-def host_aug_config(workdir: Path) -> Path:
-    """``conf/coco_yolov5_s.yml`` as written (its host pipeline: mosaic +
-    affine on LOAD_NUM = 4 groups, flip, ColorHSV, the rare blurs and
-    grayscale, ToCXCYWH, ToTensor, Normalize; MAX_BOXES 128, AMP, EMA, SGD,
-    warmup, grad clip, batch 32, bbox evaluation) with the dataset swapped
-    for SyntheticDetection at 427×640 and its COCO paths dropped; cut to
-    one epoch of 4 steps validated on 64 images.  The INFER stage (one
-    batch) serves the checkpoint afterwards."""
+def host_aug_config(workdir: Path, coco: dict) -> Path:
+    """``conf/coco_yolov5_s.yml`` as written (``CocoDetection``, its host
+    pipeline: mosaic + affine on LOAD_NUM = 4 groups, flip, ColorHSV, the
+    rare blurs and grayscale, ToCXCYWH, ToTensor, Normalize; MAX_BOXES
+    128, AMP, EMA, SGD, warmup, grad clip, batch 32, bbox evaluation) with
+    only ``IMG_DIR``/``ANN_FILE`` pointed at the COCO directory of JPEG
+    files (``write_coco_dir``); cut to one epoch of 4 steps validated on 64
+    images.  The INFER stage (one batch of 32) serves the checkpoint
+    afterwards."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
 
     cfg = CommonConfiguration.from_file(str(ROOT / "conf" / "coco_yolov5_s.yml"))
     data = cfg.DATASET
-    data.CLASS = "SyntheticDetection"
     data.DICTIONARY = str(ROOT / data.DICTIONARY)
-    for stage, length in (("TRAIN", BATCH * HOST_AUG_STEPS), ("VAL", HOST_AUG_VAL_IMAGES)):
-        stage_cfg = data.get(stage)
-        for key in ("IMG_DIR", "ANN_FILE"):
-            stage_cfg.data.pop(key)
-        stage_cfg.update({"SIZE": HOST_AUG_FRAME, "SEED": 0, "LENGTH": length})
-    data.INFER = {**dict(data.VAL), "LENGTH": BATCH}
+    for stage in ("TRAIN", "VAL"):
+        img_dir, ann_file = coco[stage.lower()]
+        data.get(stage).update({"IMG_DIR": img_dir, "ANN_FILE": ann_file})
+    data.INFER = {**dict(data.VAL), "ANN_FILE": coco["infer"][1]}
     cfg.EVALUATOR.EVAL_INTERVALS = 1
     cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
                 "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
-    path = workdir / "coco_yolov5_s_host_aug_synthetic.json"
+    path = workdir / "coco_yolov5_s_jpeg_files.json"
     path.write_text(json.dumps(cfg, default=lambda c: c.data))
     return path
 
 
-def host_aug_phase(workdir: Path) -> tuple[dict, object]:
-    """``conf/coco_yolov5_s.yml``'s host-augmented recipe trained through
-    ``Trainer.run()`` (no ``DEVICE_AUG``: the train batches are the host
-    pipeline's 640² float images) with bbox validation through
-    ``nms_keep`` (once per val batch, none in the train steps), and its
-    checkpoint served through ``infer.main`` (once per served batch)."""
+def host_aug_phase(workdir: Path, coco: dict) -> tuple[dict, object]:
+    """``conf/coco_yolov5_s.yml``'s host-augmented recipe trained from JPEG
+    files through ``Trainer.run()`` (no ``DEVICE_AUG``: the train batches
+    are the host pipeline's 640² float images) with bbox validation
+    through ``nms_keep`` (once per val batch, none in the train steps), and
+    its checkpoint served through ``infer.main`` (once per served batch)."""
     import torch
 
     from cvpytorch_tpu_torch import infer
@@ -996,11 +1014,15 @@ def host_aug_phase(workdir: Path) -> tuple[dict, object]:
     from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
 
     workdir.mkdir()
-    setting = host_aug_config(workdir)
+    setting = host_aug_config(workdir, coco)
     trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
     names = [type(t).__name__ for t in trainer.datasets["train"].transform.transforms]
     if trainer._device_aug_size is not None or names[0] != "RandomAffineWithMosaic":
         raise AssertionError(f"not the host mosaic path: {names}")
+    sizes = {stage: len(trainer.datasets[stage]) for stage in ("train", "val")}
+    if (type(trainer.datasets["train"]).__name__ != "CocoDetection"
+            or sizes != {"train": BATCH * HOST_AUG_STEPS, "val": HOST_AUG_VAL_IMAGES}):
+        raise AssertionError(f"not the COCO files: {type(trainer.datasets['train'])}, {sizes}")
     # the main path of this phase, counts read just around it
     run = run_instrumented(trainer, trainer_mod)
     state, metrics, times, run_s, launches = (
@@ -1016,7 +1038,8 @@ def host_aug_phase(workdir: Path) -> tuple[dict, object]:
     (val_metrics,) = run["val"]
     if not np.isfinite(val_metrics["mAP"]):
         raise AssertionError(f"val mAP {val_metrics['mAP']}")
-    print(f"YOLOv5-s host augmentation, Trainer.run(): {HOST_AUG_STEPS} steps in {run_s:.2f} s "
+    print(f"YOLOv5-s host augmentation from JPEG files, Trainer.run(): {HOST_AUG_STEPS} steps "
+          f"in {run_s:.2f} s "
           f"(host clock, from model build to the last checkpoint), losses {losses}, nms_keep "
           f"launches {launches} for {val_batches} val batches, val mAP {val_metrics['mAP']}",
           flush=True)
@@ -1050,15 +1073,16 @@ def host_aug_phase(workdir: Path) -> tuple[dict, object]:
 
 def host_aug_timing(trainer) -> dict:
     """The host side of the fed rate: the train loader's rate over its
-    epoch (its worker threads), and on one thread each transform of the
-    train pipeline per item over 8 items (the draw is of a LOAD_NUM = 4
-    group of 427×640 frames), with the three rare transforms also forced
-    on (p = 1); then the AMP and f32 train steps at batch 32 on a host
+    epoch (its worker threads), and on one thread per item over 8 items
+    the load of a LOAD_NUM = 4 group split into its 4 JPEG decodes and the
+    rest, then each transform of the train pipeline, with the three rare
+    transforms also forced on (p = 1); then the AMP and f32 train steps at batch 32 on a host
     batch already on the card (``train_step_timing``), and ``nms_keep``
     against ``nms_keep_plain`` on the path's own val input
     (``val_nms_input``)."""
     import torch
 
+    from cvpytorch_tpu_torch.data.datasets import coco as coco_mod
     from cvpytorch_tpu_torch.data.transforms import det_transforms as dt
 
     loader = trainer.dataloaders["train"]
@@ -1071,11 +1095,24 @@ def host_aug_timing(trainer) -> dict:
     pipeline, ds.transform = ds.transform, None
     forced = {name: getattr(dt, name)(p=1.0)
               for name in ("GaussianBlur", "MedianBlur", "RandomGrayscale")}
+    decode_s = [0.0]
+    real_imread = coco_mod.imread
+
+    def timed_imread(path):
+        t0 = time.perf_counter()
+        img = real_imread(path)
+        decode_s[0] += time.perf_counter() - t0
+        return img
+
+    coco_mod.imread = timed_imread
     try:
         t0 = time.perf_counter()
         samples = [ds[i] for i in range(n_items)]
-        draw = "draw_group_of_4_{}x{}".format(*HOST_AUG_FRAME)
-        ms = {draw: (time.perf_counter() - t0) * 1e3 / n_items}
+        item_ms = (time.perf_counter() - t0) * 1e3 / n_items
+        coco_mod.imread = real_imread
+        ms = {"load_group_of_4": item_ms,
+              "load_group_of_4_jpeg_decodes": decode_s[0] * 1e3 / n_items,
+              "load_group_of_4_rest": item_ms - decode_s[0] * 1e3 / n_items}
         for t in pipeline.transforms:
             name = type(t).__name__
             if name in forced:
@@ -1087,7 +1124,10 @@ def host_aug_timing(trainer) -> dict:
             samples = [t(s) for s in samples]
             ms[name] = (time.perf_counter() - t0) * 1e3 / n_items
     finally:
+        coco_mod.imread = real_imread
         ds.transform = pipeline
+    ms["item_total"] = sum(v for k, v in ms.items()
+                           if not k.startswith("load_group_of_4_") and "forced" not in k)
     out["host_train_item_ms_one_thread"] = ms
 
     batch = loader_batch(trainer, "train", BATCH)
@@ -1099,6 +1139,251 @@ def host_aug_timing(trainer) -> dict:
     del state
     torch.cuda.empty_cache()
     return out
+
+
+FIXTURES = ROOT / "tests" / "data" / "torch_jpeg"  # JPEG files and cv2.imread's sha256 of each
+COCO_FRAME = "coco_640x427_420.jpg"  # a COCO-sized 4:2:0 baseline file
+COCO_INFER_IMAGES = BATCH  # one served batch
+COCO_SEGM_IMAGES = 16  # one Mask R-CNN val batch
+CLS_LOADER_ITEMS = 64  # one mini-imagenet train batch
+PNG_FRAME = (1024, 2048)  # a Cityscapes frame
+
+
+def fixture_manifest() -> dict:
+    return json.loads((FIXTURES / "manifest.json").read_text())
+
+
+def image_decode_phase() -> dict:
+    """Host only.  Builds the host C library (JPEG, PNG unfilter, COCO RLE
+    and matcher), decodes every committed JPEG fixture and holds its pixels
+    to the sha256 of ``cv2.imread``'s in the manifest, times the decode of
+    the 640×427 4:2:0 file on one thread (median of 50) and on 8 threads
+    (img/s over 400), and the PNG decode of a 1024×2048 RGB frame whose
+    rows are all Sub, Average or Paeth: the whole decode, its inflate, and
+    its row unfilter in C beside the numpy plain version's."""
+    import hashlib
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cvpytorch_tpu_torch import native
+    from cvpytorch_tpu_torch.data import image_io, jpeg, png
+
+    t0 = time.perf_counter()
+    native.load_library()
+    load_s = time.perf_counter() - t0
+    print(f"host library {native.library_path().name}: "
+          f"{'built in ' if native.build_seconds is not None else 'loaded in '}{load_s:.2f} s",
+          flush=True)
+    manifest = fixture_manifest()
+    for name, entry in sorted(manifest.items()):
+        img = image_io.imread(str(FIXTURES / name))
+        got = hashlib.sha256(np.ascontiguousarray(img).tobytes()).hexdigest()
+        if list(img.shape) != entry["cv2_imread_shape"] or got != entry["cv2_imread_sha256"]:
+            raise AssertionError(f"{name}: decoded {img.shape} {got}, cv2.imread gave "
+                                 f"{entry['cv2_imread_shape']} {entry['cv2_imread_sha256']}")
+    data = (FIXTURES / COCO_FRAME).read_bytes()
+    for _ in range(5):
+        jpeg.decode(data)
+    one = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        jpeg.decode(data)
+        one.append(time.perf_counter() - t0)
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(jpeg.decode, [data] * 16))
+        t0 = time.perf_counter()
+        list(pool.map(jpeg.decode, [data] * 400))
+        threads_s = time.perf_counter() - t0
+    out = {"host_library_load_s": load_s, "host_library_built": native.build_seconds is not None,
+           "fixtures_equal_manifest": len(manifest),
+           "jpeg_decode_640x427_420_ms_one_thread": float(np.median(one)) * 1e3,
+           "jpeg_decode_640x427_420_images_per_s_8_threads": 400 / threads_s}
+    h, w = PNG_FRAME
+    y, x = np.mgrid[0:h, 0:w]
+    frame = np.stack([x * 255 // w, y * 255 // h, (x ^ y) & 255], -1).astype(np.uint8)
+    frame[::7] += np.random.RandomState(0).randint(0, 9, (frame[::7].shape)).astype(np.uint8)
+    for name, f in (("sub", 1), ("average", 3), ("paeth", 4)):
+        blob = _png_bytes(frame, f)
+        t0 = time.perf_counter()
+        pixels, _, _ = png.decode(blob)
+        c_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        raw = np.frombuffer(zlib.decompress(b"".join(
+            body for kind, body in png._read_chunks(blob) if kind == b"IDAT")), np.uint8)
+        inflate_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        unfiltered = native.png_unfilter(raw, h, w * 3, 3)
+        unfilter_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        plain = png.unfilter_plain(raw, h, w * 3, 3)
+        numpy_ms = (time.perf_counter() - t0) * 1e3
+        if not (np.array_equal(pixels, frame) and np.array_equal(plain, unfiltered)):
+            raise AssertionError(f"PNG decode of the {name} frame differs from its pixels")
+        out[f"png_decode_1024x2048_rgb_{name}_ms"] = c_ms
+        out[f"png_inflate_1024x2048_rgb_{name}_ms"] = inflate_ms
+        out[f"png_unfilter_1024x2048_rgb_{name}_ms"] = unfilter_ms
+        out[f"png_unfilter_1024x2048_rgb_{name}_numpy_ms"] = numpy_ms
+    return out
+
+
+def _star(rng, x, y, w, h, W, H) -> list:
+    """A polygon around the box (x, y, w, h), clipped to [0, W] x [0, H]."""
+    k = rng.randint(4, 13)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, k))
+    r = rng.uniform(0.3, 0.6, k)
+    px = np.clip(x + w / 2 + r * w * np.cos(ang), 0, W)
+    py = np.clip(y + h / 2 + r * h * np.sin(ang), 0, H)
+    return np.stack([px, py], 1).reshape(-1).round(2).tolist()
+
+
+def write_coco_dir(root: Path, dictionary) -> dict:
+    """A COCO-format directory of copies of the committed JPEG fixtures
+    (baseline 4:2:0 frames of both orientations, progressive, 4:4:4 with
+    restarts, grey, CMYK, EXIF-rotated) under COCO's names, with 1-8
+    seeded boxes and polygons per image over the dictionary's categories;
+    the val split also holds a crowd RLE and a non-crowd compressed RLE.
+    → {stage: (IMG_DIR, ANN_FILE)} for train (128 images), val (64),
+    infer (the first 32 val images) and segm (the first 16)."""
+    import shutil
+
+    from cvpytorch_tpu_torch import native
+
+    manifest = fixture_manifest()
+    names = sorted(manifest)
+    rng = np.random.RandomState(0)
+    cats = [{"id": i + 1, "name": next(iter(d))} for i, d in enumerate(dictionary)]
+    out = {}
+    for split, n in (("train", BATCH * HOST_AUG_STEPS), ("val", HOST_AUG_VAL_IMAGES)):
+        img_dir = root / split
+        img_dir.mkdir(parents=True)
+        images, anns = [], []
+        for i in range(n):
+            src = names[i % len(names)]
+            h, w = manifest[src]["cv2_imread_shape"][:2]
+            fname = f"{i + 1:012d}.jpg"
+            shutil.copyfile(FIXTURES / src, img_dir / fname)
+            images.append({"id": i + 1, "file_name": fname, "height": h, "width": w})
+            for _ in range(rng.randint(1, 9)):
+                bw, bh = rng.uniform(0.05, 0.6) * w, rng.uniform(0.05, 0.6) * h
+                x, y = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                             "category_id": int(rng.randint(len(cats))) + 1,
+                             "bbox": [round(x, 2), round(y, 2), round(bw, 2), round(bh, 2)],
+                             "area": bw * bh, "iscrowd": 0,
+                             "segmentation": [_star(rng, x, y, bw, bh, w, h)]})
+            if split == "val" and i < 2:
+                mask = np.zeros((h, w), np.uint8)
+                mask[h // 4:h // 2, w // 5:w // 2] = 1
+                rle = {"size": [h, w],
+                       "counts": native.rle_encode_string(native.rle_from_mask(mask))}
+                anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": 1,
+                             "bbox": [w / 5, h / 4, w / 2 - w / 5, h / 4],
+                             "area": float(mask.sum()), "iscrowd": i, "segmentation": rle})
+        for stage, count in ((split, n),) + ((("infer", COCO_INFER_IMAGES),
+                                              ("segm", COCO_SEGM_IMAGES)) if split == "val" else ()):
+            keep = {im["id"] for im in images[:count]}
+            ann_file = root / f"instances_{stage}.json"
+            ann_file.write_text(json.dumps({
+                "images": images[:count], "categories": cats,
+                "annotations": [a for a in anns if a["image_id"] in keep]}))
+            out[stage] = (str(img_dir), str(ann_file))
+    return out
+
+
+def coco_segm_check(mrcnn_trainer, coco: dict, workdir: Path) -> dict:
+    """``conf/coco_maskrcnn.yml``'s ``CocoSegmentation`` VAL stage as
+    written (800² letterbox, MASK_SIZE 112) on 16 of the COCO directory's
+    images (polygons, a crowd RLE, a non-crowd compressed RLE): one
+    ``val_epoch`` of the trained Mask R-CNN, bbox + segm through the host C
+    matcher and RLE IoU; ``nms_keep``'s count set to 0 just before and read
+    just after (2 a val batch: proposals, detections)."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+    from cvpytorch_tpu_torch.train_state import make_eval_step
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / "coco_maskrcnn.yml"))
+    cfg.DATASET.DICTIONARY = str(ROOT / cfg.DATASET.DICTIONARY)
+    img_dir, ann_file = coco["segm"]
+    for stage in ("TRAIN", "VAL"):
+        cfg.DATASET.get(stage).update({"IMG_DIR": img_dir, "ANN_FILE": ann_file})
+    cfg.update({"CHECKPOINT_DIR": str(workdir / "checkpoints"), "TENSORBOARD": False})
+    trainer = trainer_mod.Trainer(cfg)
+    ds = trainer.datasets["val"]
+    if type(ds).__name__ != "CocoSegmentation" or len(ds) != COCO_SEGM_IMAGES:
+        raise AssertionError(f"val dataset {type(ds).__name__} of {len(ds)} images")
+    masks = sum(int(ds[i]["target"]["masks"].any(axis=(1, 2)).sum()) for i in range(len(ds)))
+    evaluator_s = [0.0]
+    for name in ("update", "evaluate"):
+        fn = getattr(trainer.evaluator, name)
+
+        def timed(*args, fn=fn, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            evaluator_s[0] += time.perf_counter() - t0
+            return out
+        setattr(trainer.evaluator, name, timed)
+    eval_step = make_eval_step(use_ema=False)
+    nms_keep.launches = 0
+    t0 = time.perf_counter()
+    _, metrics = trainer.val_epoch(0, mrcnn_trainer.state, eval_step, None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = nms_keep.launches
+    batches = -(-COCO_SEGM_IMAGES // MASKRCNN_BATCH)
+    if launches != 2 * batches:
+        raise AssertionError(f"nms_keep launched {launches} times for {batches} val batches")
+    for key in ("bbox_mAP", "segm_mAP"):
+        if not np.isfinite(metrics[key]):
+            raise AssertionError(f"COCO segm check: {key} = {metrics[key]}")
+    print(f"Mask R-CNN val_epoch on {COCO_SEGM_IMAGES} COCO JPEG files (CocoSegmentation, "
+          f"{masks} rasterised instances): {wall:.2f} s, evaluator {evaluator_s[0]:.3f} s "
+          f"({evaluator_s[0] / wall:.1%} of the wall), bbox_mAP {metrics['bbox_mAP']} "
+          f"segm_mAP {metrics['segm_mAP']}, nms_keep launches {launches}", flush=True)
+    return {"images": COCO_SEGM_IMAGES, "instances_with_mask": masks, "val_epoch_s": wall,
+            "evaluator_s": evaluator_s[0], "evaluator_share": evaluator_s[0] / wall,
+            "launches": launches, "bbox_mAP": metrics["bbox_mAP"],
+            "segm_mAP": metrics["segm_mAP"]}
+
+
+def cls_loader_check(workdir: Path) -> dict:
+    """``MiniImageNetClassification`` over an ``INDICES`` file of the
+    committed JPEG fixtures (64 items) through ``conf/mini-imagenet.yml``'s
+    train transforms and its loader (batch 64, 8 threads): the loader's
+    img/s over one pass."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration, load_dictionary
+    from cvpytorch_tpu_torch.data import datasets  # noqa: F401  (registers the datasets)
+    from cvpytorch_tpu_torch.data.loader import DataLoader, default_collate
+    from cvpytorch_tpu_torch.data.transforms import build_transforms
+    from cvpytorch_tpu_torch.registry import DATASETS
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / "mini-imagenet.yml"))
+    names = sorted(fixture_manifest())
+    index = workdir / "cls_train.txt"
+    index.write_text("".join(f"{names[i % len(names)]} {i % 100}\n"
+                             for i in range(CLS_LOADER_ITEMS)))
+    train = cfg.DATASET.TRAIN
+    train.update({"IMG_DIR": str(FIXTURES), "INDICES": str(index)})
+    _, dictionary = load_dictionary(str(ROOT / cfg.DATASET.DICTIONARY),
+                                    cfg.DATASET.DICTIONARY_NAME)
+    ds = DATASETS.get(cfg.DATASET.CLASS)(
+        data_cfg=train, dictionary=dictionary, stage="train",
+        transform=build_transforms("CLS_CLASSES", train.TRANSFORMS, "train"))
+    loader = DataLoader(ds, batch_size=int(train.BATCH_SIZE), shuffle=True,
+                        num_workers=int(train.NUM_WORKER), collate_fn=default_collate)
+    t0 = time.perf_counter()
+    batches = list(loader)
+    rate = CLS_LOADER_ITEMS / (time.perf_counter() - t0)
+    shape = batches[0]["image"].shape
+    if sum(len(b["image"]) for b in batches) != CLS_LOADER_ITEMS or shape[1:3] != (224, 224) \
+            or not np.isfinite(batches[0]["image"]).all():
+        raise AssertionError(f"classification loader gave {[b['image'].shape for b in batches]}")
+    print(f"MiniImageNetClassification over {CLS_LOADER_ITEMS} JPEG files: loader "
+          f"{rate:.1f} img/s with {loader.num_workers} threads", flush=True)
+    return {"items": CLS_LOADER_ITEMS, "loader_images_per_s": rate,
+            "loader_threads": loader.num_workers, "batch_shape": list(shape)}
 
 
 MASKRCNN_BATCH = 16  # TRAIN and VAL BATCH_SIZE of conf/coco_maskrcnn.yml
@@ -1582,7 +1867,7 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
 
 def _png_bytes(pixels: np.ndarray, row_filter: int) -> bytes:
     """An RGB PNG of ``pixels`` (H, W, 3) whose every row carries
-    ``row_filter`` (1 Sub or 4 Paeth), for timing the decoder."""
+    ``row_filter`` (1 Sub, 3 Average or 4 Paeth), for timing the decoder."""
     import struct
     import zlib
 
@@ -1590,11 +1875,13 @@ def _png_bytes(pixels: np.ndarray, row_filter: int) -> bytes:
     x = pixels.reshape(h, -1).astype(np.int16)
     a = np.zeros_like(x)
     a[:, 3:] = x[:, :-3]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
     if row_filter == 1:
         pred = a
+    elif row_filter == 3:
+        pred = (a + b) >> 1
     else:
-        b = np.zeros_like(x)
-        b[1:] = x[:-1]
         c = np.zeros_like(x)
         c[1:, 3:] = x[:-1, :-3]
         pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
@@ -1634,25 +1921,6 @@ def host_pipeline_timing(trainer, n_items: int = 4) -> dict:
         finally:
             ds.transform = pipeline
         out[f"host_{stage}_item_ms_one_thread"] = ms
-    return out
-
-
-def seg_host_timing(trainer, n_items: int = 4) -> dict:
-    """``host_pipeline_timing`` on the 1024×2048 frames, and the PNG
-    decoder on one 1024×2048 RGB frame whose rows are all Sub (the
-    vectorised path) or all Paeth (the anti-diagonal path)."""
-    from cvpytorch_tpu_torch.data.png import decode
-
-    out = host_pipeline_timing(trainer, n_items)
-    frame = trainer.datasets["val"].__class__(
-        trainer.cfg.DATASET.VAL, trainer.dictionary, stage="infer")[0]["image"]
-    for name, f in (("sub", 1), ("paeth", 4)):
-        data = _png_bytes(frame[..., ::-1], f)
-        t0 = time.perf_counter()
-        decoded, _, _ = decode(data)
-        out[f"png_decode_1024x2048_rgb_{name}_ms"] = (time.perf_counter() - t0) * 1e3
-        if not np.array_equal(decoded, frame[..., ::-1]):
-            raise AssertionError(f"PNG decode of the {name} frame differs from its pixels")
     return out
 
 
@@ -2212,8 +2480,15 @@ def main() -> int:
     print(f"build nms_kernel: {build_kernels():.2f} s "
           f"({nms_kernel.library_path().name}); -Xptxas -v:", flush=True)
     print(nms_kernel.build_log().strip(), flush=True)
+    decode = image_decode_phase()
+    print(json.dumps({"image_decode": decode, "card": card}), flush=True)
     times = kernel_timing()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        from cvpytorch_tpu_torch.config import load_dictionary
+
+        _, coco_dictionary = load_dictionary(str(ROOT / "conf" / "dicts" / "coco_dict.yml"),
+                                             "DET_CLASSES")
+        coco = write_coco_dir(Path(tmp) / "coco", coco_dictionary)
         path, path_input = path_phase(Path(tmp))
         print(json.dumps({"path": path, "card": card}))
         train, trainer = train_phase(Path(tmp) / "train")
@@ -2236,6 +2511,8 @@ def main() -> int:
         print(json.dumps({"maskrcnn_timing": mrcnn_timing, "card": card}), flush=True)
         mrcnn_check = maskrcnn_card_vs_cpu(mrcnn_trainer, mrcnn_batches)
         print(json.dumps({"maskrcnn_card_vs_cpu": mrcnn_check, "card": card}), flush=True)
+        coco_segm = coco_segm_check(mrcnn_trainer, coco, Path(tmp) / "coco_segm")
+        print(json.dumps({"maskrcnn_coco_segm_val": coco_segm, "card": card}), flush=True)
         seg = {}
         for name in SEG_STEPS:
             torch.cuda.empty_cache()
@@ -2245,7 +2522,7 @@ def main() -> int:
                 seg_trainer, SEG_BATCH, None, iters=5 if name == "deeplabv3plus" else 3)
             print(json.dumps({f"{name}_timing": steps_timed, "card": card}), flush=True)
             if name == "deeplabv3plus":  # both configs share the host pipelines
-                print(json.dumps({"seg_host_timing": seg_host_timing(seg_trainer),
+                print(json.dumps({"seg_host_timing": host_pipeline_timing(seg_trainer),
                                   "card": card}), flush=True)
                 print(json.dumps({"deeplabv3plus_card_vs_cpu": seg_card_vs_cpu(
                     seg_trainer, batches), "card": card}), flush=True)
@@ -2261,6 +2538,8 @@ def main() -> int:
                           "card": card}), flush=True)
         print(json.dumps({"cls_card_vs_cpu": cls_card_vs_cpu(cls_trainer, cls_batches),
                           "card": card}), flush=True)
+        print(json.dumps({"cls_jpeg_loader": cls_loader_check(Path(tmp)), "card": card}),
+              flush=True)
         torch.cuda.empty_cache()
         nanodet, nd_trainer = nanodet_phase(Path(tmp) / "nanodet")
         print(json.dumps({"nanodet": nanodet, "card": card}), flush=True)
@@ -2276,17 +2555,22 @@ def main() -> int:
                           "card": card}), flush=True)
         # the host-augmented YOLOv5 path after the other phases
         torch.cuda.empty_cache()
-        host_aug, ha_trainer = host_aug_phase(Path(tmp) / "host_aug")
+        host_aug, ha_trainer = host_aug_phase(Path(tmp) / "host_aug", coco)
         print(json.dumps({"yolov5_host_aug": host_aug, "card": card}), flush=True)
         ha_timing = host_aug_timing(ha_trainer)
         print(json.dumps({"yolov5_host_aug_timing": ha_timing, "card": card}), flush=True)
-        print(f"YOLOv5-s 640 bs32 fed rate on {card}: host augmentation "
+        item = ha_timing["host_train_item_ms_one_thread"]
+        print(f"YOLOv5-s 640 bs32 fed rate on {card}: host augmentation from JPEG files "
               f"{host_aug['fed_images_per_s']:.1f} img/s (train epoch "
               f"{host_aug['train_epoch_s']:.2f} s), device augmentation "
               f"{train['fed_images_per_s_epoch2']:.1f} img/s; host loader "
               f"{ha_timing['host_loader_images_per_s']:.1f} img/s with "
-              f"{ha_timing['loader_threads']} threads; AMP step on a host batch "
-              f"{ha_timing['amp_step_ms']:.2f} ms", flush=True)
+              f"{ha_timing['loader_threads']} threads; one item on one thread "
+              f"{item['item_total']:.1f} ms (4 JPEG decodes "
+              f"{item['load_group_of_4_jpeg_decodes']:.1f} ms, the rest of the load "
+              f"{item['load_group_of_4_rest']:.1f} ms, transforms "
+              f"{item['item_total'] - item['load_group_of_4']:.1f} ms); AMP step on a host "
+              f"batch {ha_timing['amp_step_ms']:.2f} ms", flush=True)
         del ha_trainer
         torch.cuda.empty_cache()
         checks = kernel_checks()
@@ -2354,6 +2638,7 @@ def main() -> int:
                "yolov5_host_aug_train_and_val": host_aug["launches"],
                "yolov5_host_aug_served": host_aug["served_launches"],
                "maskrcnn_train_and_val": mrcnn["launches"],
+               "maskrcnn_coco_segm_val": coco_segm["launches"],
                **{f"{name}_train_and_val": run["result"]["nms_keep_launches"]
                   for name, run in seg.items()},
                "cls_train_and_val": cls["nms_keep_launches"],

@@ -1,6 +1,6 @@
 """Cityscapes semantic segmentation (counterpart of
 ``cvpytorch_tpu/data/datasets/cityscapes.py``), read through the port's
-PNG decoder (``data/png.py``) where the JAX package calls ``cv2.imread``.
+``image_io.imread`` where the JAX package calls ``cv2.imread``.
 
 Layout: ``IMG_DIR/<split>/<city>/*_leftImg8bit.png`` with labels under
 ``LABELS.SEG_DIR`` (suffix ``LABELS.SEG_SUFFIX``, default
@@ -15,7 +15,7 @@ import os
 import numpy as np
 
 from ...registry import DATASETS
-from ..png import imread
+from ..image_io import imread
 from .base import Dataset
 
 # labelId → trainId (cityscapesscripts convention)

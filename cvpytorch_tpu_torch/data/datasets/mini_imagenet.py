@@ -1,9 +1,9 @@
 """Classification datasets on image files (counterparts of
 ``MiniImageNetClassification`` and ``FolderClassification`` in
 ``cvpytorch_tpu/data/datasets/mini_imagenet.py``), read through the
-port's PNG decoder (``data/png.py``; no OpenCV on the card's machine).
-A JPEG file raises: the decoder is ROADMAP Queue 1 item 4.  (The JAX
-dataset's ``CACHE`` option, which no config sets, is not ported.)
+port's ``image_io.imread`` (JPEG and PNG as ``cv2.imread`` reads them; no
+OpenCV on the card's machine).  (The JAX dataset's ``CACHE`` option, which
+no config sets, is not ported.)
 
 * ``MiniImageNetClassification`` — an ``INDICES`` file of ``relative/path
   <label_id>`` lines under ``IMG_DIR``; the infer stage reads the paths of
@@ -16,21 +16,11 @@ from __future__ import annotations
 
 import os
 
-import numpy as np
-
 from ...registry import DATASETS
-from ..png import imread
+from ..image_io import imread
 from .base import Dataset
 
 IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png")
-
-
-def read_image(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 BGR, as ``cv2.imread`` reads it."""
-    if path.lower().endswith((".jpg", ".jpeg")):
-        raise NotImplementedError(f"{path}: JPEG decoding is not ported yet (ROADMAP, "
-                                  "Queue 1 item 4); the port reads PNG files")
-    return imread(path)
 
 
 class _FileClassification(Dataset):
@@ -41,7 +31,7 @@ class _FileClassification(Dataset):
         return len(self._imgs)
 
     def __getitem__(self, idx: int) -> dict:
-        sample = {"image": read_image(self._imgs[idx]),
+        sample = {"image": imread(self._imgs[idx]),
                   "target": None if self.stage == "infer" else self._targets[idx]}
         return self.transform(sample) if self.transform else sample
 

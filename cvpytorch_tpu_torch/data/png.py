@@ -9,12 +9,12 @@ neither OpenCV nor PIL).
   (H, W) map of a gray file (a colour file raises: OpenCV converts it with
   libpng's own weights, which are not copied here).
 
-The reader undoes the five row filters.  None, Sub (a cumulative sum mod
-256 along the row) and Up are vectorised row by row.  Average and Paeth
-depend on the pixel to the left, so an image that has such rows is
-reconstructed by anti-diagonals instead: pixel (y, x) needs only (y, x−1),
-(y−1, x) and (y−1, x−1), so each diagonal is one vectorised step (H + W − 1
-steps).
+The reader undoes the five row filters in host C (``native/png_unfilter.c``).
+``_unfilter_rows`` and ``_unfilter_diagonals`` are their plain numpy
+version, which the tests hold the C to and nothing else calls: None, Sub
+(a cumulative sum mod 256 along the row) and Up row by row; Average and
+Paeth by anti-diagonals, since pixel (y, x) needs only (y, x−1), (y−1, x)
+and (y−1, x−1) (H + W − 1 vectorised steps).
 """
 from __future__ import annotations
 
@@ -23,7 +23,9 @@ import zlib
 
 import numpy as np
 
-_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+from .. import native
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _SAMPLES = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type → samples per pixel
 
 
@@ -44,7 +46,7 @@ def write_palette_png(path: str, index: np.ndarray, palette) -> None:
     h, w = index.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8), index], axis=1)  # filter 0
     with open(path, "wb") as f:
-        f.write(_SIGNATURE)
+        f.write(SIGNATURE)
         f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0)))
         f.write(_chunk(b"PLTE", pal))
         f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
@@ -52,7 +54,7 @@ def write_palette_png(path: str, index: np.ndarray, palette) -> None:
 
 
 def _read_chunks(data: bytes):
-    if data[:8] != _SIGNATURE:
+    if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file")
     pos = 8
     while pos + 12 <= len(data):
@@ -123,30 +125,38 @@ def decode(data: bytes) -> tuple[np.ndarray, int, bytes | None]:
                          f"interlace {interlace} (8-bit, non-interlaced only)")
     bpp = _SAMPLES[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != h * (1 + w * bpp):
-        raise ValueError(f"PNG data holds {raw.size} bytes, not {h * (1 + w * bpp)}")
-    raw = raw.reshape(h, 1 + w * bpp)
+    return native.png_unfilter(raw, h, w * bpp, bpp).reshape(h, w, bpp), ctype, palette
+
+
+def unfilter_plain(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The numpy version of ``native.png_unfilter``."""
+    raw = raw.reshape(h, 1 + stride)
     types, filtered = raw[:, 0], raw[:, 1:]
     if types.max(initial=0) > 4:
         raise ValueError(f"PNG row filter {types.max()} does not exist")
     unfilter = _unfilter_diagonals if (types >= 3).any() else _unfilter_rows
-    return unfilter(types, filtered, bpp).reshape(h, w, bpp), ctype, palette
+    return unfilter(types, filtered, bpp)
 
 
-def imread(path: str, grayscale: bool = False) -> np.ndarray:
-    with open(path, "rb") as f:
-        pixels, ctype, palette = decode(f.read())
+def decode_image(data: bytes, grayscale: bool = False, name: str = "PNG") -> np.ndarray:
+    """PNG bytes → what ``cv2.imread`` gives for the file."""
+    pixels, ctype, palette = decode(data)
     if grayscale:
         if ctype not in (0, 4):
-            raise ValueError(f"{path}: grayscale reading of a colour PNG is not supported")
+            raise ValueError(f"{name}: grayscale reading of a colour PNG is not supported")
         return np.ascontiguousarray(pixels[..., 0])
     if ctype in (0, 4):
         return np.repeat(pixels[..., :1], 3, axis=2)
     if ctype == 3:
         if palette is None:
-            raise ValueError(f"{path}: palette PNG without PLTE")
+            raise ValueError(f"{name}: palette PNG without PLTE")
         lut = np.zeros((256, 3), np.uint8)
         colours = np.frombuffer(palette, np.uint8).reshape(-1, 3)
         lut[:len(colours)] = colours
         pixels = lut[pixels[..., 0]]
     return np.ascontiguousarray(pixels[..., 2::-1])
+
+
+def imread(path: str, grayscale: bool = False) -> np.ndarray:
+    with open(path, "rb") as f:
+        return decode_image(f.read(), grayscale, name=path)

@@ -2,8 +2,8 @@
 numpy, to the bit (``cv2`` is not on the card's machine).  Below; then the
 warps (``warp_affine``, ``warp_perspective``, ``rotation_matrix_2d``),
 ``resize_area``, ``gaussian_blur``, ``median_blur``, ``bgr_to_gray``,
-``equalize_hist``, ``clahe`` and the 8-bit Lab pair, each described where
-it is defined.
+``equalize_hist``, ``clahe``, the 8-bit Lab pair and ``fill_poly``, each
+described where it is defined.
 
 * ``resize_linear`` — ``cv2.resize(..., INTER_LINEAR)`` on uint8: the
   half-pixel source coordinate in float32, horizontal weights rounded to
@@ -768,3 +768,127 @@ def lab_to_bgr(lab: np.ndarray) -> np.ndarray:
     out = [_INV_GAMMA_TAB[np.clip(_descale(r[0] * x + r[1] * y + r[2] * z, shift), 0, 4095)]
            for r in _TO_RGB]
     return np.stack(out[::-1], -1).astype(np.uint8)
+
+
+_XY_SHIFT = 16  # drawing.cpp's fixed point for the fill's edge x
+
+
+def _clip_line(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """drawing.cpp's clipLine(Size2l, Point2l&, Point2l&): the segment
+    clipped to [0, w) x [0, h) in double, truncated; → (inside, x1, y1,
+    x2, y2), the points as clipLine leaves them even when it fails."""
+    right, bottom = w - 1, h - 1
+    c1 = (x1 < 0) + (x1 > right) * 2 + (y1 < 0) * 4 + (y1 > bottom) * 8
+    c2 = (x2 < 0) + (x2 > right) * 2 + (y2 < 0) * 4 + (y2 > bottom) * 8
+    if (c1 & c2) == 0 and (c1 | c2) != 0:
+        if c1 & 12:
+            a = 0 if c1 < 8 else bottom
+            x1 += int(float(a - y1) * (x2 - x1) / (y2 - y1))
+            y1 = a
+            c1 = (x1 < 0) + (x1 > right) * 2
+        if c2 & 12:
+            a = 0 if c2 < 8 else bottom
+            x2 += int(float(a - y2) * (x2 - x1) / (y2 - y1))
+            y2 = a
+            c2 = (x2 < 0) + (x2 > right) * 2
+        if (c1 & c2) == 0 and (c1 | c2) != 0:
+            if c1:
+                a = 0 if c1 == 1 else right
+                y1 += int(float(a - x1) * (y2 - y1) / (x2 - x1))
+                x1 = a
+                c1 = 0
+            if c2:
+                a = 0 if c2 == 1 else right
+                y2 += int(float(a - x2) * (y2 - y1) / (x2 - x1))
+                x2 = a
+                c2 = 0
+    return (c1 | c2) == 0, x1, y1, x2, y2
+
+
+def _line_points(w: int, h: int, x1: int, y1: int, x2: int, y2: int):
+    """The pixels of LineIterator(img, pt1, pt2, 8, leftToRight=true):
+    endpoints clipped when either lies outside, then Bresenham from the
+    left end (the major axis steps every pixel, the minor one when the
+    error goes negative: k_i = ceil((2 i minor - major) / (2 major)))."""
+    if not (0 <= x1 < w and 0 <= x2 < w and 0 <= y1 < h and 0 <= y2 < h):
+        inside, x1, y1, x2, y2 = _clip_line(w, h, x1, y1, x2, y2)
+        if not inside:
+            return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    if x2 < x1:
+        x1, y1, x2, y2 = x2, y2, x1, y1
+    dx, dy = x2 - x1, y2 - y1
+    sy = -1 if dy < 0 else 1
+    dy = abs(dy)
+    major, minor = max(dx, dy), min(dx, dy)
+    i = np.arange(major + 1, dtype=np.int64)
+    k = np.maximum(-((major - 2 * i * minor) // (2 * major)), 0) if major else i
+    if dy > dx:
+        return x1 + k, y1 + sy * i
+    return x1 + i, y1 + sy * k
+
+
+def fill_poly(mask: np.ndarray, pts, value: int = 1) -> np.ndarray:
+    """``cv2.fillPoly(mask, [pts], value)`` on an (H, W) array, in place:
+    integer vertices, LINE_8, no shift, as OpenCV 5.0.0 draws it.  Every
+    edge is first drawn as an 8-connected line (``_line_points``); then a
+    scanline fill over each edge's rows y0 <= y < y1, its x in 16.16 fixed
+    point stepping by dx = floor(Δx / Δy) from its upper end.  An edge with
+    an end outside the canvas runs along its clipped segment
+    (``_clip_line``) extended over its rows; one that clips to a single
+    point stands at that point's x; one wholly outside keeps its own line.
+    On each row the sorted crossings pair up and fill x_a <= i <= x_b.
+    Returns ``mask``."""
+    v = np.asarray(pts, np.int64).reshape(-1, 2)
+    H, W = mask.shape[:2]
+    lines_x, lines_y, edges = [], [], []
+    for i in range(len(v)):
+        (x0, y0), (x1, y1) = v[i - 1].tolist(), v[i].tolist()
+        lx, ly = _line_points(W, H, x0, y0, x1, y1)
+        lines_x.append(lx)
+        lines_y.append(ly)
+        if y0 == y1:
+            continue
+        top, bottom = min(y0, y1), max(y0, y1)
+        p0x, p0y, p1x, p1y = x0 << _XY_SHIFT, y0, x1 << _XY_SHIFT, y1
+        if not (0 <= x0 < W and 0 <= x1 < W and 0 <= y0 < H and 0 <= y1 < H):
+            inside, cx0, cy0, cx1, cy1 = _clip_line(W, H, x0, y0, x1, y1)
+            if inside and cy0 == cy1:
+                edges.append((top, bottom, cx0 << _XY_SHIFT, 0))
+                continue
+            if inside:
+                p0x, p0y, p1x, p1y = cx0 << _XY_SHIFT, cy0, cx1 << _XY_SHIFT, cy1
+        dx = (p1x - p0x) // (p1y - p0y)
+        ax, ay = (p0x, p0y) if p0y < p1y else (p1x, p1y)
+        edges.append((top, bottom, ax + (top - ay) * dx, dx))
+    mask[np.concatenate(lines_y), np.concatenate(lines_x)] = value
+    if len(edges) < 2:
+        return mask
+    e = np.asarray(edges, np.int64)
+    ey0, ey1, ex, edx = e.T
+    ex1 = ex + (ey1 - ey0) * edx
+    if (ey1.max() < 0 or ey0.min() >= H or max(ex.max(), ex1.max()) < 0
+            or min(ex.min(), ex1.min()) >= W << _XY_SHIFT):
+        return mask
+    lo, hi = np.maximum(ey0, 0), np.minimum(ey1, H)
+    n = np.maximum(hi - lo, 0)
+    if not n.sum():
+        return mask
+    idx = np.repeat(np.arange(len(e)), n)
+    y = lo[idx] + np.arange(n.sum()) - np.repeat(np.cumsum(n) - n, n)
+    x = ex[idx] + (y - ey0[idx]) * edx[idx]
+    order = np.lexsort((x, y))
+    y, x = y[order].reshape(-1, 2)[:, 0], x[order].reshape(-1, 2)
+    xa = (x[:, 0] + (1 << _XY_SHIFT) - 1) >> _XY_SHIFT
+    xb = x[:, 1] >> _XY_SHIFT
+    keep = (xa < W) & (xb >= 0)
+    y, xa, xb = y[keep], np.maximum(xa[keep], 0), np.minimum(xb[keep], W - 1)
+    keep = xa <= xb
+    y, xa, xb = y[keep], xa[keep], xb[keep]
+    if not len(y):
+        return mask
+    r0, r1 = int(y.min()), int(y.max()) + 1
+    runs = np.zeros((r1 - r0, W + 1), np.int32)
+    np.add.at(runs, (y - r0, xa), 1)
+    np.add.at(runs, (y - r0, xb + 1), -1)
+    mask[r0:r1][np.cumsum(runs[:, :W], axis=1) > 0] = value
+    return mask

@@ -8,23 +8,25 @@ Protocol (pycocotools ``cocoeval.py`` semantics):
 * crowd GT are ignore-matched with IoU = intersection/det_area and may
   match many detections;
 * greedy best-IoU matching in score order, non-ignored GT preferred;
-* segm: IoU of binary masks on the dataset's raster (one product of the
-  flattened masks), areas in mask pixels;
+* segm: IoU of binary masks on the dataset's raster, areas in mask
+  pixels: masks of 256² or more through the host C RLE codec (run-merge
+  intersection, ``native.rle_iou``), smaller ones as one product of the
+  flattened masks (``_mask_iou_dense``), as the JAX evaluator does;
 * the 12-metric summary (mAP, AP_50, AP_75, AP_small/medium/large,
   Recall_1/10/100, Recall_small/medium/large) of each IoU type, prefixed
   ``bbox_`` / ``segm_``, and ``performance`` = the ``eval_type`` metric
   (``mAP`` is the bbox one).
 
-The matcher is the JAX package's pure-Python loop; its native C matcher
-and RLE codec (``cvpytorch_tpu/native``) are not copied yet, so evaluation
-costs host time that grows with detections × ground truth.  The JAX
-package takes masks of 256² or more through the RLE codec, which gives
-the same IoU for binary masks.
+Matching runs in host C (``native.coco_match_areas``: every area range
+of one image and category in one call), as the JAX evaluator's does;
+``_evaluate_img``, the pure-Python loop it copies, is the plain version
+the tests hold it to.
 """
 from __future__ import annotations
 
 import numpy as np
 
+from .. import native
 from ..registry import EVALUATORS
 from .base import BaseEvaluator
 
@@ -55,9 +57,22 @@ def _box_iou(dt, gt, crowd):
     return inter / np.maximum(denom, 1e-9)
 
 
+RLE_MIN_PIXELS = 256 * 256  # masks this large go through the RLE codec
+
+
 def _mask_iou(dt_masks, gt_masks, crowd):
-    """Binary-mask IoU (D, G) as one BLAS product; crowd GT use
-    intersection/det_area."""
+    """Binary-mask IoU (D, G); crowd GT use intersection/det_area."""
+    D, G = len(dt_masks), len(gt_masks)
+    if D == 0 or G == 0:
+        return np.zeros((D, G))
+    if dt_masks[0].size >= RLE_MIN_PIXELS:
+        return native.rle_iou([native.rle_from_mask(m) for m in dt_masks],
+                              [native.rle_from_mask(m) for m in gt_masks], crowd)
+    return _mask_iou_dense(dt_masks, gt_masks, crowd)
+
+
+def _mask_iou_dense(dt_masks, gt_masks, crowd):
+    """Binary-mask IoU (D, G) as one BLAS product."""
     D, G = len(dt_masks), len(gt_masks)
     if D == 0 or G == 0:
         return np.zeros((D, G))
@@ -81,7 +96,8 @@ def _box_areas(b):
 
 def _evaluate_img(ious, gt_ignore_base, gt_crowd, gt_areas, dt_areas,
                   area_rng):
-    """COCOeval's evaluateImg matching for one (img, cat, areaRng).
+    """COCOeval's evaluateImg matching for one (img, cat, areaRng): the
+    plain version of ``native.coco_match_areas``.
 
     ious (D, G) with dets in score order; returns
     (dt_matched (T,D) bool, dt_ignore (T,D) bool, npig)."""
@@ -163,10 +179,11 @@ class COCOEval:
             else:
                 ious = _box_iou(db, gb, crowd)
                 gt_areas, dt_areas = _box_areas(gb), _box_areas(db)
-            for a in AREA_KEYS:
-                dtm, dtig, npig = _evaluate_img(
-                    ious, crowd.copy(), crowd, gt_areas, dt_areas, AREA_RNG[a])
-                self.records[c][a].append((ds, dtm, dtig, npig))
+            dtm, dtig, npig = native.coco_match_areas(
+                ious, IOU_THRS, crowd, crowd, gt_areas, dt_areas,
+                [AREA_RNG[a] for a in AREA_KEYS])
+            for i, a in enumerate(AREA_KEYS):
+                self.records[c][a].append((ds, dtm[i], dtig[i], int(npig[i])))
 
     def _pr_curves(self, c, area, max_det):
         """(ap (T,) or None, recall (T,) or None) for one cell."""

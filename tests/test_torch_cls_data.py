@@ -182,11 +182,18 @@ def test_mini_imagenet_classification_equals_jax(tmp_path):
 
 
 def test_jpeg_files_raise_naming_the_roadmap(tmp_path):
+    """JPEG files are read now (as the JAX dataset reads them through
+    cv2.imread); a file that is neither JPEG nor PNG still raises, naming
+    the file."""
     os.makedirs(tmp_path / "ants")
-    cv2.imwrite(str(tmp_path / "ants" / "a.jpg"), np.zeros((8, 8, 3), np.uint8))
-    ds = mini_imagenet.FolderClassification(CommonConfiguration({"IMG_DIR": str(tmp_path)}),
-                                            [{"ants": 1.0}])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    rng = np.random.RandomState(0)
+    cv2.imwrite(str(tmp_path / "ants" / "a.jpg"), rng.randint(0, 255, (8, 8, 3), np.uint8))
+    cfg = {"IMG_DIR": str(tmp_path)}
+    ds = mini_imagenet.FolderClassification(CommonConfiguration(cfg), [{"ants": 1.0}])
+    want = jax_files.FolderClassification(JaxConfig(cfg), [{"ants": 1.0}])
+    np.testing.assert_array_equal(ds[0]["image"], want[0]["image"])
+    (tmp_path / "ants" / "a.jpg").write_bytes(b"GIF89a not an image")
+    with pytest.raises(ValueError, match="a.jpg: neither a JPEG nor a PNG"):
         ds[0]
 
 

@@ -27,6 +27,13 @@ NOW_BUILD = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "visdrone_yolov5",
              "coco_maskrcnn"]
 
 
+# configs whose dataset class the port has: the COCO ones (CocoDetection,
+# CocoSegmentation) and the JPEG classification folders among them
+WITH_DATASET = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "coco_nanodetplus",
+                "coco_nanodetplus_m", "coco_maskrcnn", "mini-imagenet", "imagenet", "flower",
+                "hymenoptera", "pet", "cityscapes_unet"]
+
+
 def build(path):
     """Builds the config's pipelines and model; returns None, or the
     first error as a string."""
@@ -58,6 +65,11 @@ def has_dataset(path):
 @pytest.mark.parametrize("name", NOW_BUILD)
 def test_config_builds_in_the_port(name):
     assert build(os.path.join(ROOT, "conf", f"{name}.yml")) is None
+
+
+@pytest.mark.parametrize("name", WITH_DATASET)
+def test_config_has_its_dataset_class(name):
+    assert has_dataset(os.path.join(ROOT, "conf", f"{name}.yml"))
 
 
 def main():

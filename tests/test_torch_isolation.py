@@ -42,7 +42,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "'evaluator.classification', 'models.backbones.shufflenetv2', "
         "'models.necks.ghost_pan', 'models.losses.gfl_loss', "
         "'models.assigners.dsl_assigner', 'models.heads.nanodet_head', "
-        "'models.nanodet_plus'):\n"
+        "'models.nanodet_plus', 'native', 'data.jpeg', 'data.image_io', "
+        "'data.datasets.coco'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
@@ -85,3 +86,20 @@ def test_entry_points_refuse_to_fall_back_to_the_cpu():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_host_library_build_failure_raises(tmp_path):
+    """No C compiler: reading a JPEG raises, nothing falls back to numpy."""
+    code = (
+        "from pathlib import Path\n"
+        "from cvpytorch_tpu_torch import native\n"
+        f"native.BUILD_DIR = Path({str(tmp_path)!r})\n"
+        "from cvpytorch_tpu_torch.data import image_io\n"
+        "try:\n"
+        f"    image_io.imread({os.path.join(ROOT, 'tests', 'data', 'torch_jpeg', 'grey_320x240.jpg')!r})\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', e)\n"
+    )
+    r = run_python(code, PATH=str(tmp_path))
+    assert r.returncode == 0, r.stderr
+    assert "raised no C compiler" in r.stdout
