@@ -78,6 +78,28 @@
    against the CPU (eval-mode logits within 1e-4 of their largest value,
    argmax equal on ≥ 99.9 % of the pixels, train-mode losses within
    1e-3 relative).
+6b. SegFormer and SFNet, the same way: ``conf/cityscapes_segformer_b2.yml``
+   (MiT-B2, 256-channel SegFormerHead, batch 8, SGD, PolyLR, warmup, AMP,
+   EMA, grad clip 10; 4 steps) and ``conf/cityscapes_sfnet_r18.yml``
+   (ResNet-18 v1c at output stride 8, 128-channel UperNetAlignHead, its
+   batch 16; 2 steps), each as written on SyntheticSegmentation at
+   1024×2048: ``Trainer.run()``, mIoU val of 16 images, one served batch,
+   the AMP and f32 steps with EMA (peak memory), the val and predict
+   steps, and each model at B = 1 card vs CPU with dropout and DropPath
+   off at the DeepLabV3+ gates; 0 ``nms_keep`` launches.
+6c. Dataset layouts (``dataset_layouts``): ``conf/pennfudan_maskrcnn.yml``
+   on PennFudanPed PNG images and palette instance masks (2 steps at
+   batch 4, bbox + segm val of 8 images: ``nms_keep`` 2 + 2 × 2),
+   ``conf/voc_deeplabv3plus.yml`` on a VOCdevkit of JPEG copies, palette
+   masks with 255 borders and ImageSets split files (2 steps at batch 16,
+   mIoU val of 16) and ``conf/visdrone_yolov5.yml`` on VisDrone-DET JPEG
+   copies with txt rows of categories 0–11 (2 steps of its host mosaic
+   pipeline at batch 16, bbox val of 16: ``nms_keep`` 1), each through
+   ``Trainer.run()`` with only ``IMG_DIR``/``INDICES`` changed
+   (``cvpytorch_tpu_torch/data/layouts.py`` writes the directories from
+   seeded numpy); finite losses and metrics, each loader's img/s, and
+   ``nms_keep`` bit-exact against ``nms_keep_plain`` on every input the
+   detection paths gave it.
 7. Classification phase: ``conf/mini-imagenet.yml`` as written
    (MobileNetV2 classifier, 100 classes, RandomResizedCrop 224, flip,
    ColorJitter, AdamW, cosine, warmup, AMP, batch 64) on
@@ -138,9 +160,12 @@
    device busy and idle share and the top operations of the device
    augmentation alone, of the YOLOv5 AMP train step with it, and of the
    Mask R-CNN AMP train step with the share of the ROIAlign gathers and
-   of their backward, and of the DeepLabV3+, UNet, MobileNetV2 and
-   NanoDet-Plus AMP train steps (NanoDet-Plus's (96, 1024) NMS input
-   among the kernel inputs).
+   of their backward, and of the DeepLabV3+, UNet, SegFormer-B2 (the
+   attention's float32 logits matmuls, its softmax, LayerNorm and GELU
+   as named groups, the attention's forward as the ``mit_attention``
+   range), SFNet-R18 (the flow warp's gathers and their scatter-add
+   backward), MobileNetV2 and NanoDet-Plus AMP train steps (NanoDet-Plus's
+   (96, 1024) NMS input among the kernel inputs).
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -1754,21 +1779,42 @@ def maskrcnn_card_vs_cpu(trainer, batches) -> dict:
     return result
 
 
-SEG_BATCH = 8  # TRAIN and VAL BATCH_SIZE of both Cityscapes configs
+SEG_BATCH = {"deeplabv3plus": 8, "unet": 8, "segformer_b2": 8,  # each config's TRAIN and
+             "sfnet_r18": 16}                                    # VAL BATCH_SIZE
 SEG_FRAME = [1024, 2048]  # a Cityscapes frame: RandomScaleCrop and Resize work on it
-SEG_VAL_IMAGES = 16  # one val epoch of 2 batches
-SEG_STEPS = {"deeplabv3plus": 4, "unet": 2}  # one epoch each
+SEG_VAL_IMAGES = 16  # one val epoch of 2 batches (1 at SFNet's 16)
+SEG_STEPS = {"deeplabv3plus": 4, "unet": 2, "segformer_b2": 4, "sfnet_r18": 2}  # one epoch each
+SEG_CARD_VS_CPU = {"deeplabv3plus": "DeepLabV3+ R50", "segformer_b2": "SegFormer MiT-B2",
+                   "sfnet_r18": "SFNet R18"}
+# the EMA of the SegFormer and SFNet configs in their timed and profiled
+# steps (the DeepLabV3+ and UNet phases time theirs without, as before)
+SEG_EMA = {"segformer_b2": 0.9999, "sfnet_r18": 0.9999}
+# SegFormer's named groups of device kernels: under AMP the attention
+# logits are its only float32 matmuls (forward and backward), its softmax
+# the only last-dim one (the loss's log-softmax is spatial), and the
+# LayerNorm and GELU passes; the attention's forward is also the
+# ``mit_attention`` range (``annotated_ms``)
+SEGFORMER_GROUPS = {"attention_logits_f32_gemm": re.compile(r"^(?!.*(bf16|fp16|half)).*gemm",
+                                                            re.I),
+                    "attention_softmax": re.compile(r"softmax_warp|SoftMaxForward(?!.*Spatial)"
+                                                    r"|SoftMaxBackward(?!.*Spatial)"),
+                    "layer_norm": re.compile(r"layer_norm|LayerNorm", re.I),
+                    "gelu": re.compile(r"gelu", re.I)}
+# SFNet's flow warp: four gathers a warp and their scatter-add backward,
+# which run one kernel template (its name holds both words)
+SFNET_GROUPS = {"flow_warp_gather_and_scatter_add": re.compile(r"gather", re.I)}
 
 
 def seg_config(workdir: Path, name: str) -> Path:
     """``conf/cityscapes_<name>.yml`` as written (its model, 19 SEG_CLASSES
-    from ``conf/dicts/cityscapes_dict.yml``, AMP, SGD 0.9 with weight decay
-    1e-4, PolyLR 0.9, linear warmup of 500 iterations, batch 8, its
-    512×1024 crop, flip, photometric distortion, Resize, ToTensor and
-    Normalize, mIoU evaluation) with the dataset swapped for
-    SyntheticSegmentation at the 1024×2048 Cityscapes frame; cut to one
-    epoch of ``SEG_STEPS[name]`` steps validated on 16 images.  The INFER
-    stage (one batch) serves the checkpoint afterwards."""
+    from ``conf/dicts/cityscapes_dict.yml``, AMP, SGD, PolyLR 0.9, linear
+    warmup, its batch (``SEG_BATCH``), its 512×1024 crop, flip,
+    photometric distortion, Resize, ToTensor and Normalize, mIoU
+    evaluation; SegFormer and SFNet also EMA and grad clip 10) with the
+    dataset swapped for SyntheticSegmentation at the 1024×2048 Cityscapes
+    frame; cut to one epoch of ``SEG_STEPS[name]`` steps validated on 16
+    images.  The INFER stage (one batch) serves the checkpoint
+    afterwards."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
 
     cfg = CommonConfiguration.from_file(str(ROOT / "conf" / f"cityscapes_{name}.yml"))
@@ -1776,9 +1822,11 @@ def seg_config(workdir: Path, name: str) -> Path:
     data.CLASS = "SyntheticSegmentation"
     data.DICTIONARY = str(ROOT / data.DICTIONARY)
     synthetic = {"SIZE": SEG_FRAME, "SEED": 0}
-    data.TRAIN.update({**synthetic, "LENGTH": SEG_BATCH * SEG_STEPS[name]})
+    if data.TRAIN.BATCH_SIZE != SEG_BATCH[name] or data.VAL.BATCH_SIZE != SEG_BATCH[name]:
+        raise AssertionError(f"cityscapes_{name}: BATCH_SIZE {data.TRAIN.BATCH_SIZE}")
+    data.TRAIN.update({**synthetic, "LENGTH": SEG_BATCH[name] * SEG_STEPS[name]})
     data.VAL.update({**synthetic, "LENGTH": SEG_VAL_IMAGES})
-    data.INFER = {**dict(data.VAL), "LENGTH": SEG_BATCH}
+    data.INFER = {**dict(data.VAL), "LENGTH": SEG_BATCH[name]}
     cfg.EVALUATOR.EVAL_INTERVALS = 1
     cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
                 "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
@@ -1801,7 +1849,7 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
     from cvpytorch_tpu_torch.registry import DATASETS
     from cvpytorch_tpu_torch.train_state import make_predict_step
 
-    steps = SEG_STEPS[name]
+    steps, batch = SEG_STEPS[name], SEG_BATCH[name]
     workdir.mkdir()
     setting = seg_config(workdir, name)
     trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
@@ -1830,14 +1878,15 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
     infer.main(["--setting", str(setting), "--checkpoint",
                 str(Path(trainer.checkpoints.save_dir) / "last.pt"), "--out", str(out_dir)])
     files = sorted(out_dir.iterdir())
-    if [f.name for f in files] != [f"{i:06d}.png" for i in range(SEG_BATCH)]:
+    if [f.name for f in files] != [f"{i:06d}.png" for i in range(batch)]:
         raise AssertionError(f"served files {[f.name for f in files]}")
     infer_cfg = trainer.cfg.DATASET.INFER
     infer_ds = DATASETS.get(trainer.cfg.DATASET.CLASS)(
         data_cfg=infer_cfg, dictionary=trainer.dictionary, stage="infer",
         transform=build_transforms("SEG_CLASSES", infer_cfg.get("TRANSFORMS"), "infer"))
-    images = torch.from_numpy(next(iter(DataLoader(infer_ds, SEG_BATCH)))["image"]).cuda()
-    want = make_predict_step(state.model)(images).cpu().numpy()
+    images = torch.from_numpy(next(iter(DataLoader(infer_ds, batch)))["image"]).cuda()
+    served = state.ema if state.ema is not None else state.model  # what the checkpoint serves
+    want = make_predict_step(served)(images).cpu().numpy()
     palette = bytes(infer.CITYSCAPES_PALETTE)
     for f, w in zip(files, want):
         index, ctype, plte = decode(f.read_bytes())
@@ -1847,7 +1896,7 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
             raise AssertionError(f"{f.name}: {int((index[..., 0] != w).sum())} pixels "
                                  "differ from the predict step's argmax")
     classes = len(np.unique(want))
-    print(f"infer.main on the trained {name}: {SEG_BATCH} palette PNGs of {want.shape[1:]} "
+    print(f"infer.main on the trained {name}: {batch} palette PNGs of {want.shape[1:]} "
           f"equal to the predict step's argmax ({classes} classes present)", flush=True)
     return {
         "steps": steps,
@@ -1855,12 +1904,13 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
         "losses": losses,
         "run_s": run_s,
         "train_epoch_s": times["train_epoch"][0],
-        "fed_images_per_s": SEG_BATCH * steps / times["train_epoch"][0],
+        "batch": batch,
+        "fed_images_per_s": batch * steps / times["train_epoch"][0],
         "val_epoch_s": times["val_epoch"][0],
         "val_evaluator_s": times["evaluator"],
         "val_evaluator_share": times["evaluator"] / times["val_epoch"][0],
         "val_mIoU": val_metrics["mIoU"],
-        "served_images": SEG_BATCH,
+        "served_images": batch,
         "served_classes_present": classes,
     }, trainer
 
@@ -1924,17 +1974,19 @@ def host_pipeline_timing(trainer, n_items: int = 4) -> dict:
     return out
 
 
-def seg_card_vs_cpu(trainer, batches) -> dict:
-    """DeepLabV3+ R50 at 512×1024, B = 1, f32 with TF32 off, from the same
-    seeded weights on the card and on the CPU, dropout off: in eval mode
-    the logits within 1e-4 of their largest value and the argmax equal on
-    at least 99.9 % of the pixels; the losses of a train-mode forward (BN
-    on the statistics of the one image) within 1e-3 relative."""
+def seg_card_vs_cpu(trainer, batches, label: str) -> dict:
+    """The config's model (``label``) at 512×1024, B = 1, f32 with TF32
+    off, from the same seeded weights on the card and on the CPU, dropout
+    and DropPath off: in eval mode the logits within 1e-4 of their largest
+    value and the argmax equal on at least 99.9 % of the pixels; the
+    losses of a train-mode forward (BN on the statistics of the one image)
+    within 1e-3 relative."""
     import copy
 
     import torch
 
     from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.models.bricks import DropPath
 
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: the step makers turn it off")
@@ -1945,6 +1997,8 @@ def seg_card_vs_cpu(trainer, batches) -> dict:
     for m in base.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
+        elif isinstance(m, DropPath):
+            m.rate = 0.0
     seen = {}
     for device in ("cpu", "cuda"):
         model = copy.deepcopy(base).to(device, memory_format=torch.channels_last)
@@ -1964,11 +2018,142 @@ def seg_card_vs_cpu(trainer, batches) -> dict:
         "train_loss_rel": {k: abs(card["losses"][k] - v) / max(abs(v), 1e-12)
                            for k, v in cpu["losses"].items()},
         "train_loss_cpu": cpu["losses"], "train_loss_card": card["losses"]}
-    print(f"DeepLabV3+ card vs CPU, f32, B=1, 512x1024: {json.dumps(out)}", flush=True)
+    print(f"{label} card vs CPU, f32, B=1, 512x1024: {json.dumps(out)}", flush=True)
     if not (out["logits_max_rel_err"] <= 1e-4 and out["argmax_equal_share"] >= 0.999):
         raise AssertionError(f"eval-mode logits differ, card vs CPU: {out}")
     if not max(out["train_loss_rel"].values()) <= 1e-3:
         raise AssertionError(f"train losses differ card vs CPU: {out}")
+    return out
+
+
+LAYOUT_STEPS = 2  # one epoch of each dataset layout's config
+LAYOUT_IMAGES = {  # config: (train images, val images) at its BATCH_SIZE
+    "pennfudan_maskrcnn": (8, 8),  # batch 4; TRAIN and VAL read one folder, as written
+    "voc_deeplabv3plus": (32, 16),  # batch 16
+    "visdrone_yolov5": (32, 16),  # batch 16
+}
+LAYOUT_NMS = {  # nms_keep launches of one epoch and its val: none in the seg
+    "pennfudan_maskrcnn": LAYOUT_STEPS + 2 * 2,  # RPN each step, 2 a val batch
+    "voc_deeplabv3plus": 0,
+    "visdrone_yolov5": 1,  # one val batch
+}
+
+
+def layout_config(workdir: Path, name: str) -> Path:
+    """``conf/<name>.yml`` as written, its dataset class reading a
+    directory in the dataset's own layout (``data/layouts.py``: PennFudanPed
+    PNG images and palette instance masks; VOCdevkit JPEG copies of the
+    fixtures, palette masks with 255 borders and ImageSets split files;
+    VisDrone-DET JPEG copies with txt annotations of categories 0–11);
+    only ``IMG_DIR``/``INDICES`` changed; cut to one epoch of
+    ``LAYOUT_STEPS`` steps and one val epoch."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration, load_dictionary
+    from cvpytorch_tpu_torch.data import layouts
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / f"{name}.yml"))
+    data = cfg.DATASET
+    data.DICTIONARY = str(ROOT / data.DICTIONARY)
+    n_train, n_val = LAYOUT_IMAGES[name]
+    jpegs = [str(FIXTURES / f) for f in sorted(fixture_manifest())]
+    root = workdir / "data"
+    if name == "pennfudan_maskrcnn":
+        img_dir = layouts.write_pennfudan(str(root / "PennFudanPed"), n_train)
+        stages = {"TRAIN": {"IMG_DIR": img_dir}, "VAL": {"IMG_DIR": img_dir}}
+    elif name == "voc_deeplabv3plus":
+        names = [next(iter(d)) for d in load_dictionary(data.DICTIONARY, "SEG_CLASSES")[1]][1:]
+        out = layouts.write_voc(str(root / "VOCdevkit" / "VOC2012"), jpegs, names,
+                                1 + n_train + n_val, n_train)
+        stages = {"TRAIN": {"IMG_DIR": out["IMG_DIR"], "INDICES": out["train"]},
+                  "VAL": {"IMG_DIR": out["IMG_DIR"], "INDICES": out["val"]}}
+    else:
+        stages = {"TRAIN": {"IMG_DIR": layouts.write_visdrone(
+                      str(root / "VisDrone2019-DET-train"), jpegs, n_train, seed=1)},
+                  "VAL": {"IMG_DIR": layouts.write_visdrone(
+                      str(root / "VisDrone2019-DET-val"), jpegs, n_val, seed=2)}}
+    for stage, update in stages.items():
+        data.get(stage).update(update)
+    cfg.EVALUATOR.EVAL_INTERVALS = 1
+    cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+                "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
+    path = workdir / f"{name}_layout.json"
+    path.write_text(json.dumps(cfg, default=lambda c: c.data))
+    return path
+
+
+def layout_run(workdir: Path, name: str) -> dict:
+    """One dataset layout's config through ``Trainer.run()`` on the card,
+    every ``nms_keep`` input kept (count set to 0 just before the run and
+    read just after); checks the dataset classes and sizes, finite losses
+    and val metrics and the launches; then holds ``nms_keep`` to
+    ``nms_keep_plain`` bit for bit on the inputs the path gave it (these
+    launches not counted) and times one pass of the train loader."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+
+    workdir.mkdir(parents=True)
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(layout_config(workdir, name))))
+    want_cls = trainer.cfg.DATASET.CLASS.split(".")[-1]
+    sizes = {stage: len(trainer.datasets[stage]) for stage in ("train", "val")}
+    if (type(trainer.datasets["train"]).__name__ != want_cls
+            or (sizes["train"], sizes["val"]) != LAYOUT_IMAGES[name]):
+        raise AssertionError(f"{name}: {type(trainer.datasets['train']).__name__} of {sizes}")
+    seen, restore = capture_nms_inputs()
+    try:
+        run = run_instrumented(trainer, trainer_mod)
+    finally:
+        restore()
+    state, metrics, launches = run["state"], run["metrics"], run["launches"]
+    if len(metrics) != LAYOUT_STEPS or state.step != LAYOUT_STEPS:
+        raise AssertionError(f"{name}: {len(metrics)} steps, state at step {state.step}")
+    losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    if not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"{name}: non-finite train loss {losses}")
+    if launches != LAYOUT_NMS[name] or len(seen) != launches:
+        raise AssertionError(f"{name}: nms_keep launched {launches} times ({len(seen)} "
+                             f"inputs kept), not {LAYOUT_NMS[name]}")
+    (val_metrics,) = run["val"]
+    val = {k: float(v) for k, v in val_metrics.items()
+           if k in ("performance", "mAP", "bbox_mAP", "segm_mAP", "mIoU")}
+    if not all(np.isfinite(v) for v in val.values()):
+        raise AssertionError(f"{name}: val metrics {val_metrics}")
+    nms_inputs = {}
+    before = nms_keep.launches
+    for boxes, thr in seen:
+        got, want = nms_keep(boxes, thr), nms_keep_plain(boxes, thr)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: nms_keep != nms_keep_plain on a path input of "
+                                 f"{tuple(boxes.shape)}: {int((got != want).sum())} flags")
+        key = "x".join(map(str, boxes.shape[:2]))
+        nms_inputs[key] = nms_inputs.get(key, 0) + 1
+    nms_keep.launches = before  # comparison launches do not count
+    t0 = time.perf_counter()
+    n = sum(len(b["image"]) for b in trainer.dataloaders["train"])
+    loader_rate = n / (time.perf_counter() - t0)
+    epoch_s = run["times"]["train_epoch"][0]
+    out = {"dataset": want_cls, "images": sizes, "steps": LAYOUT_STEPS, "launches": launches,
+           "nms_inputs": ({"bit_exact": True, "inputs_by_shape": nms_inputs}
+                          if nms_inputs else None),
+           "losses": losses, "val": val, "run_s": run["run_s"], "train_epoch_s": epoch_s,
+           "fed_images_per_s": sizes["train"] / epoch_s,
+           "val_epoch_s": run["times"]["val_epoch"][0],
+           "host_loader_images_per_s": loader_rate,
+           "loader_threads": trainer.dataloaders["train"].num_workers}
+    print(f"{name} on its own layout ({want_cls}, {sizes}): {json.dumps(out)}", flush=True)
+    return out
+
+
+def dataset_layouts_phase(workdir: Path) -> dict:
+    """PennFudan Mask R-CNN, VOC DeepLabV3+ and VisDrone YOLOv5, each on a
+    directory in its dataset's layout (``layout_run``)."""
+    import torch
+
+    out = {}
+    for name in LAYOUT_IMAGES:
+        torch.cuda.empty_cache()
+        out[name] = layout_run(workdir / name, name)
     return out
 
 
@@ -2519,15 +2704,22 @@ def main() -> int:
             result, seg_trainer = seg_phase(Path(tmp) / f"seg_{name}", name)
             print(json.dumps({name: result, "card": card}), flush=True)
             steps_timed, states, batches = milestone_timing(
-                seg_trainer, SEG_BATCH, None, iters=5 if name == "deeplabv3plus" else 3)
+                seg_trainer, SEG_BATCH[name], None,
+                iters=5 if name in ("deeplabv3plus", "segformer_b2") else 3,
+                ema_decay=SEG_EMA.get(name, 0.0))
             print(json.dumps({f"{name}_timing": steps_timed, "card": card}), flush=True)
-            if name == "deeplabv3plus":  # both configs share the host pipelines
+            if name == "deeplabv3plus":  # the configs share the host pipelines
                 print(json.dumps({"seg_host_timing": host_pipeline_timing(seg_trainer),
                                   "card": card}), flush=True)
-                print(json.dumps({"deeplabv3plus_card_vs_cpu": seg_card_vs_cpu(
-                    seg_trainer, batches), "card": card}), flush=True)
+            if name in SEG_CARD_VS_CPU:
+                print(json.dumps({f"{name}_card_vs_cpu": seg_card_vs_cpu(
+                    seg_trainer, batches, SEG_CARD_VS_CPU[name]), "card": card}), flush=True)
             seg[name] = {"result": result, "timing": steps_timed, "state": states["train"],
                          "batch": batches["train"]}
+            del seg_trainer, states
+        torch.cuda.empty_cache()
+        layouts = dataset_layouts_phase(Path(tmp) / "layouts")
+        print(json.dumps({"dataset_layouts": layouts, "card": card}), flush=True)
         torch.cuda.empty_cache()
         cls, cls_trainer = cls_phase(Path(tmp) / "cls")
         print(json.dumps({"cls": cls, "card": card}), flush=True)
@@ -2598,10 +2790,12 @@ def main() -> int:
             "device_busy_ms"] / mrcnn_timing["amp_step_ms"]
         print(json.dumps({"maskrcnn_amp_train_step_profile": mrcnn_profile,
                           "nms_keep_device_ms": mrcnn_split, "card": card}), flush=True)
-        seg_step = make_train_step(amp=True)
         for name, run in seg.items():
             torch.cuda.empty_cache()
-            prof = profile_device(lambda: seg_step(run["state"], run["batch"]), steps=3, top=15)
+            seg_step = make_train_step(amp=True, ema_decay=SEG_EMA.get(name, 0.0))
+            groups = {"segformer_b2": SEGFORMER_GROUPS, "sfnet_r18": SFNET_GROUPS}.get(name)
+            prof = profile_device(lambda: seg_step(run["state"], run["batch"]), steps=3, top=15,
+                                  groups=groups)
             prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / run[
                 "timing"]["amp_step_ms"]
             print(json.dumps({f"{name}_amp_train_step_profile": prof, "card": card}),
@@ -2641,6 +2835,7 @@ def main() -> int:
                "maskrcnn_coco_segm_val": coco_segm["launches"],
                **{f"{name}_train_and_val": run["result"]["nms_keep_launches"]
                   for name, run in seg.items()},
+               **{f"{name}_train_and_val": run["launches"] for name, run in layouts.items()},
                "cls_train_and_val": cls["nms_keep_launches"],
                "nanodet_train_and_val": nanodet["launches"],
                "nanodet_served": nanodet["served_launches"]}
@@ -2668,6 +2863,8 @@ def main() -> int:
         "device_ms_by_kernel": split,
         "maskrcnn_path_inputs": mrcnn_nms,
         "nanodet_path_input": nd_nms,
+        "dataset_layout_path_inputs": {name: run["nms_inputs"] for name, run in layouts.items()
+                                       if run["nms_inputs"]},
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -28,7 +28,6 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import random
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -37,19 +36,17 @@ from ... import native
 from ...registry import DATASETS
 from ..image_io import imread
 from ..transforms.imgproc import fill_poly, resize_nearest
-from .base import Dataset
+from .base import Dataset, MosaicGroups
 
 
 @DATASETS.register(name="CocoDetection")
-class CocoDetection(Dataset):
+class CocoDetection(MosaicGroups, Dataset):
     def __init__(self, data_cfg=None, dictionary=None, transform=None,
                  target_transform=None, stage="train"):
         super().__init__(data_cfg, dictionary, transform, target_transform, stage)
         self.img_dir = data_cfg.IMG_DIR
         ann_file = (data_cfg.LABELS.DET_DIR if data_cfg.LABELS else None) or data_cfg.ANN_FILE
-        self.load_num = int(getattr(data_cfg, "LOAD_NUM", None) or 1)
-        self.mosaic_prob = float(getattr(data_cfg, "MOSAIC_PROB", None)
-                                 or (1.0 if self.load_num > 1 else 0.0))
+        self._read_load_num(data_cfg)
 
         with open(ann_file) as f:
             coco = json.load(f)
@@ -125,14 +122,6 @@ class CocoDetection(Dataset):
             "width": item["width"],
         }
         return {"image": img, "target": None if self.stage == "infer" else target}
-
-    def __getitem__(self, idx: int):
-        if self.stage == "train" and self.load_num > 1 and random.random() < self.mosaic_prob:
-            extra = [random.randrange(len(self)) for _ in range(self.load_num - 1)]
-            samples = [self._load_one(i) for i in [idx, *extra]]
-            return self.transform(samples) if self.transform else samples
-        sample = self._load_one(idx)
-        return self.transform(sample) if self.transform else sample
 
 
 def rasterize_segmentation(segm, height: int, width: int, out_size: int) -> np.ndarray:

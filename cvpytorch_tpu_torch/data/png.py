@@ -3,11 +3,19 @@ neither OpenCV nor PIL).
 
 * ``write_palette_png(path, index, palette)`` — an 8-bit palette image
   (colour type 3), every row unfiltered, the palette as given;
+* ``write_png(path, img)`` — an (H, W) gray or (H, W, 3) BGR uint8 image
+  as ``cv2.imwrite`` takes it, as an 8-bit gray or RGB file, every row
+  unfiltered;
 * ``imread(path, grayscale=False)`` — what ``cv2.imread`` returns for an
   8-bit, non-interlaced gray, gray+alpha, RGB, RGBA or palette PNG: (H, W,
   3) uint8 BGR, alpha dropped, gray replicated; with ``grayscale`` the
-  (H, W) map of a gray file (a colour file raises: OpenCV converts it with
-  libpng's own weights, which are not copied here).
+  (H, W) map: a gray file as it is, a colour or palette file (its
+  colours) through libpng's ``png_set_rgb_to_gray(0.299, 0.587)``, which
+  OpenCV asks for: (9797 R + 19234 G + 3737 B) >> 15, equal to
+  ``cv2.imread(..., IMREAD_GRAYSCALE)`` on all 2^24 colours;
+* ``decode_label`` — a label map: palette files as their indices (VOC's
+  ``SegmentationClass``, PennFudan's ``PedMasks``), any other file as
+  ``decode_image(grayscale=True)`` reads it.
 
 The reader undoes the five row filters in host C (``native/png_unfilter.c``).
 ``_unfilter_rows`` and ``_unfilter_diagonals`` are their plain numpy
@@ -34,6 +42,29 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+def _write(path: str, rows: np.ndarray, w: int, ctype: int, extra: bytes = b"") -> None:
+    """``rows`` (H, 1 + stride) uint8, each row its filter byte then its samples."""
+    h = rows.shape[0]
+    with open(path, "wb") as f:
+        f.write(SIGNATURE)
+        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0)))
+        f.write(extra)
+        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+        f.write(_chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray) -> None:
+    img = np.ascontiguousarray(img, dtype=np.uint8)
+    if img.ndim == 2:
+        samples, ctype = img, 0
+    elif img.ndim == 3 and img.shape[2] == 3:
+        samples, ctype = img[..., ::-1].reshape(img.shape[0], -1), 2
+    else:
+        raise ValueError(f"write_png takes (H, W) or (H, W, 3), not {img.shape}")
+    rows = np.concatenate([np.zeros((img.shape[0], 1), np.uint8), samples], axis=1)
+    _write(path, rows, img.shape[1], ctype)
+
+
 def write_palette_png(path: str, index: np.ndarray, palette) -> None:
     """``index`` (H, W) uint8 palette indices; ``palette`` a flat R, G, B
     sequence of at most 256 colours."""
@@ -45,12 +76,7 @@ def write_palette_png(path: str, index: np.ndarray, palette) -> None:
         raise ValueError(f"palette of {len(pal)} values is not 1-256 RGB colours")
     h, w = index.shape
     rows = np.concatenate([np.zeros((h, 1), np.uint8), index], axis=1)  # filter 0
-    with open(path, "wb") as f:
-        f.write(SIGNATURE)
-        f.write(_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3, 0, 0, 0)))
-        f.write(_chunk(b"PLTE", pal))
-        f.write(_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
-        f.write(_chunk(b"IEND", b""))
+    _write(path, rows, w, 3, _chunk(b"PLTE", pal))
 
 
 def _read_chunks(data: bytes):
@@ -138,23 +164,43 @@ def unfilter_plain(raw: np.ndarray, h: int, stride: int, bpp: int) -> np.ndarray
     return unfilter(types, filtered, bpp)
 
 
+def rgb_to_gray(rgb: np.ndarray) -> np.ndarray:
+    """(..., 3+) uint8 RGB → uint8 gray by libpng's 8-bit rgb_to_gray
+    (weights 0.299, 0.587 in 1/32768, truncated; no gamma)."""
+    r, g, b = (rgb[..., i].astype(np.uint32) for i in range(3))
+    return ((9797 * r + 19234 * g + 3737 * b) >> 15).astype(np.uint8)
+
+
+def _palette_colours(pixels: np.ndarray, palette: bytes | None, name: str) -> np.ndarray:
+    if palette is None:
+        raise ValueError(f"{name}: palette PNG without PLTE")
+    lut = np.zeros((256, 3), np.uint8)
+    colours = np.frombuffer(palette, np.uint8).reshape(-1, 3)
+    lut[:len(colours)] = colours
+    return lut[pixels[..., 0]]
+
+
 def decode_image(data: bytes, grayscale: bool = False, name: str = "PNG") -> np.ndarray:
     """PNG bytes → what ``cv2.imread`` gives for the file."""
     pixels, ctype, palette = decode(data)
-    if grayscale:
-        if ctype not in (0, 4):
-            raise ValueError(f"{name}: grayscale reading of a colour PNG is not supported")
-        return np.ascontiguousarray(pixels[..., 0])
-    if ctype in (0, 4):
-        return np.repeat(pixels[..., :1], 3, axis=2)
     if ctype == 3:
-        if palette is None:
-            raise ValueError(f"{name}: palette PNG without PLTE")
-        lut = np.zeros((256, 3), np.uint8)
-        colours = np.frombuffer(palette, np.uint8).reshape(-1, 3)
-        lut[:len(colours)] = colours
-        pixels = lut[pixels[..., 0]]
+        pixels = _palette_colours(pixels, palette, name)
+    if ctype in (0, 4):
+        if grayscale:
+            return np.ascontiguousarray(pixels[..., 0])
+        return np.repeat(pixels[..., :1], 3, axis=2)
+    if grayscale:
+        return rgb_to_gray(pixels)
     return np.ascontiguousarray(pixels[..., 2::-1])
+
+
+def decode_label(data: bytes, name: str = "PNG") -> np.ndarray:
+    """PNG bytes → (H, W) uint8 class or instance map: a palette file's
+    indices, any other file as ``decode_image(grayscale=True)``."""
+    pixels, ctype, _ = decode(data)
+    if ctype == 3:
+        return np.ascontiguousarray(pixels[..., 0])
+    return decode_image(data, grayscale=True, name=name)
 
 
 def imread(path: str, grayscale: bool = False) -> np.ndarray:

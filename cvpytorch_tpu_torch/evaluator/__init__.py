@@ -1,11 +1,11 @@
 """Evaluator factory (counterpart of ``cvpytorch_tpu/evaluator/__init__.py``):
 selects by ``cfg.EVALUATOR.NAME``.  The port has the COCO protocol
-for boxes and masks, the segmentation confusion matrix and the
-classification accuracies."""
+for boxes and masks, the VOC protocol for boxes, the segmentation
+confusion matrix and the classification accuracies."""
 from __future__ import annotations
 
 from ..registry import EVALUATORS
-from . import classification, coco, segmentation  # noqa: F401  (registers)
+from . import classification, coco, segmentation, voc  # noqa: F401  (registers)
 
 
 def build_evaluator(cfg, dataset=None):
@@ -18,6 +18,6 @@ def build_evaluator(cfg, dataset=None):
         kwargs["iou_types"] = tuple(ev_cfg.get("IOU_TYPES"))
     if name not in EVALUATORS:
         raise KeyError(f"evaluator {name!r} is not ported yet (ROADMAP, "
-                       "Queue 1); the port has classification, coco_detection and "
-                       "segmentation")
+                       "Queue 1); the port has classification, coco_detection, "
+                       "voc_detection and segmentation")
     return EVALUATORS.get(name)(dataset=dataset, **kwargs)

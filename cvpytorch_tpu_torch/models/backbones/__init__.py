@@ -6,7 +6,7 @@ import inspect
 
 from ...registry import BACKBONES
 
-from . import csp_darknet, mobilenetv2, resnet, shufflenetv2  # noqa: F401  (registers)
+from . import csp_darknet, mobilenetv2, resnet, seg_transformers, shufflenetv2  # noqa: F401  (registers)
 
 
 def build_backbone(cfg):

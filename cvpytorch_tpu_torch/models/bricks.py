@@ -1,7 +1,7 @@
 """Shared model building blocks (counterpart of
 ``cvpytorch_tpu/models/bricks.py``): channel/depth rounding, the
-activation table, ``BatchNorm2d``, ``ConvBNAct`` and
-``DepthwiseSeparableConv``.
+activation table, ``BatchNorm2d``, ``ConvBNAct``,
+``DepthwiseSeparableConv`` and ``DropPath``.
 
 ``nn.BatchNorm2d`` normalises with the biased batch variance and stores
 the unbiased one in ``running_var``, which is what the JAX package's
@@ -119,3 +119,23 @@ class DepthwiseSeparableConv(nn.Module):
 
     def forward(self, x):
         return self.pw(self.dw(x))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: in ``train()`` mode each sample's branch is kept
+    with probability 1 − ``rate`` and scaled by 1 / (1 − rate), else
+    zeroed (the JAX ``DropPath``'s ``where(mask, x / keep, 0)``).  The
+    mask is drawn from torch's generator of ``x``'s device, as
+    ``nn.Dropout`` draws."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+        mask = torch.empty(shape, device=x.device).bernoulli_(keep).bool()
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))

@@ -11,13 +11,15 @@ in ``train()`` mode only, as the JAX heads drop only with ``train=True``.
 The PSP and UPer pyramid pools are not ``AdaptiveAvgPool2d``: a scale that
 divides the map is an exact block mean, any other is ``jax.image.resize``'s
 "linear" downsampling, which antialiases (a triangle filter widened by the
-scale, weights renormalised at the edges).  That is
-``F.interpolate(..., "bilinear", antialias=True)``.
+scale, weights renormalised at the edges): ``resize_linear``, two matmuls
+with JAX's weights.
 """
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -34,12 +36,43 @@ def resize_bilinear(x, size):
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)
 
 
+@functools.lru_cache(maxsize=64)
+def _linear_weights(n_in: int, n_out: int) -> torch.Tensor:
+    """(n_in, n_out) float32 weights of ``jax.image.resize``'s "linear"
+    kernel along one axis (``jax._src.image.scale.compute_weight_mat``): a
+    triangle widened by the downscale factor, each column renormalised,
+    columns whose sample lies off the input zeroed."""
+    scale = n_out / n_in
+    sample = (np.arange(n_out) + 0.5) / scale - 0.5
+    x = np.abs(sample[None, :] - np.arange(n_in)[:, None]) / max(1.0 / scale, 1.0)
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1), 0.0)
+    w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
+    return torch.from_numpy(w.astype(np.float32))
+
+
+def resize_linear(x, size):
+    """NCHW ``jax.image.resize(..., "linear")``: bilinear with half-pixel
+    centres, antialiased when it downsamples, as two matmuls with the JAX
+    weights in float32 (float64 for a float64 ``x``), returned in ``x``'s
+    dtype.  ``F.interpolate(..., antialias=True)`` computes the same but
+    takes no bfloat16 on the CPU, and on the card refuses a large
+    downscale (64×128 → 1×1: too much shared memory)."""
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    wh = _linear_weights(x.shape[-2], size[0]).to(x.device, dtype)
+    ww = _linear_weights(x.shape[-1], size[1]).to(x.device, dtype)
+    with torch.autocast(x.device.type, enabled=False):
+        y = torch.einsum("nchw,hp,wq->ncpq", x.to(dtype), wh, ww)
+    return y.to(x.dtype)
+
+
 def pyramid_pool(x, s: int):
     """The JAX heads' adaptive pool to s×s (see the module docstring)."""
     h, w = x.shape[-2:]
     if h % s or w % s:
-        return F.interpolate(x, size=(s, s), mode="bilinear", align_corners=False,
-                             antialias=True)
+        return resize_linear(x, (s, s))
     return F.avg_pool2d(x, (h // s, w // s), (h // s, w // s))
 
 

@@ -6,6 +6,8 @@ submodules carry the Flax names, so the key map is a join of the path:
 
   params/…/conv/kernel (HWIO)     → ….conv.weight (OIHW, transpose(3,2,0,1))
   params/…/fc/kernel (in, out)    → ….fc.weight (out, in), transposed
+  params/…/linear/kernel (in, out) → ….linear.weight (out, in, 1, 1) where
+                                    the port's module is a 1×1 conv
   params/…/deconv/kernel (HWIO)   → ….deconv.weight (in, out, kh, kw),
                                     flipped: K[::-1, ::-1].transpose(2,3,0,1)
   params/…/<layer>/bias           → ….bias
@@ -13,8 +15,9 @@ submodules carry the Flax names, so the key map is a join of the path:
   batch_stats/…/bn/mean | bn/var  → ….bn.running_mean | ….bn.running_var
 
 The kernel rule follows the type of the port module that owns the tensor
-(``nn.Linear``, ``nn.ConvTranspose2d``, otherwise a convolution), because
-the three cannot be told apart by shape: a square Dense kernel and a
+(``nn.Linear``, a 1×1 ``nn.Conv2d`` given a Dense kernel,
+``nn.ConvTranspose2d``, otherwise a convolution), because
+they cannot be told apart by shape: a square Dense kernel and a
 ConvTranspose kernel with as many inputs as outputs pass the shape check
 under the wrong rule.  Flax's ``ConvTranspose`` (``transpose_kernel=False``)
 does not flip its kernel; ``nn.ConvTranspose2d`` is the gradient of a
@@ -70,6 +73,9 @@ def _convert(name: str, arr: np.ndarray, target: torch.Tensor,
     ``owner`` is the port module holding it (None: a convolution or BN)."""
     if isinstance(owner, nn.Linear) and arr.ndim == 2:  # (in, out) → (out, in)
         arr = arr.T
+    elif (isinstance(owner, nn.Conv2d) and owner.kernel_size == (1, 1)
+          and owner.groups == 1 and arr.ndim == 2):  # Dense (in, out) → (out, in, 1, 1)
+        arr = arr.T[:, :, None, None]
     elif isinstance(owner, nn.ConvTranspose2d) and arr.ndim == 4:
         arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # HWIO → (I, O, kh, kw)
     elif arr.ndim == 4:  # conv kernel HWIO → OIHW

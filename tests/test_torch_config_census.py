@@ -21,17 +21,23 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(ROOT, "conf", "*.yml")))
 
 # the configs the host detection transforms let build (every YOLOv5
-# config; coco_nanodetplus_m's RandomAffine), and one of each family before
+# config; coco_nanodetplus_m's RandomAffine), one of each family before,
+# and SegFormer (MiT-b0…b5) and SFNet (R18/50/101)
 NOW_BUILD = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "visdrone_yolov5",
              "coco_nanodetplus_m", "coco_nanodetplus", "mini-imagenet", "cityscapes_unet",
-             "coco_maskrcnn"]
+             "coco_maskrcnn"] + [f"cityscapes_segformer_b{i}" for i in range(6)] + [
+             f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)]
 
 
 # configs whose dataset class the port has: the COCO ones (CocoDetection,
-# CocoSegmentation) and the JPEG classification folders among them
+# CocoSegmentation), the JPEG classification folders, VOC and the
+# remaining datasets (widerface_faceboxes: its dataset, not its model)
 WITH_DATASET = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "coco_nanodetplus",
                 "coco_nanodetplus_m", "coco_maskrcnn", "mini-imagenet", "imagenet", "flower",
-                "hymenoptera", "pet", "cityscapes_unet"]
+                "hymenoptera", "pet", "cityscapes_unet", "ade20k_deeplabv3plus", "camvid_unet",
+                "pennfudan_maskrcnn", "pennfudan_fasterrcnn", "portrait", "portrait_unet",
+                "visdrone_yolov5", "voc_deeplabv3plus", "widerface_faceboxes",
+                "cityscapes_segformer_b2", "cityscapes_sfnet_r18"]
 
 
 def build(path):

@@ -383,9 +383,8 @@ def test_png_reader_undoes_every_filter_as_opencv_reads(tmp_path, filters, ctype
     decoded, got_type, _ = png.decode(open(path, "rb").read())
     assert got_type == ctype
     np.testing.assert_array_equal(decoded, pixels)
-    if ctype in (0, 4):
-        np.testing.assert_array_equal(png.imread(path, grayscale=True),
-                                      cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    np.testing.assert_array_equal(png.imread(path, grayscale=True),
+                                  cv2.imread(path, cv2.IMREAD_GRAYSCALE))
 
 
 @pytest.mark.parametrize("mode", ["RGB", "L", "RGBA", "LA", "P"])
@@ -431,8 +430,6 @@ def test_png_reader_refuses_what_it_does_not_read(tmp_path):
     with pytest.raises(ValueError, match="bit depth 16"):
         png.imread(path)
     cv2.imwrite(path, np.zeros((4, 5, 3), np.uint8))
-    with pytest.raises(ValueError, match="grayscale"):
-        png.imread(path, grayscale=True)
     data = bytearray(open(path, "rb").read())
     data[40] ^= 1  # inside IDAT
     with pytest.raises(ValueError, match="CRC"):

@@ -285,8 +285,8 @@ def test_aliases_resolve_and_missing_parts_name_the_roadmap():
     for alias in ("Deeplabv3Plus", "Deeplabv3", "PSPNet", "UPerNet", "SegFormer",
                   "src.models.segmentors.encoder_decoder.EncoderDecoder"):
         assert MODELS.get(alias) is EncoderDecoder
-    for key, block in (("BACKBONE", {"name": "MixVisionTransformer"}),
-                       ("HEAD", {"name": "SegFormerHead"})):
+    for key, block in (("BACKBONE", {"name": "MSCAN"}),
+                       ("HEAD", {"name": "LightHamHead"})):
         with pytest.raises(KeyError, match="ROADMAP"):
             EncoderDecoder(dictionary=DICTIONARY,
                            model_cfg=CommonConfiguration({**DEEPLAB, key: block}))

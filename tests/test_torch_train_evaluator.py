@@ -8,6 +8,7 @@ from cvpytorch_tpu_torch.evaluator import build_evaluator
 from cvpytorch_tpu_torch.config import CommonConfiguration
 from cvpytorch_tpu_torch.evaluator.coco import CocoEvaluator
 from cvpytorch_tpu_torch.evaluator.segmentation import SegmentationEvaluator
+from cvpytorch_tpu_torch.evaluator.voc import VOCEvaluator
 
 
 def batch(seed, B=4, M=6, K=12, C=3):
@@ -63,5 +64,7 @@ def test_build_evaluator_names():
     seg = build_evaluator(CommonConfiguration(
         {"EVALUATOR": {"NAME": "segmentation", "EVAL_TYPE": "mIoU"}}), DS())
     assert isinstance(seg, SegmentationEvaluator) and seg.num_classes == 3
+    voc = build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "voc_detection"}}), DS())
+    assert isinstance(voc, VOCEvaluator) and voc.num_classes == 3
     with pytest.raises(KeyError, match="ROADMAP"):
-        build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "voc_detection"}}), DS())
+        build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "keypoint"}}), DS())
