@@ -87,7 +87,17 @@
    the AMP and f32 steps with EMA (peak memory), the val and predict
    steps, and each model at B = 1 card vs CPU with dropout and DropPath
    off at the DeepLabV3+ gates; 0 ``nms_keep`` launches.
-6c. Dataset layouts (``dataset_layouts``): ``conf/pennfudan_maskrcnn.yml``
+6c. The transformer and light zoo, the same way, each config as written:
+   ``conf/cityscapes_segnext_b.yml`` (MSCAN-B, LightHamHead of 256
+   channels and NMF rank 64, batch 8; 4 steps, 8 served images, AMP and
+   f32 steps over 5 calls, card vs CPU at B = 1 with 7 NMF rounds in eval
+   mode and 6 in train mode), ``conf/cityscapes_incepformer_t.yml``
+   (IPT-T, UpConcatHead of 512 channels, batch 8, ``BACKBONE_LR``; 2
+   steps, card vs CPU; its AMP peak beside the GB of one stage-1 block's
+   float32 attention logits), ``conf/cityscapes_topformer_b.yml`` and
+   ``conf/cityscapes_regseg.yml`` (batch 16; 2 steps each): mIoU val of
+   16 images, one served batch, 0 ``nms_keep`` launches.
+6d. Dataset layouts (``dataset_layouts``): ``conf/pennfudan_maskrcnn.yml``
    on PennFudanPed PNG images and palette instance masks (2 steps at
    batch 4, bbox + segm val of 8 images: ``nms_keep`` 2 + 2 × 2),
    ``conf/voc_deeplabv3plus.yml`` on a VOCdevkit of JPEG copies, palette
@@ -164,8 +174,13 @@
    attention's float32 logits matmuls, its softmax, LayerNorm and GELU
    as named groups, the attention's forward as the ``mit_attention``
    range), SFNet-R18 (the flow warp's gathers and their scatter-add
-   backward), MobileNetV2 and NanoDet-Plus AMP train steps (NanoDet-Plus's
-   (96, 1024) NMS input among the kernel inputs).
+   backward), SegNeXt-B (the NMF's float32 matmuls and GELU kernels; in a
+   session of its own with shapes, the device time under the depthwise
+   strip, 5×5 and 3×3 convolutions, GroupNorm, GELU and the ``nmf``
+   range), IncepFormer-T (as SegFormer's, the attention's forward as the
+   ``incepformer_attention`` range), TopFormer-B, RegSeg, MobileNetV2 and
+   NanoDet-Plus AMP train steps (NanoDet-Plus's (96, 1024) NMS input
+   among the kernel inputs).
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -626,6 +641,34 @@ def profile_device(fn, steps: int = 3, top: int = 12, groups=None) -> dict:
                  "ms": e.self_device_time_total / 1e3 / steps,
                  "calls": e.count / steps} for e in kernels[:top]],
     }
+
+
+def operator_device_ms(fn, groups, steps: int = 3) -> dict:
+    """torch.profiler with shapes over ``steps`` calls of ``fn``: for each
+    of ``groups`` ({name: predicate(operator name, input shapes)}), the
+    device time per call of the kernels launched under the operators it
+    picks (their children's too) and its share of the session's busy
+    time.  A session of its own: recording shapes costs host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)) / 1e3 / steps
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
+    out = {"device_busy_ms": busy_ms}
+    for name, pick in groups.items():
+        ms = sum(e.device_time_total for e in events
+                 if pick(e.name, e.input_shapes or [])) / 1e3 / steps
+        out[name] = {"ms": ms, "share_of_busy": ms / busy_ms}
+    return out
 
 
 def path_phase(workdir: Path) -> dict:
@@ -1780,15 +1823,20 @@ def maskrcnn_card_vs_cpu(trainer, batches) -> dict:
 
 
 SEG_BATCH = {"deeplabv3plus": 8, "unet": 8, "segformer_b2": 8,  # each config's TRAIN and
-             "sfnet_r18": 16}                                    # VAL BATCH_SIZE
+             "sfnet_r18": 16, "segnext_b": 8, "incepformer_t": 8,  # VAL BATCH_SIZE
+             "topformer_b": 16, "regseg": 16}
 SEG_FRAME = [1024, 2048]  # a Cityscapes frame: RandomScaleCrop and Resize work on it
-SEG_VAL_IMAGES = 16  # one val epoch of 2 batches (1 at SFNet's 16)
-SEG_STEPS = {"deeplabv3plus": 4, "unet": 2, "segformer_b2": 4, "sfnet_r18": 2}  # one epoch each
+SEG_VAL_IMAGES = 16  # one val epoch of 2 batches (1 at a batch of 16)
+SEG_STEPS = {"deeplabv3plus": 4, "unet": 2, "segformer_b2": 4, "sfnet_r18": 2,  # one epoch
+             "segnext_b": 4, "incepformer_t": 2, "topformer_b": 2, "regseg": 2}  # each
+SEG_TIMED_CALLS = {"deeplabv3plus": 5, "segformer_b2": 5, "segnext_b": 5}  # else 3
 SEG_CARD_VS_CPU = {"deeplabv3plus": "DeepLabV3+ R50", "segformer_b2": "SegFormer MiT-B2",
-                   "sfnet_r18": "SFNet R18"}
-# the EMA of the SegFormer and SFNet configs in their timed and profiled
-# steps (the DeepLabV3+ and UNet phases time theirs without, as before)
-SEG_EMA = {"segformer_b2": 0.9999, "sfnet_r18": 0.9999}
+                   "sfnet_r18": "SFNet R18", "segnext_b": "SegNeXt MSCAN-B",
+                   "incepformer_t": "IncepFormer IPT-T"}
+# the EMA of the configs that set it, in their timed and profiled steps
+# (the DeepLabV3+ and UNet phases time theirs without, as before)
+SEG_EMA = {name: 0.9999 for name in ("segformer_b2", "sfnet_r18", "segnext_b",
+                                     "incepformer_t", "topformer_b", "regseg")}
 # SegFormer's named groups of device kernels: under AMP the attention
 # logits are its only float32 matmuls (forward and backward), its softmax
 # the only last-dim one (the loss's log-softmax is spatial), and the
@@ -1803,6 +1851,48 @@ SEGFORMER_GROUPS = {"attention_logits_f32_gemm": re.compile(r"^(?!.*(bf16|fp16|h
 # SFNet's flow warp: four gathers a warp and their scatter-add backward,
 # which run one kernel template (its name holds both words)
 SFNET_GROUPS = {"flow_warp_gather_and_scatter_add": re.compile(r"gather", re.I)}
+# SegNeXt under AMP: the NMF's matmuls are its only float32 ones (forward
+# and backward; the NMF's forward is also the ``nmf`` range)
+SEGNEXT_GROUPS = {"nmf_f32_gemm": SEGFORMER_GROUPS["attention_logits_f32_gemm"],
+                  "gelu": SEGFORMER_GROUPS["gelu"]}
+# IncepFormer under AMP: its unscaled attention's float32 logits matmuls
+# (forward and backward) and softmax, the pooled tokens' LayerNorm, GELU;
+# the attention's forward is also the ``incepformer_attention`` range
+PROFILE_GROUPS = {"segformer_b2": SEGFORMER_GROUPS, "sfnet_r18": SFNET_GROUPS,
+                  "segnext_b": SEGNEXT_GROUPS, "incepformer_t": SEGFORMER_GROUPS}
+
+
+def _depthwise(name: str, shapes) -> bool:
+    """A depthwise convolution's forward or backward operator with a
+    spatial kernel: the weight (C, 1, kh, kw), C > 1, kh·kw > 1 (input 1
+    of ``aten::convolution``, 2 of ``aten::convolution_backward``)."""
+    at = {"aten::convolution": 1, "aten::convolution_backward": 2}.get(name)
+    if at is None or len(shapes) <= at or len(shapes[at]) != 4:
+        return False
+    c, i, kh, kw = shapes[at]
+    return c > 1 and i == 1 and kh * kw > 1
+
+
+# SegNeXt's operator groups, forward and backward: the depthwise strip,
+# 5×5 and 3×3 convolutions, GroupNorm, GELU, and the NMF's forward range
+SEGNEXT_OPS = {
+    "depthwise_convs": _depthwise,
+    "group_norm": lambda name, _: name in ("aten::native_group_norm",
+                                           "aten::native_group_norm_backward"),
+    "gelu": lambda name, _: name in ("aten::gelu", "aten::gelu_backward"),
+    "nmf_forward_range": lambda name, _: name == "nmf",
+}
+
+
+def incepformer_logits_gb(model, images) -> float:
+    """GB of one stage-1 block's float32 attention logits (B, heads, N, M)
+    at these images: N the /4 map's tokens, M the three poolings' (two
+    of ⌈·/r⌉², one of ⌊·/r⌋²)."""
+    attn = model.backbone.block1_0.attn
+    B, H, W = images.shape[:3]
+    h, w, r = -(-H // 4), -(-W // 4), attn.down_ratio
+    m = 2 * -(-h // r) * -(-w // r) + (h // r) * (w // r)
+    return B * attn.heads * h * w * m * 4 / 1e9
 
 
 def seg_config(workdir: Path, name: str) -> Path:
@@ -2704,9 +2794,11 @@ def main() -> int:
             result, seg_trainer = seg_phase(Path(tmp) / f"seg_{name}", name)
             print(json.dumps({name: result, "card": card}), flush=True)
             steps_timed, states, batches = milestone_timing(
-                seg_trainer, SEG_BATCH[name], None,
-                iters=5 if name in ("deeplabv3plus", "segformer_b2") else 3,
+                seg_trainer, SEG_BATCH[name], None, iters=SEG_TIMED_CALLS.get(name, 3),
                 ema_decay=SEG_EMA.get(name, 0.0))
+            if name == "incepformer_t":  # the AMP peak beside what the logits take
+                steps_timed["stage1_attention_logits_gb_per_block"] = \
+                    incepformer_logits_gb(seg_trainer.model, batches["train"]["image"])
             print(json.dumps({f"{name}_timing": steps_timed, "card": card}), flush=True)
             if name == "deeplabv3plus":  # the configs share the host pipelines
                 print(json.dumps({"seg_host_timing": host_pipeline_timing(seg_trainer),
@@ -2793,11 +2885,13 @@ def main() -> int:
         for name, run in seg.items():
             torch.cuda.empty_cache()
             seg_step = make_train_step(amp=True, ema_decay=SEG_EMA.get(name, 0.0))
-            groups = {"segformer_b2": SEGFORMER_GROUPS, "sfnet_r18": SFNET_GROUPS}.get(name)
             prof = profile_device(lambda: seg_step(run["state"], run["batch"]), steps=3, top=15,
-                                  groups=groups)
+                                  groups=PROFILE_GROUPS.get(name))
             prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / run[
                 "timing"]["amp_step_ms"]
+            if name == "segnext_b":
+                prof["operator_groups"] = operator_device_ms(
+                    lambda: seg_step(run["state"], run["batch"]), SEGNEXT_OPS)
             print(json.dumps({f"{name}_amp_train_step_profile": prof, "card": card}),
                   flush=True)
         # each config's batch and its bench milestone's (bs256, bs128)

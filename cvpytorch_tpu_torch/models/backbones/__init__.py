@@ -6,7 +6,8 @@ import inspect
 
 from ...registry import BACKBONES
 
-from . import csp_darknet, mobilenetv2, resnet, seg_transformers, shufflenetv2  # noqa: F401  (registers)
+from . import (  # noqa: F401  (registers)
+    csp_darknet, mobilenetv2, resnet, seg_light, seg_transformers, shufflenetv2)
 
 
 def build_backbone(cfg):

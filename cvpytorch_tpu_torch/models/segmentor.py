@@ -34,8 +34,12 @@ def _not_ported(kind: str, name: str) -> KeyError:
 
 
 def feature_channels(backbone: nn.Module) -> list[int]:
-    """Channels of each feature the backbone returns (its ``out_stages``,
-    1-based, of its per-stage ``channels``)."""
+    """Channels of each feature the backbone returns: its ``out_channels``
+    where it declares them (TopFormer's 0-based positions, each of
+    ``out_ch`` channels; RegSeg's renumbered stages), else its 1-based
+    ``out_stages`` of its per-stage ``channels``."""
+    if hasattr(backbone, "out_channels"):
+        return list(backbone.out_channels)
     if not (hasattr(backbone, "channels") and hasattr(backbone, "out_stages")):
         raise _not_ported("segmentation backbone", type(backbone).__name__)
     return [backbone.channels[s - 1] for s in backbone.out_stages]

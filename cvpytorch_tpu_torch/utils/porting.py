@@ -13,6 +13,9 @@ submodules carry the Flax names, so the key map is a join of the path:
   params/…/<layer>/bias           → ….bias
   params/…/bn/scale | bn/bias     → ….bn.weight | ….bn.bias
   batch_stats/…/bn/mean | bn/var  → ….bn.running_mean | ….bn.running_var
+  params/…/<name> (any other leaf) → ….<name>, where the port holds an
+                                    ``nn.Parameter`` of that name (MSCAN's
+                                    layer scales ``ls1``/``ls2``), as is
 
 The kernel rule follows the type of the port module that owns the tensor
 (``nn.Linear``, a 1×1 ``nn.Conv2d`` given a Dense kernel,
@@ -88,17 +91,27 @@ def _convert(name: str, arr: np.ndarray, target: torch.Tensor,
     return arr
 
 
+def port_name(coll: str, path: tuple, parameters) -> str | None:
+    """The port's name of the tree leaf ``coll``/``path``: by the leaf
+    tables, else (``params`` only) the path itself where ``parameters``
+    (the port's parameter names) holds it; None where neither applies."""
+    leaf = (_PARAM_LEAVES if coll == "params" else _STAT_LEAVES).get(path[-1])
+    if leaf:
+        return ".".join(path[:-1] + (leaf,))
+    name = ".".join(path)
+    return name if coll == "params" and name in parameters else None
+
+
 def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
     """Copy a Flax ``{'params', 'batch_stats'}`` tree into ``model`` in place."""
     state = {k: v for k, v in model.state_dict().items()
              if not k.endswith("num_batches_tracked")}
+    parameters = dict(model.named_parameters())
     owners = dict(model.named_modules())
     unmatched, seen = [], set()
-    for coll, leaves in (("params", _PARAM_LEAVES),
-                         ("batch_stats", _STAT_LEAVES)):
+    for coll in ("params", "batch_stats"):
         for path, arr in _flatten(variables.get(coll, {})):
-            leaf = leaves.get(path[-1])
-            name = ".".join(path[:-1] + (leaf,)) if leaf else None
+            name = port_name(coll, path, parameters)
             if name not in state:
                 unmatched.append("/".join((coll,) + path))
                 continue

@@ -22,11 +22,15 @@ CONFIGS = sorted(glob.glob(os.path.join(ROOT, "conf", "*.yml")))
 
 # the configs the host detection transforms let build (every YOLOv5
 # config; coco_nanodetplus_m's RandomAffine), one of each family before,
-# and SegFormer (MiT-b0…b5) and SFNet (R18/50/101)
+# SegFormer (MiT-b0…b5) and SFNet (R18/50/101), and SegNeXt (MSCAN-T/S/B/L),
+# IncepFormer (T/S/B), TopFormer (T/S/B) and RegSeg
+SEG_ZOO = ([f"cityscapes_segnext_{s}" for s in "tsbl"]
+           + [f"cityscapes_incepformer_{s}" for s in "tsb"]
+           + [f"cityscapes_topformer_{s}" for s in "tsb"] + ["cityscapes_regseg"])
 NOW_BUILD = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "visdrone_yolov5",
              "coco_nanodetplus_m", "coco_nanodetplus", "mini-imagenet", "cityscapes_unet",
              "coco_maskrcnn"] + [f"cityscapes_segformer_b{i}" for i in range(6)] + [
-             f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)]
+             f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)] + SEG_ZOO
 
 
 # configs whose dataset class the port has: the COCO ones (CocoDetection,
@@ -37,7 +41,7 @@ WITH_DATASET = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "coco_nanodetpl
                 "hymenoptera", "pet", "cityscapes_unet", "ade20k_deeplabv3plus", "camvid_unet",
                 "pennfudan_maskrcnn", "pennfudan_fasterrcnn", "portrait", "portrait_unet",
                 "visdrone_yolov5", "voc_deeplabv3plus", "widerface_faceboxes",
-                "cityscapes_segformer_b2", "cityscapes_sfnet_r18"]
+                "cityscapes_segformer_b2", "cityscapes_sfnet_r18"] + SEG_ZOO
 
 
 def build(path):

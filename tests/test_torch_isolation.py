@@ -45,7 +45,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "'models.nanodet_plus', 'native', 'data.jpeg', 'data.image_io', "
         "'data.datasets.coco', 'data.datasets.voc', 'data.datasets.misc_datasets', "
         "'data.layouts', 'evaluator.voc', 'models.heads.seg_heads_extra', "
-        "'models.backbones.seg_transformers'):\n"
+        "'models.backbones.seg_transformers', 'models.backbones.seg_light'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )
