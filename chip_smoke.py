@@ -97,6 +97,25 @@
    float32 attention logits), ``conf/cityscapes_topformer_b.yml`` and
    ``conf/cityscapes_regseg.yml`` (batch 16; 2 steps each): mIoU val of
    16 images, one served batch, 0 ``nms_keep`` launches.
+6e. The self-contained segmenters, the same way, each config as written:
+   ``conf/cityscapes_stdc.yml`` (STDCNet-1, OHEM + detail loss, batch 16,
+   EMA, clip 10; 4 steps, 16 val images, 8 served, AMP and f32 steps over
+   5 calls, card vs CPU at B = 1; the detail target is the
+   ``detail_target`` range of its profile), ``conf/cityscapes_ppliteseg.yml``
+   and ``conf/cityscapes_sgcpnet.yml`` (batch 16), ``conf/cityscapes_enet.yml``
+   and ``conf/cityscapes_segnet.yml`` (batch 8; SegNet trains on BCE of
+   logit channel 0), 2 steps each with 16 val images and the AMP step
+   timed; STDC and these four also count the AMP step's FLOPs
+   (``torch.utils.flop_counter``: matmuls and convolutions, forward and
+   backward) for an achieved TFLOP/s.  ENet and SegNet run the card vs
+   CPU check with the CPU's pool indices handed to the card
+   (``SharedPools``): the card's own indices differ only in windows whose
+   two largest taps lie within 1e-5 of the map's largest |value| (their
+   share is reported), and ``max_unpool`` on the CPU's values and indices
+   equals the CPU's bit for bit.  ``conf/cityscapes_icnet.yml`` (ResNet-50
+   run twice a step), ``conf/cityscapes_lednet.yml`` and
+   ``conf/cityscapes_lspnet.yml``: one step and one val batch each, one
+   served batch.  0 ``nms_keep`` launches on all eight.
 6d. Dataset layouts (``dataset_layouts``): ``conf/pennfudan_maskrcnn.yml``
    on PennFudanPed PNG images and palette instance masks (2 steps at
    batch 4, bbox + segm val of 8 images: ``nms_keep`` 2 + 2 × 2),
@@ -178,7 +197,10 @@
    session of its own with shapes, the device time under the depthwise
    strip, 5×5 and 3×3 convolutions, GroupNorm, GELU and the ``nmf``
    range), IncepFormer-T (as SegFormer's, the attention's forward as the
-   ``incepformer_attention`` range), TopFormer-B, RegSeg, MobileNetV2 and
+   ``incepformer_attention`` range), TopFormer-B, RegSeg, STDC (the
+   ``detail_target`` range's share of the busy time), PP-LiteSeg, SGCPNet,
+   ENet and SegNet (the pools' and unpools' kernels as named groups),
+   MobileNetV2 and
    NanoDet-Plus AMP train steps (NanoDet-Plus's (96, 1024) NMS input
    among the kernel inputs).
 
@@ -188,6 +210,7 @@ printing no result, without CUDA or outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -212,6 +235,16 @@ PEAK_BYTES_PER_S = 3.35e12
 # (inter), add + sub (union), add (eps), div, compare
 IOU_FLOPS = 14
 IOU_THR = 0.6  # YOLOv5's serving iou_threshold (models/yolov5.py)
+
+
+START = time.perf_counter()
+
+
+def mark(after: str) -> None:
+    """Prints the seconds since the script started, after a phase: where
+    the run's time limit goes."""
+    print(json.dumps({"elapsed_s": round(time.perf_counter() - START, 1), "after": after}),
+          flush=True)
 
 
 def gpu_name_and_power() -> str:
@@ -1626,14 +1659,25 @@ def maskrcnn_phase(workdir: Path) -> tuple[dict, object]:
     }, trainer
 
 
+def step_tflop(fn) -> float:
+    """TFLOP of one call of ``fn`` as torch's FLOP counter counts them:
+    matmuls and convolutions, forward and backward."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops() / 1e12
+
+
 def train_step_timing(trainer, batch, n: int, iters: int,
-                      ema_decay: float = 0.0) -> tuple[dict, object]:
+                      ema_decay: float = 0.0, amp_only: bool = False) -> tuple[dict, object]:
     """The AMP and f32 train steps on ``batch`` (``n`` images, already on
     the card) from the same seeded weights, by CUDA events over ``iters``
     steps after 2 warm-up steps, and the peak memory of each; an f32 step
     that does not fit is reported and skipped, an AMP step that does not
-    fit fails.  ``ema_decay`` > 0 keeps an EMA copy, as the recipe does.
-    Returns the numbers and the AMP run's state."""
+    fit fails.  ``ema_decay`` > 0 keeps an EMA copy, as the recipe does;
+    ``amp_only`` leaves the f32 step out.  Returns the numbers and the AMP
+    run's state."""
     import torch
 
     from cvpytorch_tpu_torch.infer import build_model
@@ -1649,7 +1693,7 @@ def train_step_timing(trainer, batch, n: int, iters: int,
                                   use_ema=ema_decay > 0)
 
     out = {"batch": n}
-    for name, amp in (("amp", True), ("f32", False)):
+    for name, amp in (("amp", True),) + ((("f32", False),) if not amp_only else ()):
         torch.cuda.empty_cache()
         state = fresh_state()
         step = make_train_step(amp=amp, ema_decay=ema_decay)
@@ -1824,19 +1868,32 @@ def maskrcnn_card_vs_cpu(trainer, batches) -> dict:
 
 SEG_BATCH = {"deeplabv3plus": 8, "unet": 8, "segformer_b2": 8,  # each config's TRAIN and
              "sfnet_r18": 16, "segnext_b": 8, "incepformer_t": 8,  # VAL BATCH_SIZE
-             "topformer_b": 16, "regseg": 16}
+             "topformer_b": 16, "regseg": 16, "stdc": 16, "ppliteseg": 16, "sgcpnet": 16,
+             "enet": 8, "segnet": 8, "icnet": 16, "lednet": 8, "lspnet": 16}
 SEG_FRAME = [1024, 2048]  # a Cityscapes frame: RandomScaleCrop and Resize work on it
 SEG_VAL_IMAGES = 16  # one val epoch of 2 batches (1 at a batch of 16)
+SEG_VAL = {"lednet": 8}  # one val batch of the one-step paths; else SEG_VAL_IMAGES
+SEG_SERVED = {"stdc": 8}  # images served through infer.main; else one batch
 SEG_STEPS = {"deeplabv3plus": 4, "unet": 2, "segformer_b2": 4, "sfnet_r18": 2,  # one epoch
-             "segnext_b": 4, "incepformer_t": 2, "topformer_b": 2, "regseg": 2}  # each
-SEG_TIMED_CALLS = {"deeplabv3plus": 5, "segformer_b2": 5, "segnext_b": 5}  # else 3
+             "segnext_b": 4, "incepformer_t": 2, "topformer_b": 2, "regseg": 2,  # each
+             "stdc": 4, "ppliteseg": 2, "sgcpnet": 2, "enet": 2, "segnet": 2,
+             "icnet": 1, "lednet": 1, "lspnet": 1}
+SEG_TIMED_CALLS = {"deeplabv3plus": 5, "segformer_b2": 5, "segnext_b": 5,  # else 3
+                   "stdc": 5}
+# the paths that run once on the card and are not timed or profiled, and
+# those whose f32 step is not timed
+SEG_UNTIMED = ("icnet", "lednet", "lspnet")
+SEG_AMP_ONLY = ("ppliteseg", "sgcpnet", "enet", "segnet")
+SEG_COUNT_FLOPS = ("stdc",) + SEG_AMP_ONLY  # the slice's timed paths: achieved TFLOP/s
 SEG_CARD_VS_CPU = {"deeplabv3plus": "DeepLabV3+ R50", "segformer_b2": "SegFormer MiT-B2",
                    "sfnet_r18": "SFNet R18", "segnext_b": "SegNeXt MSCAN-B",
-                   "incepformer_t": "IncepFormer IPT-T"}
+                   "incepformer_t": "IncepFormer IPT-T", "stdc": "STDC STDCNet-1",
+                   "enet": "ENet", "segnet": "SegNet"}
 # the EMA of the configs that set it, in their timed and profiled steps
 # (the DeepLabV3+ and UNet phases time theirs without, as before)
 SEG_EMA = {name: 0.9999 for name in ("segformer_b2", "sfnet_r18", "segnext_b",
-                                     "incepformer_t", "topformer_b", "regseg")}
+                                     "incepformer_t", "topformer_b", "regseg", "stdc",
+                                     "ppliteseg", "sgcpnet", "enet", "segnet")}
 # SegFormer's named groups of device kernels: under AMP the attention
 # logits are its only float32 matmuls (forward and backward), its softmax
 # the only last-dim one (the loss's log-softmax is spatial), and the
@@ -1858,8 +1915,13 @@ SEGNEXT_GROUPS = {"nmf_f32_gemm": SEGFORMER_GROUPS["attention_logits_f32_gemm"],
 # IncepFormer under AMP: its unscaled attention's float32 logits matmuls
 # (forward and backward) and softmax, the pooled tokens' LayerNorm, GELU;
 # the attention's forward is also the ``incepformer_attention`` range
+# SegNet and ENet: the pools' taps (stack, amax, argmax) and the unpools'
+# scatter_reduce and gather, forward and backward
+POOL_GROUPS = {"pool_unpool_scatter_gather": re.compile(r"scatter|gather", re.I),
+               "pool_reduce_and_argmax": re.compile(r"reduce_kernel.*(max|Max)|argmax|ArgMax")}
 PROFILE_GROUPS = {"segformer_b2": SEGFORMER_GROUPS, "sfnet_r18": SFNET_GROUPS,
-                  "segnext_b": SEGNEXT_GROUPS, "incepformer_t": SEGFORMER_GROUPS}
+                  "segnext_b": SEGNEXT_GROUPS, "incepformer_t": SEGFORMER_GROUPS,
+                  "segnet": POOL_GROUPS, "enet": POOL_GROUPS}
 
 
 def _depthwise(name: str, shapes) -> bool:
@@ -1915,8 +1977,8 @@ def seg_config(workdir: Path, name: str) -> Path:
     if data.TRAIN.BATCH_SIZE != SEG_BATCH[name] or data.VAL.BATCH_SIZE != SEG_BATCH[name]:
         raise AssertionError(f"cityscapes_{name}: BATCH_SIZE {data.TRAIN.BATCH_SIZE}")
     data.TRAIN.update({**synthetic, "LENGTH": SEG_BATCH[name] * SEG_STEPS[name]})
-    data.VAL.update({**synthetic, "LENGTH": SEG_VAL_IMAGES})
-    data.INFER = {**dict(data.VAL), "LENGTH": SEG_BATCH[name]}
+    data.VAL.update({**synthetic, "LENGTH": SEG_VAL.get(name, SEG_VAL_IMAGES)})
+    data.INFER = {**dict(data.VAL), "LENGTH": SEG_SERVED.get(name, SEG_BATCH[name])}
     cfg.EVALUATOR.EVAL_INTERVALS = 1
     cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
                 "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
@@ -1940,6 +2002,7 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
     from cvpytorch_tpu_torch.train_state import make_predict_step
 
     steps, batch = SEG_STEPS[name], SEG_BATCH[name]
+    n_served = SEG_SERVED.get(name, batch)
     workdir.mkdir()
     setting = seg_config(workdir, name)
     trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
@@ -1968,13 +2031,13 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
     infer.main(["--setting", str(setting), "--checkpoint",
                 str(Path(trainer.checkpoints.save_dir) / "last.pt"), "--out", str(out_dir)])
     files = sorted(out_dir.iterdir())
-    if [f.name for f in files] != [f"{i:06d}.png" for i in range(batch)]:
+    if [f.name for f in files] != [f"{i:06d}.png" for i in range(n_served)]:
         raise AssertionError(f"served files {[f.name for f in files]}")
     infer_cfg = trainer.cfg.DATASET.INFER
     infer_ds = DATASETS.get(trainer.cfg.DATASET.CLASS)(
         data_cfg=infer_cfg, dictionary=trainer.dictionary, stage="infer",
         transform=build_transforms("SEG_CLASSES", infer_cfg.get("TRANSFORMS"), "infer"))
-    images = torch.from_numpy(next(iter(DataLoader(infer_ds, batch)))["image"]).cuda()
+    images = torch.from_numpy(next(iter(DataLoader(infer_ds, n_served)))["image"]).cuda()
     served = state.ema if state.ema is not None else state.model  # what the checkpoint serves
     want = make_predict_step(served)(images).cpu().numpy()
     palette = bytes(infer.CITYSCAPES_PALETTE)
@@ -1986,7 +2049,7 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
             raise AssertionError(f"{f.name}: {int((index[..., 0] != w).sum())} pixels "
                                  "differ from the predict step's argmax")
     classes = len(np.unique(want))
-    print(f"infer.main on the trained {name}: {batch} palette PNGs of {want.shape[1:]} "
+    print(f"infer.main on the trained {name}: {n_served} palette PNGs of {want.shape[1:]} "
           f"equal to the predict step's argmax ({classes} classes present)", flush=True)
     return {
         "steps": steps,
@@ -2000,7 +2063,7 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
         "val_evaluator_s": times["evaluator"],
         "val_evaluator_share": times["evaluator"] / times["val_epoch"][0],
         "val_mIoU": val_metrics["mIoU"],
-        "served_images": batch,
+        "served_images": n_served,
         "served_classes_present": classes,
     }, trainer
 
@@ -2064,18 +2127,119 @@ def host_pipeline_timing(trainer, n_items: int = 4) -> dict:
     return out
 
 
+def window_gaps(x, kernel: int, stride: int, padding: int, where) -> "torch.Tensor":
+    """The gap between the two largest taps of the pooling windows at
+    ``where`` (a bool mask of the pooled map) of ``x``, padded taps −inf."""
+    import torch
+    import torch.nn.functional as F
+
+    Ho, Wo = where.shape[-2:]
+    xp = F.pad(x, (padding,) * 4, value=float("-inf")) if padding else x
+    taps = torch.stack([xp[:, :, dy:dy + stride * (Ho - 1) + 1:stride,
+                           dx:dx + stride * (Wo - 1) + 1:stride]
+                        for dy in range(kernel) for dx in range(kernel)], -1)
+    top2 = taps[where].topk(2, -1).values
+    return top2[:, 0] - top2[:, 1]
+
+
+class SharedPools:
+    """Records the pools and unpools of ``models.segnet_enet`` on one
+    device, and replays the recorded pool indices on another: there each
+    pool computes its own values and indices, keeps its indices for the
+    comparison, and hands the model the recorded ones.  Near-equal window
+    maxima (ties within the two devices' rounding) then cannot move whole
+    unpooled values between the two runs."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.pools, self.unpools = [], []
+
+    def __enter__(self):
+        from cvpytorch_tpu_torch.models import segnet_enet
+        from cvpytorch_tpu_torch.ops import pool
+
+        def max_pool_argmax(x, kernel, stride, padding):
+            values, idx = pool.max_pool_argmax(x, kernel, stride, padding)
+            self.pools.append((x.detach().float().cpu(), (kernel, stride, padding),
+                               idx.cpu()))
+            if self.replay is not None:
+                idx = self.replay.pools[len(self.pools) - 1][2].to(x.device)
+            return values, idx
+
+        def max_unpool(values, indices, out_hw):
+            out = pool.max_unpool(values, indices, out_hw)
+            self.unpools.append((values.detach().cpu(), indices.cpu(), tuple(out_hw),
+                                 out.detach().cpu()))
+            return out
+
+        self.module = segnet_enet
+        self.saved = segnet_enet.max_pool_argmax, segnet_enet.max_unpool
+        segnet_enet.max_pool_argmax, segnet_enet.max_unpool = max_pool_argmax, max_unpool
+        return self
+
+    def __exit__(self, *exc):
+        self.module.max_pool_argmax, self.module.max_unpool = self.saved
+
+
+def shared_pool_check(cpu: SharedPools, card: SharedPools) -> dict:
+    """The card's own pool indices against the CPU's: their share that
+    differs, and ``near_ties_only``: each differing index in a window
+    whose two largest taps (on the CPU's input) lie within 1e-5 of the
+    map's largest |value| of each other, or within twice the map's largest
+    card-vs-CPU difference (a train-mode BN over a near-constant channel
+    of the synthetic frames amplifies the rounding: SegNet's train-mode
+    pool inputs lie 2e-4 to 5e-3 of the map's largest value apart on the
+    H100, its eval-mode ones ~1e-6); and the card's
+    ``max_unpool`` on the CPU's values and indices equal to the CPU's bit
+    for bit."""
+    import torch
+
+    differ, total, near_ties_only, calls = 0, 0, True, []
+    for (x, args, want), (x_card, _, got) in zip(cpu.pools, card.pools):
+        where = got != want
+        total += want.numel()
+        scale = float(x.abs().max())
+        call = {"shape": list(x.shape), "differing": int(where.sum()),
+                "input_max_rel_err": float((x_card - x).abs().max()) / scale}
+        if where.any():
+            differ += call["differing"]
+            call["max_gap_over_map_max"] = float(window_gaps(x, *args, where).max()) / scale
+            near_ties_only &= call["max_gap_over_map_max"] <= max(
+                1e-5, 2 * call["input_max_rel_err"])
+        calls.append(call)
+    if len(cpu.pools) != len(card.pools) or not cpu.unpools:
+        raise AssertionError(f"{len(cpu.pools)} pools on the CPU, {len(card.pools)} on the "
+                             f"card, {len(cpu.unpools)} unpools")
+    out = {"pool_calls": calls, "pool_indices": total,
+           "pool_indices_differing": differ, "pool_indices_differing_share": differ / total,
+           "near_ties_only": near_ties_only, "unpool_calls": len(cpu.unpools)}
+    for values, indices, out_hw, want in cpu.unpools:
+        from cvpytorch_tpu_torch.ops.pool import max_unpool
+
+        got = max_unpool(values.cuda(), indices.cuda(), out_hw).cpu()
+        if not torch.equal(got, want):
+            raise AssertionError(f"max_unpool on shared inputs differs card vs CPU at "
+                                 f"{tuple(values.shape)} -> {out_hw}")
+    out["unpool_on_shared_inputs_bit_exact"] = True
+    return out
+
+
 def seg_card_vs_cpu(trainer, batches, label: str) -> dict:
     """The config's model (``label``) at 512×1024, B = 1, f32 with TF32
     off, from the same seeded weights on the card and on the CPU, dropout
-    and DropPath off: in eval mode the logits within 1e-4 of their largest
-    value and the argmax equal on at least 99.9 % of the pixels; the
-    losses of a train-mode forward (BN on the statistics of the one image)
-    within 1e-3 relative."""
+    and DropPath off: in eval mode the logits (``model.logits``, what the
+    infer argmax takes) within 1e-4 of their largest value and the argmax
+    equal on at least 99.9 % of the pixels; the losses of a train-mode
+    forward (BN on the statistics of the one image) within 1e-3 relative.
+    SegNet and ENet run the card with the CPU's pool indices
+    (``SharedPools``); their own indices are held to the CPU's up to
+    near-ties, and the unpool on shared inputs bit for bit."""
     import copy
 
     import torch
 
     from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.models import segnet_enet
     from cvpytorch_tpu_torch.models.bricks import DropPath
 
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
@@ -2084,20 +2248,24 @@ def seg_card_vs_cpu(trainer, batches, label: str) -> dict:
     target = batches["train"]["target"][:1]
     torch.manual_seed(0)
     base = build_model(trainer.cfg, trainer.dictionary)
+    pools = isinstance(base, (segnet_enet.SegNet, segnet_enet.ENet))
     for m in base.modules():
-        if isinstance(m, torch.nn.Dropout):
+        if isinstance(m, torch.nn.modules.dropout._DropoutNd):
             m.p = 0.0
         elif isinstance(m, DropPath):
             m.rate = 0.0
-    seen = {}
+    seen, recorded = {}, {}
     for device in ("cpu", "cuda"):
         model = copy.deepcopy(base).to(device, memory_format=torch.channels_last)
         x = image.to(device)
         with torch.no_grad():
-            model.eval()
-            logits = model._logits(model.head, model.backbone(x.permute(0, 3, 1, 2)),
-                                   x.shape[1:3])
-            _, losses = model.train()(x, target.to(device), mode="train")
+            with SharedPools(recorded.get(("cpu", "eval"))) if pools else \
+                    contextlib.nullcontext() as eval_pools:
+                logits = model.eval().logits(x)
+            with SharedPools(recorded.get(("cpu", "train"))) if pools else \
+                    contextlib.nullcontext() as train_pools:
+                _, losses = model.train()(x, target.to(device), mode="train")
+        recorded[device, "eval"], recorded[device, "train"] = eval_pools, train_pools
         seen[device] = {"logits": logits.cpu(), "losses": {k: float(v) for k, v in losses.items()}}
     cpu, card = seen["cpu"], seen["cuda"]
     out = {
@@ -2108,7 +2276,15 @@ def seg_card_vs_cpu(trainer, batches, label: str) -> dict:
         "train_loss_rel": {k: abs(card["losses"][k] - v) / max(abs(v), 1e-12)
                            for k, v in cpu["losses"].items()},
         "train_loss_cpu": cpu["losses"], "train_loss_card": card["losses"]}
+    if pools:
+        out["shared_pools_eval"] = shared_pool_check(recorded["cpu", "eval"],
+                                                     recorded["cuda", "eval"])
+        out["shared_pools_train"] = shared_pool_check(recorded["cpu", "train"],
+                                                      recorded["cuda", "train"])
     print(f"{label} card vs CPU, f32, B=1, 512x1024: {json.dumps(out)}", flush=True)
+    if pools and not (out["shared_pools_eval"]["near_ties_only"]
+                      and out["shared_pools_train"]["near_ties_only"]):
+        raise AssertionError(f"a pool index differs card vs CPU off a near-tie: {out}")
     if not (out["logits_max_rel_err"] <= 1e-4 and out["argmax_equal_share"] >= 0.999):
         raise AssertionError(f"eval-mode logits differ, card vs CPU: {out}")
     if not max(out["train_loss_rel"].values()) <= 1e-3:
@@ -2384,7 +2560,7 @@ def loader_batch(trainer, stage: str, n: int) -> dict:
 
 
 def milestone_timing(trainer, n: int, milestone: int | None, iters: int,
-                     ema_decay: float = 0.0) -> tuple[dict, dict, dict]:
+                     ema_decay: float = 0.0, amp_only: bool = False) -> tuple[dict, dict, dict]:
     """The AMP and f32 train steps at the config's batch ``n`` and, unless
     None, at the bench milestone's batch ``milestone``
     (``train_step_timing``), the f32 val step and the serving predict step
@@ -2396,7 +2572,7 @@ def milestone_timing(trainer, n: int, milestone: int | None, iters: int,
     from cvpytorch_tpu_torch.train_state import make_eval_step, make_predict_step
 
     batches = {"train": loader_batch(trainer, "train", n), "val": loader_batch(trainer, "val", n)}
-    out, amp_state = train_step_timing(trainer, batches["train"], n, iters, ema_decay)
+    out, amp_state = train_step_timing(trainer, batches["train"], n, iters, ema_decay, amp_only)
     states = {"train": amp_state}
     torch.cuda.empty_cache()
     if milestone:
@@ -2758,6 +2934,7 @@ def main() -> int:
     decode = image_decode_phase()
     print(json.dumps({"image_decode": decode, "card": card}), flush=True)
     times = kernel_timing()
+    mark("build, image_decode, kernel_timing")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         from cvpytorch_tpu_torch.config import load_dictionary
 
@@ -2777,6 +2954,7 @@ def main() -> int:
                           "card": card}), flush=True)
         check = train_step_check(trainer, aug_batch)
         print(json.dumps({"train_step_check": check, "card": card}))
+        mark("path, train")
         torch.cuda.empty_cache()
         mrcnn, mrcnn_trainer = maskrcnn_phase(Path(tmp) / "maskrcnn")
         print(json.dumps({"maskrcnn": mrcnn, "card": card}), flush=True)
@@ -2788,14 +2966,25 @@ def main() -> int:
         print(json.dumps({"maskrcnn_card_vs_cpu": mrcnn_check, "card": card}), flush=True)
         coco_segm = coco_segm_check(mrcnn_trainer, coco, Path(tmp) / "coco_segm")
         print(json.dumps({"maskrcnn_coco_segm_val": coco_segm, "card": card}), flush=True)
+        mark("maskrcnn")
         seg = {}
         for name in SEG_STEPS:
             torch.cuda.empty_cache()
             result, seg_trainer = seg_phase(Path(tmp) / f"seg_{name}", name)
             print(json.dumps({name: result, "card": card}), flush=True)
+            if name in SEG_UNTIMED:
+                seg[name] = {"result": result}
+                del seg_trainer
+                mark(name)
+                continue
             steps_timed, states, batches = milestone_timing(
                 seg_trainer, SEG_BATCH[name], None, iters=SEG_TIMED_CALLS.get(name, 3),
-                ema_decay=SEG_EMA.get(name, 0.0))
+                ema_decay=SEG_EMA.get(name, 0.0), amp_only=name in SEG_AMP_ONLY)
+            if name in SEG_COUNT_FLOPS:
+                step = make_train_step(amp=True, ema_decay=SEG_EMA.get(name, 0.0))
+                tflop = step_tflop(lambda: step(states["train"], batches["train"]))
+                steps_timed["amp_step_tflop_counted"] = tflop
+                steps_timed["amp_achieved_tflop_per_s"] = tflop / steps_timed["amp_step_ms"] * 1e3
             if name == "incepformer_t":  # the AMP peak beside what the logits take
                 steps_timed["stage1_attention_logits_gb_per_block"] = \
                     incepformer_logits_gb(seg_trainer.model, batches["train"]["image"])
@@ -2809,9 +2998,11 @@ def main() -> int:
             seg[name] = {"result": result, "timing": steps_timed, "state": states["train"],
                          "batch": batches["train"]}
             del seg_trainer, states
+            mark(name)
         torch.cuda.empty_cache()
         layouts = dataset_layouts_phase(Path(tmp) / "layouts")
         print(json.dumps({"dataset_layouts": layouts, "card": card}), flush=True)
+        mark("dataset_layouts")
         torch.cuda.empty_cache()
         cls, cls_trainer = cls_phase(Path(tmp) / "cls")
         print(json.dumps({"cls": cls, "card": card}), flush=True)
@@ -2824,6 +3015,7 @@ def main() -> int:
                           "card": card}), flush=True)
         print(json.dumps({"cls_jpeg_loader": cls_loader_check(Path(tmp)), "card": card}),
               flush=True)
+        mark("cls")
         torch.cuda.empty_cache()
         nanodet, nd_trainer = nanodet_phase(Path(tmp) / "nanodet")
         print(json.dumps({"nanodet": nanodet, "card": card}), flush=True)
@@ -2837,6 +3029,7 @@ def main() -> int:
                           "card": card}), flush=True)
         print(json.dumps({"nanodet_card_vs_cpu": nanodet_card_vs_cpu(nd_trainer, nd_batches),
                           "card": card}), flush=True)
+        mark("nanodet")
         # the host-augmented YOLOv5 path after the other phases
         torch.cuda.empty_cache()
         host_aug, ha_trainer = host_aug_phase(Path(tmp) / "host_aug", coco)
@@ -2857,10 +3050,13 @@ def main() -> int:
               f"batch {ha_timing['amp_step_ms']:.2f} ms", flush=True)
         del ha_trainer
         torch.cuda.empty_cache()
+        mark("yolov5_host_aug")
         checks = kernel_checks()
+        mark("kernel_checks")
         # the profiler last: its sessions slow the host's launches afterwards
         split = device_phase({**times.pop("inputs"), "path_input": path_input,
                               "nanodet_val_input": nd_input})
+        mark("device_phase")
         train_step_fn, aug_fn = _profiled_train_state(trainer)
         print(json.dumps({"device_aug_profile": profile_device(aug_fn, steps=3, top=8),
                           "card": card}), flush=True)
@@ -2882,18 +3078,28 @@ def main() -> int:
             "device_busy_ms"] / mrcnn_timing["amp_step_ms"]
         print(json.dumps({"maskrcnn_amp_train_step_profile": mrcnn_profile,
                           "nms_keep_device_ms": mrcnn_split, "card": card}), flush=True)
+        mark("yolov5 and maskrcnn profiles")
+        # two profiled steps a seg and cls/NanoDet path: the profiler's own
+        # cost (~5 s a session of three) holds the run's time limit
         for name, run in seg.items():
+            if "state" not in run:  # the one-step paths
+                continue
             torch.cuda.empty_cache()
             seg_step = make_train_step(amp=True, ema_decay=SEG_EMA.get(name, 0.0))
-            prof = profile_device(lambda: seg_step(run["state"], run["batch"]), steps=3, top=15,
+            prof = profile_device(lambda: seg_step(run["state"], run["batch"]), steps=2, top=15,
                                   groups=PROFILE_GROUPS.get(name))
             prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / run[
                 "timing"]["amp_step_ms"]
             if name == "segnext_b":
                 prof["operator_groups"] = operator_device_ms(
                     lambda: seg_step(run["state"], run["batch"]), SEGNEXT_OPS)
+            if name == "stdc":  # the detail target's range against the busy time
+                detail = prof["annotated_ms"].get("detail_target")
+                prof["detail_target_share_of_busy"] = (
+                    None if detail is None else detail / prof["device_busy_ms"])
             print(json.dumps({f"{name}_amp_train_step_profile": prof, "card": card}),
                   flush=True)
+        mark("seg profiles")
         # each config's batch and its bench milestone's (bs256, bs128)
         for name, states, batches, timed, milestone, ema in (
                 ("cls", cls_states, cls_batches, cls_timed, CLS_MILESTONE_BATCH, 0.0),
@@ -2905,11 +3111,12 @@ def main() -> int:
                      timed[f"milestone_bs{milestone}"]["amp_step_ms"])):
                 torch.cuda.empty_cache()
                 step = make_train_step(amp=True, ema_decay=ema)
-                prof = profile_device(lambda: step(states[run], batches[run]), steps=3,
+                prof = profile_device(lambda: step(states[run], batches[run]), steps=2,
                                       top=15)
                 prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / amp_ms
                 print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
                       flush=True)
+    mark("cls and nanodet profiles")
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
     print(json.dumps({"nms_keep_B1_K1024": {**times["B1"], **split["B1"],

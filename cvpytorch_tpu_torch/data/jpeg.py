@@ -93,7 +93,7 @@ def orient(img: np.ndarray, orientation: int) -> np.ndarray:
 
 def decode(data: bytes, grayscale: bool = False) -> np.ndarray:
     """JPEG bytes → what ``cv2.imread`` gives for the file: (H, W, 3) BGR
-    uint8, or (H, W) with ``grayscale`` (grey and YCbCr files)."""
+    uint8, or (H, W) with ``grayscale``."""
     header = read_header(data)
     img = native.jpeg_decode(data, header.height, header.width, gray=grayscale)
     return orient(img, header.orientation) if header.orientation != 1 else img

@@ -233,7 +233,7 @@ class _Transforms(dict):
         if name == "RandAugment":
             raise KeyError(
                 "RandAugment (PIL's operations in the JAX package) is not ported "
-                "yet (ROADMAP, Queue 1 item 6)")
+                "yet (ROADMAP, Queue 1 item 10)")
         raise KeyError(f"no segmentation transform {name!r} in the port")
 
 

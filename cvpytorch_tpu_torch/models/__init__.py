@@ -1,2 +1,4 @@
 """Model zoo of the port.  Importing it registers the models."""
-from . import classification, nanodet_plus, rcnn, segmentor, unet, yolov5  # noqa: F401
+from . import (  # noqa: F401
+    classification, light_seg, light_seg2, light_seg3, nanodet_plus, rcnn, segmentor,
+    segnet_enet, unet, yolov5)

@@ -9,7 +9,8 @@ Images enter NHWC; the backbone and heads run NCHW on the
 and resized and scored with autocast off.  ``mode="train"`` returns
 ``(total, {'seg_loss'[, 'aux_loss']})`` (the auxiliary head, weighted by
 ``AUX_WEIGHT``, default 0.4, runs in train mode only), ``mode="val"``
-``({'seg_loss'}, argmax)`` and ``mode="infer"`` the (B, H, W) argmax.
+``({'seg_loss'}, argmax)`` and ``mode="infer"`` the (B, H, W) argmax;
+``logits(images)`` the float32 logits that argmax takes.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ _DEFAULT_BACKBONE = {"name": "ResNet", "subtype": "resnet50", "output_stride": 8
 
 
 def _not_ported(kind: str, name: str) -> KeyError:
-    return KeyError(f"{kind} {name!r} is not ported yet (ROADMAP, Queue 1 items 6 and 8)")
+    return KeyError(f"{kind} {name!r} is not ported yet (ROADMAP, Queue 1 items 7 and 8)")
 
 
 def feature_channels(backbone: nn.Module) -> list[int]:
@@ -90,6 +91,11 @@ class EncoderDecoder(nn.Module):
         out = head(feats)
         with torch.autocast(out.device.type, enabled=False):
             return resize_bilinear(out.float(), size)
+
+    def logits(self, images):
+        """The (B, C, H, W) float32 logits ``mode="infer"`` takes the argmax of."""
+        return self._logits(self.head, self.backbone(images.permute(0, 3, 1, 2)),
+                            images.shape[1:3])
 
     def forward(self, images, targets=None, mode: str = "infer"):
         if mode not in ("train", "val", "infer"):

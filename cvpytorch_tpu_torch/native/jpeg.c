@@ -24,10 +24,19 @@
  *    RGB, and 4-component CMYK / YCCK to CMYK, then OpenCV's own
  *    CMYK -> BGR (icvCvt_CMYK2BGR_8u_C4C3R);
  *  - with gray = 1, libjpeg's grayscale output: the luma of a YCbCr or
- *    grey file.
+ *    grey file, libjpeg's rgb_gray_convert of an RGB file, and OpenCV's
+ *    icvCvt_CMYK2Gray_8u_C4C1R of a CMYK or YCCK file;
+ *  - lossless (SOF3) files of 2-8 bits (jdlhuff.c, jdlossls.c): the seven
+ *    predictors, the point transform, restarts, libjpeg's uniform grey for
+ *    a row begun out of data, and no colour conversion (a grey read takes
+ *    grey or CMYK files, a colour read RGB or CMYK ones);
+ *  - libjpeg's fatal checks of the markers: SOF and DRI lengths exact, DAC
+ *    indices and bounds (the tables themselves are unused), a scan's
+ *    components in frame order, and in a progressive or lossless file no
+ *    standard Huffman table stands in for a missing one.
  *
- * Arithmetic coding, lossless and hierarchical files and 12-bit samples
- * are refused with a message.  All state lives in one struct on the
+ * Arithmetic coding, hierarchical files, subsampled lossless files and
+ * other precisions are refused with a message.  All state lives in one struct on the
  * caller's stack: threads decode at once.
  */
 #include <stdint.h>
@@ -61,6 +70,8 @@ typedef struct {
     int aw, ah; /* blocks allocated: whole MCUs */
     int dw, dh; /* downsampled width and height in samples */
     int16_t *coef;
+    uint16_t *samples; /* lossless files: the undifferenced samples */
+    int al, scanned;   /* lossless files: the point transform; whether a scan coded it */
     uint16_t q[64];
     int q_latched;
     int dc_tbl, ac_tbl;
@@ -74,7 +85,7 @@ typedef struct {
 typedef struct {
     const uint8_t *data;
     size_t size, pos;
-    int width, height, ncomp, progressive, seen_sof;
+    int width, height, ncomp, progressive, lossless, precision, seen_sof;
     int maxh, maxv, mcux, mcuy;
     comp_t comp[MAXC];
     uint16_t qt[4][64];
@@ -303,13 +314,33 @@ static int parse_dht(jd_t *d) {
     return 0;
 }
 
+/* jdmarker.c get_dac: (index, value) pairs, index < 32, a DC pair's low
+ * bound at most its high one, and the pairs filling the length exactly.
+ * The conditioning values are not kept: arithmetic scans are refused. */
+static int parse_dac(jd_t *d) {
+    int len;
+    if (read_u16(d, &len)) return fail(d, "JPEG segment runs past the end of the data");
+    for (len -= 2; len > 0; len -= 2) {
+        if (d->pos + 2 > d->size) return fail(d, "JPEG segment runs past the end of the data");
+        int index = d->data[d->pos], val = d->data[d->pos + 1];
+        d->pos += 2;
+        if (index >= 32) return fail(d, "bad DAC index");
+        if (index < 16 && (val & 15) > (val >> 4)) return fail(d, "bad DAC value");
+    }
+    return len ? fail(d, "bad DAC segment length") : 0;
+}
+
 static int parse_sof(jd_t *d, int marker) {
     size_t end;
     if (seg_len(d, &end)) return -1;
     if (d->seen_sof) return fail(d, "JPEG file with two frames");
     if (end - d->pos < 6) return fail(d, "short SOF segment");
     const uint8_t *p = d->data + d->pos;
-    if (p[0] != 8) return fail(d, "JPEG sample precision other than 8 bits is not supported");
+    d->lossless = marker == 0xC3;
+    d->precision = p[0];
+    /* libjpeg's 8-bit interface, which cv2 calls: 8 bits, 2 to 8 when lossless */
+    if (d->lossless ? p[0] < 2 || p[0] > 8 : p[0] != 8)
+        return fail(d, "JPEG sample precision other than 8 bits is not supported");
     d->height = (p[1] << 8) | p[2];
     d->width = (p[3] << 8) | p[4];
     d->ncomp = p[5];
@@ -317,7 +348,7 @@ static int parse_sof(jd_t *d, int marker) {
     if (d->height > 65500 || d->width > 65500) return fail(d, "JPEG frame larger than libjpeg's 65500");
     if (d->ncomp < 1 || d->ncomp > MAXC || d->ncomp == 2)
         return fail(d, "JPEG with an unsupported number of components");
-    if (end - d->pos < 6 + 3 * (size_t)d->ncomp) return fail(d, "short SOF segment");
+    if (end - d->pos != 6 + 3 * (size_t)d->ncomp) return fail(d, "bad SOF segment length");
     d->progressive = marker == 0xC2;
     d->maxh = d->maxv = 1;
     for (int c = 0; c < d->ncomp; c++) {
@@ -328,6 +359,8 @@ static int parse_sof(jd_t *d, int marker) {
         cp->tq = p[8 + 3 * c];
         if (cp->h < 1 || cp->h > 4 || cp->v < 1 || cp->v > 4)
             return fail(d, "bad sampling factor");
+        if (d->lossless && (cp->h != 1 || cp->v != 1))
+            return fail(d, "subsampled lossless JPEG files are not supported");
         if (cp->h > d->maxh) d->maxh = cp->h;
         if (cp->v > d->maxv) d->maxv = cp->v;
     }
@@ -342,6 +375,11 @@ static int parse_sof(jd_t *d, int marker) {
         cp->dh = (int)(((int64_t)d->height * cp->v + d->maxv - 1) / d->maxv);
         cp->aw = d->mcux * cp->h;
         cp->ah = d->mcuy * cp->v;
+        if (d->lossless) {
+            cp->samples = (uint16_t *)calloc((size_t)d->width * d->height, sizeof(uint16_t));
+            if (!cp->samples) return fail(d, "out of memory");
+            continue;
+        }
         cp->coef = (int16_t *)calloc((size_t)cp->aw * cp->ah * 64, sizeof(int16_t));
         if (!cp->coef) return fail(d, "out of memory");
         for (int i = 0; i < 64; i++) cp->coef_bits[i] = -1;
@@ -382,8 +420,9 @@ static const uint8_t std_ac_vals[2][162] = {
      0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7,
      0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
 
-/* The DC or AC table `id` a scan reads: defined by a DHT, else the
- * standard one for ids 0 and 1; NULL (with a message) otherwise. */
+/* The DC or AC table `id` a scan reads: defined by a DHT, else (in a
+ * sequential DCT file) the standard one for ids 0 and 1; NULL (with a
+ * message) otherwise. */
 static huff_t *table_for_scan(jd_t *d, int dc, int id) {
     huff_t *t;
     if (id > 3) {
@@ -392,7 +431,7 @@ static huff_t *table_for_scan(jd_t *d, int dc, int id) {
     }
     t = dc ? &d->dc[id] : &d->ac[id];
     if (!t->present) {
-        if (id > 1) {
+        if (id > 1 || d->progressive || d->lossless) {
             fail(d, "missing Huffman table");
             return NULL;
         }
@@ -418,7 +457,9 @@ static int parse_sos(jd_t *d) {
     for (int i = 0; i < ns; i++) {
         int id = p[1 + 2 * i], c;
         for (c = 0; c < d->ncomp && d->comp[c].id != id; c++) {}
-        if (c == d->ncomp) return fail(d, "SOS names an unknown component");
+        /* jdmarker.c get_sos: a component whose frame index is below its
+         * place in the scan finds its slot taken (frame order, no repeats) */
+        if (c == d->ncomp || c < i) return fail(d, "SOS names an unknown component");
         d->scomp[i] = c;
         d->comp[c].dc_tbl = p[2 + 2 * i] >> 4;
         d->comp[c].ac_tbl = p[2 + 2 * i] & 15;
@@ -434,6 +475,31 @@ static int parse_sos(jd_t *d) {
     d->Al = p[3 + 2 * ns] & 15;
     d->pos = end;
     d->scan_number++;
+    if (d->lossless) {
+        /* jdlossls.c: a predictor 1-7, Se 0, Ah 0, Al below the precision;
+         * restarts on whole MCU rows (jddiffct.c) */
+        if (d->Ss < 1 || d->Ss > 7 || d->Se != 0 || d->Ah != 0 || d->Al >= d->precision)
+            return fail(d, "bad lossless scan");
+        if (d->restart_interval % d->width) return fail(d, "bad lossless restart interval");
+        for (int i = 0; i < ns; i++) {
+            comp_t *cp = &d->comp[d->scomp[i]];
+            huff_t *t = table_for_scan(d, 1, cp->dc_tbl);
+            int n = 0;
+            if (!t) return -1;
+            for (int l = 1; l <= 16; l++) n += t->bits[l];
+            for (int k = 0; k < n; k++)
+                if (t->vals[k] > 16) return fail(d, "bad Huffman table");
+            cp->al = d->Al;
+            cp->scanned = 1;
+        }
+        d->buf = 0;
+        d->bits = 0;
+        d->insufficient = 0;
+        d->marker = 0;
+        d->restarts_to_go = d->restart_interval;
+        d->next_restart = 0;
+        return 0;
+    }
     if (d->progressive) {
         if (d->Ss == 0 ? d->Se != 0 : (d->Se < d->Ss || d->Se > 63 || ns != 1))
             return fail(d, "bad progressive scan");
@@ -640,7 +706,66 @@ static void process_restart(jd_t *d) {
     if (!d->marker) d->insufficient = 0;
 }
 
+/* jdlhuff.c + jdlossls.c: one Huffman-coded difference per sample (16:
+ * 32768), added mod 2^16 to the prediction.  The first row of the scan
+ * and of each restart interval predicts from the left (the first sample
+ * from 2^(P - Pt - 1)), the first column from above, the rest by the
+ * scan's predictor.  A row that runs out of data reads zero bits to its
+ * end; a row begun out of data is uniform grey, 2^(P - Pt - 1) (the
+ * first-row prediction of differences of 0). */
+static void decode_scan_lossless(jd_t *d) {
+    int W = d->width, first = 1;
+    for (int y = 0; y < d->height; y++) {
+        if (d->restart_interval && d->restarts_to_go == 0) {
+            process_restart(d);
+            first = 1;
+        }
+        int grey = d->insufficient;
+        for (int x = 0; x < W; x++) {
+            for (int i = 0; i < d->ns; i++) {
+                comp_t *cp = &d->comp[d->scomp[i]];
+                int diff = 0;
+                if (!grey) {
+                    int s = huff_decode(d, &d->dc[cp->dc_tbl]);
+                    if (s == 16) {
+                        diff = 32768;
+                    } else if (s) {
+                        need(d, s);
+                        diff = extend(get_bits(d, s), s);
+                    }
+                }
+                uint16_t *row = cp->samples + (size_t)y * W, *up = row - W;
+                int pred;
+                if (first || grey) {
+                    pred = x ? row[x - 1] : 1 << (d->precision - d->Al - 1);
+                } else if (!x) {
+                    pred = up[0];
+                } else {
+                    int ra = row[x - 1], rb = up[x], rc = up[x - 1];
+                    switch (d->Ss) {
+                    case 1: pred = ra; break;
+                    case 2: pred = rb; break;
+                    case 3: pred = rc; break;
+                    case 4: pred = ra + rb - rc; break;
+                    case 5: pred = ra + ((rb - rc) >> 1); break;
+                    case 6: pred = rb + ((ra - rc) >> 1); break;
+                    default: pred = (ra + rb) >> 1; break;
+                    }
+                }
+                row[x] = (uint16_t)((diff + pred) & 0xFFFF);
+            }
+            if (d->restart_interval) d->restarts_to_go--;
+        }
+        first = 0;
+    }
+    d->scans_done++;
+}
+
 static void decode_scan(jd_t *d) {
+    if (d->lossless) {
+        decode_scan_lossless(d);
+        return;
+    }
     int single = d->ns == 1;
     comp_t *c0 = &d->comp[d->scomp[0]];
     int mx_n = single ? c0->bw : d->mcux;
@@ -970,6 +1095,7 @@ static int colorspace(const jd_t *d) {
     if (d->ncomp == 1) return CS_GRAY;
     if (d->ncomp == 3) {
         if (d->saw_jfif) return CS_YCC;
+        if (d->lossless && !d->saw_adobe) return CS_RGB; /* libjpeg assumes RGB there */
         if (d->saw_adobe) return d->adobe_transform == 0 ? CS_RGB : CS_YCC;
         if (d->comp[0].id == 82 && d->comp[1].id == 71 && d->comp[2].id == 66) return CS_RGB;
         return CS_YCC;
@@ -978,10 +1104,23 @@ static int colorspace(const jd_t *d) {
     return CS_CMYK;
 }
 
+/* The planes a read needs: a grey read of a grey or YCbCr file takes Y
+ * alone (libjpeg marks the chroma components not needed). */
+static int planes_needed(const jd_t *d, int gray) {
+    int cs = colorspace(d);
+    return gray && (cs == CS_GRAY || cs == CS_YCC) ? 1 : d->ncomp;
+}
+
+/* BGR -> grey of a grey read: libjpeg's rgb_gray_convert for an RGB file
+ * (16-bit weights), OpenCV's icvCvt_CMYK2Gray_8u_C4C1R (14-bit weights,
+ * descaled) on the CMYK that libjpeg gives for a CMYK or YCCK file. */
+static inline uint8_t grey_of(int cs, int b, int g, int r) {
+    if (cs == CS_RGB) return (uint8_t)((19595 * r + 38470 * g + 7471 * b + 32768) >> 16);
+    return (uint8_t)((1868 * b + 9617 * g + 4899 * r + 8192) >> 14);
+}
+
 static int output(jd_t *d, uint8_t *out, int gray) {
-    int cs = colorspace(d), W = d->width, n = gray ? 1 : d->ncomp;
-    if (gray && cs != CS_GRAY && cs != CS_YCC)
-        return fail(d, "grayscale reading of an RGB or CMYK JPEG is not supported");
+    int cs = colorspace(d), W = d->width, n = planes_needed(d, gray);
     uint8_t *rows = (uint8_t *)malloc((size_t)MAXC * (W + 16));
     if (!rows) return fail(d, "out of memory");
     ycc_tab_t tab;
@@ -989,12 +1128,12 @@ static int output(jd_t *d, uint8_t *out, int gray) {
     for (int y = 0; y < d->height; y++) {
         for (int c = 0; c < n; c++) upsample_row(d, &d->comp[c], y, rows + (size_t)c * (W + 16));
         const uint8_t *c0 = rows, *c1 = rows + (W + 16), *c2 = rows + 2 * (W + 16), *c3 = rows + 3 * (W + 16);
-        if (gray) {
+        if (gray && n == 1) {
             memcpy(out + (size_t)y * W, c0, (size_t)W);
             continue;
         }
-        uint8_t *o = out + (size_t)y * W * 3;
-        for (int x = 0; x < W; x++, o += 3) {
+        uint8_t *o = out + (size_t)y * W * (gray ? 1 : 3);
+        for (int x = 0; x < W; x++, o += gray ? 1 : 3) {
             int b, g, r;
             if (cs == CS_GRAY) {
                 b = g = r = c0[x];
@@ -1027,12 +1166,36 @@ static int output(jd_t *d, uint8_t *out, int gray) {
                     b = K - (((255 - Yl) * K) >> 8);
                 }
             }
+            if (gray) {
+                o[0] = grey_of(cs, b, g, r);
+                continue;
+            }
             o[0] = (uint8_t)b;
             o[1] = (uint8_t)g;
             o[2] = (uint8_t)r;
         }
     }
     free(rows);
+    return 0;
+}
+
+/* A lossless file's output planes: the samples shifted left by the point
+ * transform to 8 bits.  libjpeg converts no colour space in lossless mode:
+ * a grey read takes a grey or CMYK file, a colour read an RGB or CMYK one
+ * (OpenCV converts the CMYK); every component must have been coded. */
+static int lossless_planes(jd_t *d, int gray) {
+    int cs = colorspace(d);
+    if (gray ? cs != CS_GRAY && cs != CS_CMYK : cs != CS_RGB && cs != CS_CMYK)
+        return fail(d, "lossless JPEG file read in another colour space (libjpeg converts none)");
+    for (int c = 0; c < d->ncomp; c++) {
+        comp_t *cp = &d->comp[c];
+        if (!cp->scanned) return fail(d, "a component of the lossless JPEG file has no scan");
+        size_t n = (size_t)d->width * d->height;
+        cp->pstride = d->width;
+        cp->plane = (uint8_t *)malloc(n);
+        if (!cp->plane) return fail(d, "out of memory");
+        for (size_t i = 0; i < n; i++) cp->plane[i] = (uint8_t)(cp->samples[i] << cp->al);
+    }
     return 0;
 }
 
@@ -1045,10 +1208,10 @@ static int decode_all(jd_t *d, int gray) {
     for (;;) {
         m = next_marker(d);
         if (m == 0xD9) break;
-        if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
+        if (m >= 0xC0 && m <= 0xC3) {
             if (parse_sof(d, m)) return -1;
-        } else if (m == 0xC3 || (m >= 0xC5 && m <= 0xCB) || (m >= 0xCD && m <= 0xCF)) {
-            return fail(d, "arithmetic-coded, lossless and hierarchical JPEG files are not supported");
+        } else if ((m >= 0xC5 && m <= 0xCB) || (m >= 0xCD && m <= 0xCF)) {
+            return fail(d, "arithmetic-coded and hierarchical JPEG files are not supported");
         } else if (m == 0xC4) {
             if (parse_dht(d)) return -1;
         } else if (m == 0xDB) {
@@ -1056,7 +1219,7 @@ static int decode_all(jd_t *d, int gray) {
         } else if (m == 0xDD) {
             size_t end;
             int ri = 0;
-            if (seg_len(d, &end) || end - d->pos < 2 || read_u16(d, &ri)) return fail(d, "bad DRI segment");
+            if (seg_len(d, &end) || end - d->pos != 2 || read_u16(d, &ri)) return fail(d, "bad DRI segment");
             d->restart_interval = ri;
             d->pos = end;
         } else if (m == 0xDA) {
@@ -1069,10 +1232,12 @@ static int decode_all(jd_t *d, int gray) {
             /* parameterless markers outside a scan: libjpeg passes over them */
         } else if (m == 0xD8) {
             return fail(d, "JPEG file with two SOI markers");
-        } else if (!(m >= 0xE0 && m <= 0xEF) && m != 0xFE && m != 0xCC && m != 0xDC) {
+        } else if (m == 0xCC) {
+            if (parse_dac(d)) return -1;
+        } else if (!(m >= 0xE0 && m <= 0xEF) && m != 0xFE && m != 0xDC) {
             return fail(d, "unknown or reserved JPEG marker");
         } else {
-            /* APPn, COM, DAC, DNL: libjpeg skips length - 2 bytes, none when
+            /* APPn, COM, DNL: libjpeg skips length - 2 bytes, none when
              * the length is under 2 */
             int len16;
             if (read_u16(d, &len16)) return fail(d, "JPEG segment runs past the end of the data");
@@ -1088,10 +1253,11 @@ static int decode_all(jd_t *d, int gray) {
         }
     }
     if (!d->seen_sof || d->scans_done == 0) return fail(d, "JPEG file has no image data");
+    if (d->lossless) return lossless_planes(d, gray);
     int latch[MAXC][SAVED_COEFS], prev_latch[MAXC][SAVED_COEFS];
     memset(prev_latch, 0, sizeof(prev_latch));
     int smooth = smoothing_ok(d, latch, prev_latch);
-    int needed = gray ? 1 : d->ncomp;
+    int needed = planes_needed(d, gray);
     for (int c = 0; c < needed; c++) {
         comp_t *cp = &d->comp[c];
         cp->pstride = cp->bw * 8;
@@ -1135,6 +1301,7 @@ int64_t jpeg_decode(const uint8_t *data, int64_t size, uint8_t *out, int64_t hei
     if (rc == 0) rc = output(&d, out, (int)gray);
     for (int c = 0; c < MAXC; c++) {
         free(d.comp[c].coef);
+        free(d.comp[c].samples);
         free(d.comp[c].plane);
     }
     free(padded);

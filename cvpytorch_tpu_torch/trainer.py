@@ -16,7 +16,8 @@ seeded by (SEED + 7919, step).  Classification (``CLS_CLASSES``) and
 segmentation (``SEG_CLASSES``) batches stack the images and the labels
 (class ids, or (H, W) label maps), and the evaluator gets the host labels
 and the argmax as uint8.  Single device: the JAX
-package's mesh (``PARALLEL``) and ``PROFILER`` hook are not ported yet.
+package's mesh (``PARALLEL``), ``PROFILER`` hook and ``AMP_BN_BF16_STATS``
+(bfloat16 BN moments) are not ported yet: each raises.
 """
 from __future__ import annotations
 
@@ -60,6 +61,10 @@ class Trainer:
         if cfg.PARALLEL:
             raise NotImplementedError("PARALLEL is not ported yet (ROADMAP, "
                                       "Queue 1): the port trains on one device")
+        for key in ("PROFILER", "AMP_BN_BF16_STATS"):
+            if cfg.get(key):
+                raise NotImplementedError(f"{key} is not ported yet (ROADMAP, Queue 1 "
+                                          "item 10): remove it from the config")
         self.logger.info("device: %s", self.device)
         self._device_aug_size = None
         self._parser_dict()

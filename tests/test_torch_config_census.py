@@ -23,10 +23,14 @@ CONFIGS = sorted(glob.glob(os.path.join(ROOT, "conf", "*.yml")))
 # the configs the host detection transforms let build (every YOLOv5
 # config; coco_nanodetplus_m's RandomAffine), one of each family before,
 # SegFormer (MiT-b0…b5) and SFNet (R18/50/101), and SegNeXt (MSCAN-T/S/B/L),
-# IncepFormer (T/S/B), TopFormer (T/S/B) and RegSeg
+# IncepFormer (T/S/B), TopFormer (T/S/B) and RegSeg, and the self-contained
+# segmenters: STDC, ICNet, PP-LiteSeg, LEDNet, LSPNet, SGCPNet, SegNet, ENet
 SEG_ZOO = ([f"cityscapes_segnext_{s}" for s in "tsbl"]
            + [f"cityscapes_incepformer_{s}" for s in "tsb"]
-           + [f"cityscapes_topformer_{s}" for s in "tsb"] + ["cityscapes_regseg"])
+           + [f"cityscapes_topformer_{s}" for s in "tsb"] + ["cityscapes_regseg"]
+           + ["cityscapes_stdc", "cityscapes_stdc2", "camvid_stdc", "cityscapes_icnet",
+              "cityscapes_ppliteseg", "cityscapes_lednet", "cityscapes_lspnet",
+              "cityscapes_sgcpnet", "cityscapes_segnet", "cityscapes_enet", "camvid_enet"])
 NOW_BUILD = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "visdrone_yolov5",
              "coco_nanodetplus_m", "coco_nanodetplus", "mini-imagenet", "cityscapes_unet",
              "coco_maskrcnn"] + [f"cityscapes_segformer_b{i}" for i in range(6)] + [

@@ -45,7 +45,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "'models.nanodet_plus', 'native', 'data.jpeg', 'data.image_io', "
         "'data.datasets.coco', 'data.datasets.voc', 'data.datasets.misc_datasets', "
         "'data.layouts', 'evaluator.voc', 'models.heads.seg_heads_extra', "
-        "'models.backbones.seg_transformers', 'models.backbones.seg_light'):\n"
+        "'models.backbones.seg_transformers', 'models.backbones.seg_light', "
+        "'models.light_seg', 'models.light_seg2', 'models.light_seg3', "
+        "'models.segnet_enet', 'ops.pool'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )

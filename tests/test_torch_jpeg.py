@@ -274,11 +274,362 @@ def fuzz(n: int, seed: int) -> collections.Counter:
 
 
 def test_damaged_files_read_as_cv2_or_not_at_all():
-    """No crash, no other pixels than cv2's, and nothing cv2 reads is
-    refused; the port may read a damaged file cv2 refuses (ROADMAP)."""
+    """No crash, no other pixels than cv2's, nothing cv2 reads is refused
+    and nothing cv2 refuses is read (``--fuzz 1500`` finds none either)."""
     counts = fuzz(150, 0)
     assert counts["differ"] == 0 and counts["cv2 reads, port refuses"] == 0, counts
+    assert counts["port reads, cv2 refuses"] == 0, counts
     assert counts["equal"] > 50
+
+
+def segment(marker: int, body: bytes) -> bytes:
+    return b"\xff" + bytes([marker]) + struct.pack(">H", len(body) + 2) + body
+
+
+def markers(data: bytes):
+    """(offset, marker, length field) of each segment before the first scan."""
+    pos = 2
+    while True:
+        marker, (length,) = data[pos + 1], struct.unpack(">H", data[pos + 2:pos + 4])
+        yield pos, marker, length
+        if marker == 0xDA:
+            return
+        pos += 2 + length
+
+
+def resized(data: bytes, marker: int, extra: bytes) -> bytes:
+    """``data`` with ``extra`` appended to the body of its first ``marker``
+    segment (the length field grown to match)."""
+    for pos, m, length in markers(data):
+        if m == marker:
+            end = pos + 2 + length
+            return (data[:pos + 2] + struct.pack(">H", length + len(extra))
+                    + data[pos + 4:end] + extra + data[end:])
+    raise ValueError(f"no marker {marker:#x}")
+
+
+def dropped_dc_table(data: bytes) -> bytes:
+    """``data`` with the DC table 0 of its DHT segments renumbered 2."""
+    out = bytearray(data)
+    for pos, m, length in markers(data):
+        if m == 0xC4:
+            at = pos + 4
+            while at < pos + 2 + length:
+                if out[at] == 0x00:
+                    out[at] = 0x02
+                at += 17 + sum(out[at + 1:at + 17])
+    return bytes(out)
+
+
+def reversed_scan_components(data: bytes) -> bytes:
+    """``data`` with its first scan naming its components in reverse."""
+    out = bytearray(data)
+    at = out.index(b"\xff\xda") + 5
+    ns = out[at - 1]
+    out[at:at + 2 * ns] = b"".join(bytes(out[at + 2 * k:at + 2 * k + 2])
+                                   for k in reversed(range(ns)))
+    return bytes(out)
+
+
+def damaged_cases() -> dict:
+    """Files libjpeg refuses with a fatal error that the port once read
+    (found by ``--fuzz`` and by the lossless files): the exact SOF and DRI
+    lengths, the DAC segment's checks, a progressive scan whose Huffman
+    table is missing (libjpeg's progressive decoder installs no standard
+    tables), and a scan naming its components out of frame order."""
+    base = encode(scene(24, 40, 9), quality=80, restart=1)
+    prog = encode(scene(24, 40, 9), quality=80, progressive=1)
+    sos = base.index(b"\xff\xda")
+    dac = lambda body: base[:sos] + segment(0xCC, body) + base[sos:]  # noqa: E731
+    return {
+        "sof_longer": resized(base, 0xC0, b"\x00"),
+        "dri_longer": resized(base, 0xDD, b"\x00"),
+        "dac_index_32": dac(b"\x20\x00"),
+        "dac_dc_low_above_high": dac(b"\x00\x1f"),
+        "dac_odd_length": dac(b"\x10\x05\x00"),
+        "progressive_without_dc_table_0": dropped_dc_table(prog),
+        "scan_components_reversed": reversed_scan_components(
+            encode(scene(24, 40, 9), quality=80, sampling="444")),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(damaged_cases()))
+def test_libjpeg_fatal_checks(tmp_path, case):
+    data = damaged_cases()[case]
+    assert cv2_read(tmp_path, data) is None
+    with pytest.raises(ValueError):
+        jpeg.decode(data)
+
+
+def test_valid_dac_segments_and_sequential_missing_tables_still_read(tmp_path):
+    """The counterparts that libjpeg reads: a DAC segment within bounds
+    (conditioning values of no Huffman scan), and a sequential file
+    without DHT segments (the standard tables)."""
+    base = encode(scene(24, 40, 9), quality=80)
+    sos = base.index(b"\xff\xda")
+    data = base[:sos] + segment(0xCC, b"\x00\x10\x10\x05") + base[sos:]
+    np.testing.assert_array_equal(jpeg.decode(data), cv2_read(tmp_path, data))
+    data = dropped_dc_table(base)
+    want = cv2_read(tmp_path, data)
+    assert want is not None
+    np.testing.assert_array_equal(jpeg.decode(data), want)
+
+
+# ---- grey reads of colour files (label maps stored as JPEG) ----
+
+def adobe_rgb(data: bytes, by_ids: bool = False) -> bytes:
+    """An RGB-colourspace file from a YCbCr one: the JFIF APP0 replaced by
+    an Adobe APP14 with transform 0, or (``by_ids``) the component ids
+    renamed 'R', 'G', 'B' in the frame and every scan.  libjpeg then reads
+    the three planes as R, G and B."""
+    out = bytearray(data[:2])
+    if not by_ids:
+        out += segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, 0))
+    for pos, m, length in markers(data):
+        if m == 0xDA:
+            rest = bytearray(data[pos:])
+            break
+        body = bytearray(data[pos:pos + 2 + length])
+        if by_ids and m in (0xC0, 0xC2):
+            body[10:19:3] = b"RGB"
+        if m != 0xE0:
+            out += body
+    i = 0
+    while by_ids and (i := rest.find(b"\xff\xda", i)) >= 0:
+        for k in range(rest[i + 4]):
+            rest[i + 5 + 2 * k] = b"RGB"[rest[i + 5 + 2 * k] - 1]
+        i += 2
+    return bytes(out + rest)
+
+
+def ycck(data: bytes) -> bytes:
+    """A PIL CMYK file with its Adobe transform set to 2 (YCCK)."""
+    at = data.index(b"Adobe") + 11
+    return data[:at] + b"\x02" + data[at + 1:]
+
+
+def grey_cases() -> dict:
+    out = {}
+    for sampling in ("444", "420"):
+        for progressive in (0, 1):
+            data = encode(scene(45, 70, 3), quality=80, sampling=sampling,
+                          progressive=progressive)
+            out[f"rgb_adobe_{sampling}_p{progressive}"] = adobe_rgb(data)
+            out[f"rgb_ids_{sampling}_p{progressive}"] = adobe_rgb(data, by_ids=True)
+    for subsampling in (0, 2):
+        out[f"cmyk_{subsampling}"] = cmyk_jpeg(scene(45, 70, 4), 85, subsampling)
+        out[f"ycck_{subsampling}"] = ycck(out[f"cmyk_{subsampling}"])
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(grey_cases()))
+def test_grey_reads_of_rgb_cmyk_and_ycck_files_equal_cv2(tmp_path, case):
+    """A label map stored as an RGB, CMYK or YCCK JPEG under a ``.png``
+    name: ``image_io.imread_label`` equals ``cv2.imread(...,
+    IMREAD_GRAYSCALE)`` (libjpeg's rgb_gray_convert; OpenCV's CMYK → grey
+    on the CMYK libjpeg gives), and the colour read equals cv2's too."""
+    data = grey_cases()[case]
+    path = tmp_path / "mask.png"
+    path.write_bytes(data)
+    want = cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    assert want is not None and want.shape == (45, 70)
+    np.testing.assert_array_equal(image_io.imread_label(str(path)), want)
+    np.testing.assert_array_equal(image_io.imread(str(path)), cv2.imread(str(path)))
+
+
+# ---- lossless (SOF3) files ----
+
+DC_BITS = (0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0)  # Annex K.3's DC table, categories 0-11
+
+
+class BitWriter:
+    def __init__(self):
+        self.out, self.acc, self.n = bytearray(), 0, 0
+
+    def put(self, v: int, n: int) -> None:
+        for i in range(n - 1, -1, -1):
+            self.acc, self.n = (self.acc << 1) | ((v >> i) & 1), self.n + 1
+            if self.n == 8:
+                self.out += b"\xff\x00" if self.acc == 0xFF else bytes([self.acc])
+                self.acc, self.n = 0, 0
+
+    def flush(self) -> bytes:
+        while self.n:
+            self.put(1, 1)
+        return bytes(self.out)
+
+
+def lossless_scan(x, precision, predictor, pt, restart_rows) -> bytes:
+    """Entropy-coded data of one scan of the (H, W, C) samples ``x``
+    (already shifted right by ``pt``): T.81 Annex H's predictions, the
+    first row of the scan and of each restart interval from the left."""
+    H, W, C = x.shape
+    code, codes, k = 0, {}, 0
+    for length, count in enumerate(DC_BITS, start=1):
+        for _ in range(count):
+            codes[k], code, k = (code, length), code + 1, k + 1
+        code <<= 1
+    bw, out, first = BitWriter(), b"", 0
+    for y in range(H):
+        if restart_rows and y and y % restart_rows == 0:
+            out += bw.flush() + bytes([0xFF, 0xD0 + (y // restart_rows - 1) % 8])
+            bw, first = BitWriter(), y
+        for i in range(W):
+            for c in range(C):
+                if y == first:
+                    p = x[y, i - 1, c] if i else 1 << (precision - pt - 1)
+                elif i == 0:
+                    p = x[y - 1, i, c]
+                else:
+                    ra, rb, rc = int(x[y, i - 1, c]), int(x[y - 1, i, c]), int(x[y - 1, i - 1, c])
+                    p = {1: ra, 2: rb, 3: rc, 4: ra + rb - rc, 5: ra + ((rb - rc) >> 1),
+                         6: rb + ((ra - rc) >> 1), 7: (ra + rb) >> 1}[predictor]
+                d = int(x[y, i, c]) - int(p)
+                s = abs(d).bit_length()
+                bw.put(*codes[s])
+                if s:
+                    bw.put(d if d > 0 else d + (1 << s) - 1, s)
+    return out + bw.flush()
+
+
+def lossless_jpeg(img, precision=8, predictor=1, pt=0, restart_rows=0, ids=None, app14=None,
+                  scans=None, dht=True) -> bytes:
+    """A lossless JPEG file of ``img`` ((H, W) or (H, W, C) samples below
+    2^precision), each of ``scans`` (lists of component indices; default
+    one interleaved scan) with the same predictor, point transform and
+    restart interval (in rows), Huffman table 0 = Annex K.3's DC table."""
+    img = np.asarray(img, np.int64).reshape(*np.shape(img)[:2], -1)
+    H, W, C = img.shape
+    ids = ids or list(range(1, C + 1))
+    out = b"\xff\xd8"
+    if app14 is not None:
+        out += segment(0xEE, b"Adobe" + struct.pack(">HHHB", 100, 0, 0, app14))
+    out += segment(0xC3, struct.pack(">BHHB", precision, H, W, C)
+                   + b"".join(bytes([i, 0x11, 0]) for i in ids))
+    if dht:
+        out += segment(0xC4, b"\x00" + bytes(DC_BITS) + bytes(range(12)))
+    if restart_rows:
+        out += segment(0xDD, struct.pack(">H", restart_rows * W))
+    for comps in scans or [list(range(C))]:
+        out += segment(0xDA, bytes([len(comps)]) + b"".join(bytes([ids[c], 0]) for c in comps)
+                       + bytes([predictor, 0, pt]))
+        out += lossless_scan(img[..., comps] >> pt, precision, predictor, pt, restart_rows)
+    return out + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("precision", [2, 5, 8])
+@pytest.mark.parametrize("predictor", range(1, 8))
+def test_lossless_grey_files_equal_cv2(tmp_path, precision, predictor):
+    """A grey lossless file, read in grey as label maps are: the samples
+    shifted back by the point transform, unscaled below 8 bits, equal to
+    ``cv2.imread(..., IMREAD_GRAYSCALE)``; with and without restarts."""
+    rng = np.random.RandomState(precision * 8 + predictor)
+    img = rng.randint(0, 1 << precision, (11, 13))
+    img[3:6, 4:9] = (1 << precision) - 1
+    for pt in range(min(precision, 3)):
+        for restart_rows in (0, 2):
+            data = lossless_jpeg(img, precision, predictor, pt, restart_rows)
+            want = cv2_read(tmp_path, data, flags=cv2.IMREAD_GRAYSCALE)
+            np.testing.assert_array_equal(want, (img >> pt) << pt)
+            np.testing.assert_array_equal(jpeg.decode(data, grayscale=True), want)
+
+
+def lossless_cases() -> dict:
+    """Lossless files in each colour space; libjpeg converts none, so
+    cv2 reads a grey file in grey only, an RGB one (no marker, ids 1-3 or
+    'RGB', Adobe transform 0) in colour only, CMYK in both, and refuses
+    YCbCr (JFIF, Adobe 1), YCCK, files without their Huffman table, a
+    component no scan codes, 12 bits, and a scan naming components out of
+    frame order."""
+    rng = np.random.RandomState(7)
+    rgb, cmyk = rng.randint(0, 256, (9, 11, 3)), rng.randint(0, 256, (9, 11, 4))
+    jfif = segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    return {"rgb": lossless_jpeg(rgb), "rgb_ids": lossless_jpeg(rgb, ids=[82, 71, 66]),
+            "rgb_adobe0": lossless_jpeg(rgb, app14=0, predictor=6),
+            "rgb_3_scans": lossless_jpeg(rgb, scans=[[0], [1], [2]], predictor=4, restart_rows=3),
+            "rgb_2_scans": lossless_jpeg(rgb, scans=[[1, 2], [0]], predictor=7, pt=1),
+            "cmyk": lossless_jpeg(cmyk), "cmyk_adobe0": lossless_jpeg(cmyk, app14=0),
+            "grey": lossless_jpeg(rgb[..., 0]), "ycck": lossless_jpeg(cmyk, app14=2),
+            "ycbcr_adobe1": lossless_jpeg(rgb, app14=1),
+            "ycbcr_jfif": (lambda d: d[:2] + jfif + d[2:])(lossless_jpeg(rgb)),
+            "no_dht": lossless_jpeg(rgb[..., 0], dht=False),
+            "component_without_scan": lossless_jpeg(rgb, scans=[[0]]),
+            "out_of_order_scan": lossless_jpeg(rgb, scans=[[2, 0], [1]]),
+            "twelve_bit": lossless_jpeg(rgb[..., 0] * 16, precision=12, pt=4)}
+
+
+@pytest.mark.parametrize("case", sorted(lossless_cases()))
+def test_lossless_colour_spaces_as_cv2(tmp_path, case):
+    data = lossless_cases()[case]
+    for gray, flag in ((False, cv2.IMREAD_COLOR), (True, cv2.IMREAD_GRAYSCALE)):
+        want = cv2_read(tmp_path, data, flags=flag)
+        if want is None:
+            with pytest.raises(ValueError):
+                jpeg.decode(data, grayscale=gray)
+        else:
+            np.testing.assert_array_equal(jpeg.decode(data, grayscale=gray), want)
+    readable = {"rgb", "rgb_ids", "rgb_adobe0", "rgb_3_scans", "rgb_2_scans", "cmyk",
+                "cmyk_adobe0", "grey"}
+    assert (cv2_read(tmp_path, data) is not None
+            or cv2_read(tmp_path, data, flags=cv2.IMREAD_GRAYSCALE) is not None) == (
+        case in readable)
+
+
+def test_damaged_lossless_files_read_as_cv2_or_not_at_all(tmp_path):
+    """Lossless files damaged as ``fuzz`` damages them: what cv2 reads the
+    port reads, pixel for pixel (a row begun after the data ran out is
+    uniform grey, as libjpeg leaves it), and what cv2 refuses it refuses."""
+    rng = np.random.RandomState(11)
+    base = [lossless_jpeg(rng.randint(0, 256, (17, 23)), predictor=p, restart_rows=r)
+            for p, r in ((1, 0), (4, 2), (7, 3))]
+    counts = collections.Counter()
+    for i in range(300):
+        data = bytearray(base[i % 3])
+        for _ in range(rng.randint(1, 6)):
+            data[rng.randint(2, len(data))] = rng.randint(0, 256)
+        if rng.rand() < 0.3:
+            data = data[:rng.randint(2, len(data))]
+        want = cv2_read(tmp_path, bytes(data), flags=cv2.IMREAD_GRAYSCALE)
+        try:
+            got = jpeg.decode(bytes(data), grayscale=True)
+        except ValueError:
+            got = None
+        if want is None or got is None:
+            counts["both refuse" if want is None and got is None else "one refuses"] += 1
+        else:
+            counts["equal" if np.array_equal(got, want) else "differ"] += 1
+    assert counts["differ"] == 0 and counts["one refuses"] == 0, counts
+    assert counts["equal"] > 150
+
+
+# ---- the formats the port refuses ----
+
+REFUSED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_jpeg_refused")
+
+
+def twelve_bit_file() -> bytes:
+    """One 8×8 block, SOF1 at 12-bit precision: DC 100, no AC."""
+    dht = (segment(0xC4, b"\x00" + bytes([1] + [0] * 15) + b"\x07")
+           + segment(0xC4, b"\x10" + bytes([1] + [0] * 15) + b"\x00"))
+    return (b"\xff\xd8" + segment(0xDB, b"\x00" + b"\x01" * 64)
+            + segment(0xC1, struct.pack(">BHHB", 12, 8, 8, 1) + b"\x01\x11\x00") + dht
+            + segment(0xDA, b"\x01\x01\x00\x00\x3f\x00") + b"\x64\x7f\xff\xd9")
+
+
+def test_formats_the_port_refuses(tmp_path):
+    """12-bit files: cv2 (libjpeg-turbo's 8-bit API) refuses them, and so
+    does the port.  Arithmetic-coded files (written by libjpeg-turbo
+    2.1.5, ``tests/data/torch_jpeg_refused``) are read by cv2 and refused
+    by the port with a message naming the format: an open fault (ROADMAP,
+    Queue 3), never other pixels."""
+    assert cv2_read(tmp_path, twelve_bit_file(), flags=cv2.IMREAD_UNCHANGED) is None
+    with pytest.raises(ValueError, match="precision other than 8 bits"):
+        jpeg.decode(twelve_bit_file(), grayscale=True)
+    for name in sorted(os.listdir(REFUSED)):
+        data = open(os.path.join(REFUSED, name), "rb").read()
+        with pytest.raises(ValueError, match="arithmetic-coded"):
+            jpeg.decode(data, grayscale=True)
+        assert cv2.imread(os.path.join(REFUSED, name)).shape == (24, 40, 3)
 
 
 def timings() -> dict:

@@ -285,9 +285,9 @@ def test_aliases_resolve_and_missing_parts_name_the_roadmap():
     for alias in ("Deeplabv3Plus", "Deeplabv3", "PSPNet", "UPerNet", "SegFormer",
                   "src.models.segmentors.encoder_decoder.EncoderDecoder"):
         assert MODELS.get(alias) is EncoderDecoder
-    # STDC's backbone is next in Queue 1 item 6; every seg config's head is
-    # ported, so the head case takes a detection head the port lacks
-    for key, block in (("BACKBONE", {"name": "STDCNet"}),
+    # every seg config's backbone and head is ported: the backbone case
+    # takes ConvNeXt (Queue 1 item 8), the head case a detection head
+    for key, block in (("BACKBONE", {"name": "ConvNeXt"}),
                        ("HEAD", {"name": "FCOSHead"})):
         with pytest.raises(KeyError, match="ROADMAP"):
             EncoderDecoder(dictionary=DICTIONARY,

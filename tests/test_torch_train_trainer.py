@@ -98,3 +98,17 @@ def test_detection_learns(tmp_path):
     state = trainer.run()
     perf, metrics = trainer.val_epoch(99, state, make_eval_step(use_ema=False), None)
     assert perf >= 0.5, metrics
+
+
+@pytest.mark.parametrize("key, value", [
+    ("PARALLEL", {"MESH": [1, 1]}),
+    ("PROFILER", {"DIR": "traces", "START_STEP": 2, "NUM_STEPS": 1}),
+    ("AMP_BN_BF16_STATS", True)])
+def test_trainer_refuses_the_keys_it_does_not_port(tmp_path, key, value):
+    """A config that sets the JAX mesh, the profiler hook or the bfloat16
+    BN moments raises, naming the ROADMAP, rather than training without
+    them; unset (or an empty mapping) they are not read."""
+    with pytest.raises(NotImplementedError, match=f"{key} .*ROADMAP"):
+        Trainer(CommonConfiguration({key: value}), device="cpu")
+    cfg = write_config(tmp_path, dict(VAL_64), dict(VAL_64), **{key: {}})
+    assert Trainer(CommonConfiguration.from_file(cfg), device="cpu").cfg.get(key) == {}
