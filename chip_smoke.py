@@ -14,9 +14,9 @@
    times the decode of the 640×427 4:2:0 fixture on one thread and on 8,
    and the PNG decode of a 1024×2048 RGB frame of Sub, Average or Paeth
    rows with its unfilter in C beside the numpy plain version's.  Then a
-   COCO-format directory is written from copies of the fixtures (128 train
-   and 64 val images, seeded boxes and polygons, a crowd and a non-crowd
-   RLE) for the phases below.
+   COCO-format directory is written from copies of the fixtures (320 train
+   and 160 val images, seeded boxes and polygons, a crowd and a non-crowd
+   RLE; each phase reads the first images it needs) for the phases below.
 2. Kernel timing: ``nms_keep`` and ``nms_keep_plain`` by CUDA events at
    K = 1024, B in {32, 1}, and on a dense input.
 3. Path phase: full-width YOLOv5-s (80 classes) with seeded random
@@ -155,6 +155,38 @@
    input and timed; host transforms and loader rate; card vs CPU at B = 2,
    f32 (head outputs within 1e-4 of their largest value, the DSL
    assignment equal, losses 1e-4).
+8c. NanoDet v1 (``nanodet_v1``): ``conf/coco_nanodet.yml`` as written
+   (ShuffleNetV2-1.0, PAN, 3×3 head stacks, strides 8–32, the ATSS-assigned
+   GFL loss, letterbox 320, RandomAffine, flip, ColorHSV, SGD, cosine,
+   warmup, AMP, EMA, batch 160) with only ``IMG_DIR``/``ANN_FILE`` pointed
+   at the COCO directory of JPEG files (320 train, 160 val images):
+   ``Trainer.run()`` for 2 steps, bbox validation of 160 images
+   (``nms_keep`` once, at (160, 1024)), one served batch through
+   ``infer.main`` (once more; boxes the predict step's un-letterboxed); the
+   AMP and f32 steps at batch 160 (peak memory), the ATSS assignment alone,
+   the val and predict steps; ``nms_keep`` bit-exact on the path's val
+   input and timed; card vs CPU at B = 2, f32 (head outputs within 1e-4 of
+   their largest value, ATSS ``matched_gt`` equal, losses 1e-4).
+8d. YOLOv6-s (``yolov6_s``): ``conf/coco_yolov6_s.yml`` as written
+   (EfficientRep, RepBiPAN, Effidehead, mosaic + affine at 640², flip,
+   ColorHSV, AMP, EMA, batch 32) on 32 of the COCO directory's train
+   images: ``Trainer.run()`` for 5 epochs of one step, epochs 0–3 assigned
+   with ATSS and epoch 4 with TAL (each ``yolov6_loss`` call's epoch, a
+   host integer, and assigner recorded and checked), bbox validation of 64
+   images after epoch 4 (``nms_keep`` once a batch), one served batch (once
+   more); the class logits' biases start at 0 so that these batches hold
+   detections.  The AMP step at batch 32 with TAL and with ATSS (epoch 3),
+   the val and predict steps; ``nms_keep`` bit-exact on the (32, 1024) val
+   input; card vs CPU at B = 2 in both branches (head outputs 1e-4,
+   ``matched_gt`` of ATSS and of TAL equal on the CPU's inputs, the val
+   losses in float32 and the train losses in float64 1e-4; the float32
+   train losses reported beside the CPU's own float32-vs-float64 gap).
+8e. NanoDet v1's other configs, one train step and one val batch each at
+   their batch, not timed: ``coco_nanodet_t`` (TAN), ``coco_nanodet_g``
+   (CustomCspNet, 128 channels), ``coco_nanodet_repvgg``,
+   ``coco_nanodet_efficientnet_lite`` and ``coco_nanodet_416`` on the COCO
+   directory, ``voc_nanodet`` on a VOCdevkit through the ``voc_detection``
+   evaluator; ``nms_keep`` once each, bit-exact on its val input.
 8b. YOLOv5 host-augmentation phase (``yolov5_host_aug``), after the
    other phases:
    ``conf/coco_yolov5_s.yml`` as written, its ``CocoDetection`` reading
@@ -201,8 +233,10 @@
    ``detail_target`` range's share of the busy time), PP-LiteSeg, SGCPNet,
    ENet and SegNet (the pools' and unpools' kernels as named groups),
    MobileNetV2 and
-   NanoDet-Plus AMP train steps (NanoDet-Plus's (96, 1024) NMS input
-   among the kernel inputs).
+   NanoDet-Plus AMP train steps (NanoDet-Plus's (96, 1024), NanoDet v1's
+   (160, 1024) and YOLOv6-s's (32, 1024) NMS inputs among the kernel
+   inputs), and of the NanoDet v1 and YOLOv6-s AMP steps (TAL and ATSS)
+   with the share of the ``atss_assign`` and ``tal_assign`` ranges.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -1245,6 +1279,11 @@ def host_aug_timing(trainer) -> dict:
 FIXTURES = ROOT / "tests" / "data" / "torch_jpeg"  # JPEG files and cv2.imread's sha256 of each
 COCO_FRAME = "coco_640x427_420.jpg"  # a COCO-sized 4:2:0 baseline file
 COCO_INFER_IMAGES = BATCH  # one served batch
+NANODET_V1_BATCH = 160  # TRAIN and VAL BATCH_SIZE of conf/coco_nanodet.yml
+NANODET_V1_STEPS = 2  # one epoch
+NANODET_V1_VAL_IMAGES = 160  # one val batch: nms_keep at (160, 1024)
+COCO_TRAIN_IMAGES = max(BATCH * HOST_AUG_STEPS, NANODET_V1_BATCH * NANODET_V1_STEPS)
+COCO_VAL_IMAGES = max(HOST_AUG_VAL_IMAGES, NANODET_V1_VAL_IMAGES)
 COCO_SEGM_IMAGES = 16  # one Mask R-CNN val batch
 CLS_LOADER_ITEMS = 64  # one mini-imagenet train batch
 PNG_FRAME = (1024, 2048)  # a Cityscapes frame
@@ -1343,8 +1382,11 @@ def write_coco_dir(root: Path, dictionary) -> dict:
     restarts, grey, CMYK, EXIF-rotated) under COCO's names, with 1-8
     seeded boxes and polygons per image over the dictionary's categories;
     the val split also holds a crowd RLE and a non-crowd compressed RLE.
-    → {stage: (IMG_DIR, ANN_FILE)} for train (128 images), val (64),
-    infer (the first 32 val images) and segm (the first 16)."""
+    → {stage: (IMG_DIR, ANN_FILE)} for train (the first 128 of
+    ``COCO_TRAIN_IMAGES``), val (the first 64 of ``COCO_VAL_IMAGES``),
+    infer (the first 32 val images) and segm (the first 16), and
+    ``all``: {split: (IMG_DIR, ANN_FILE of every image)}, from which
+    ``coco_subset`` cuts other sizes."""
     import shutil
 
     from cvpytorch_tpu_torch import native
@@ -1353,8 +1395,8 @@ def write_coco_dir(root: Path, dictionary) -> dict:
     names = sorted(manifest)
     rng = np.random.RandomState(0)
     cats = [{"id": i + 1, "name": next(iter(d))} for i, d in enumerate(dictionary)]
-    out = {}
-    for split, n in (("train", BATCH * HOST_AUG_STEPS), ("val", HOST_AUG_VAL_IMAGES)):
+    out = {"all": {}}
+    for split, n in (("train", COCO_TRAIN_IMAGES), ("val", COCO_VAL_IMAGES)):
         img_dir = root / split
         img_dir.mkdir(parents=True)
         images, anns = [], []
@@ -1380,15 +1422,34 @@ def write_coco_dir(root: Path, dictionary) -> dict:
                 anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": 1,
                              "bbox": [w / 5, h / 4, w / 2 - w / 5, h / 4],
                              "area": float(mask.sum()), "iscrowd": i, "segmentation": rle})
-        for stage, count in ((split, n),) + ((("infer", COCO_INFER_IMAGES),
-                                              ("segm", COCO_SEGM_IMAGES)) if split == "val" else ()):
+        first = BATCH * HOST_AUG_STEPS if split == "train" else HOST_AUG_VAL_IMAGES
+        for stage, count in ((split, first), (f"{split}_all", n)) + (
+                (("infer", COCO_INFER_IMAGES), ("segm", COCO_SEGM_IMAGES))
+                if split == "val" else ()):
             keep = {im["id"] for im in images[:count]}
             ann_file = root / f"instances_{stage}.json"
             ann_file.write_text(json.dumps({
                 "images": images[:count], "categories": cats,
                 "annotations": [a for a in anns if a["image_id"] in keep]}))
             out[stage] = (str(img_dir), str(ann_file))
+        out["all"][split] = out.pop(f"{split}_all")
     return out
+
+
+def coco_subset(coco: dict, split: str, n: int) -> tuple[str, str]:
+    """(IMG_DIR, ANN_FILE) of the first ``n`` images of the COCO
+    directory's ``split`` and their annotations."""
+    img_dir, ann_file = coco["all"][split]
+    full = json.loads(Path(ann_file).read_text())
+    if len(full["images"]) < n:
+        raise AssertionError(f"the COCO {split} split holds {len(full['images'])} images, "
+                             f"not {n}")
+    keep = {im["id"] for im in full["images"][:n]}
+    path = Path(ann_file).with_name(f"instances_{split}_{n}.json")
+    path.write_text(json.dumps({**full, "images": full["images"][:n],
+                                "annotations": [a for a in full["annotations"]
+                                                if a["image_id"] in keep]}))
+    return img_dir, str(path)
 
 
 def coco_segm_check(mrcnn_trainer, coco: dict, workdir: Path) -> dict:
@@ -2679,6 +2740,67 @@ def nanodet_config(workdir: Path) -> Path:
     return path
 
 
+def det_run(trainer, trainer_mod, label: str, steps: int, names, val_batches: int) -> dict:
+    """``run_instrumented`` with the checks every detection path shares:
+    ``steps`` train steps of finite losses ``names``, ``nms_keep`` launched
+    once per val batch and a finite val mAP."""
+    run = run_instrumented(trainer, trainer_mod)
+    state, metrics, launches = run["state"], run["metrics"], run["launches"]
+    if len(metrics) != steps or state.step != steps:
+        raise AssertionError(f"{label}: {len(metrics)} steps recorded, state at step "
+                             f"{state.step}")
+    losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    if set(losses) != set(names) or not all(np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"{label}: train losses {losses}")
+    if launches != val_batches:
+        raise AssertionError(f"{label}: nms_keep launched {launches} times for {val_batches} "
+                             "val batches")
+    (val_metrics,) = run["val"]
+    if not np.isfinite(val_metrics["mAP"]):
+        raise AssertionError(f"{label}: val mAP {val_metrics['mAP']}")
+    return {**run, "losses": losses, "val_mAP": float(val_metrics["mAP"])}
+
+
+def serve_checkpoint(workdir: Path, setting: Path, trainer, state, n: int, label: str) -> dict:
+    """``infer.main`` on the last checkpoint (its EMA weights): one served
+    batch of ``n`` images, ``nms_keep`` once; the served detections are the
+    predict step's on the same images, un-letterboxed to each image's
+    pixels (labels equal, boxes within 1e-3 px)."""
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+    from cvpytorch_tpu_torch.train_state import make_predict_step
+
+    before = nms_keep.launches
+    t0 = time.perf_counter()
+    infer.main(["--setting", str(setting), "--checkpoint",
+                str(Path(trainer.checkpoints.save_dir) / "last.pt"),
+                "--out", str(workdir / "served")])
+    cli_s = time.perf_counter() - t0
+    served_launches = nms_keep.launches - before
+    if served_launches != 1:
+        raise AssertionError(f"{label}: nms_keep launched {served_launches} times serving "
+                             "1 batch")
+    served = json.loads((workdir / "served" / "predictions.json").read_text())
+    images, letterbox = infer_batch(trainer, n)
+    net = make_predict_step(state.ema)(images)
+    pads, scales = (letterbox[k].cpu().numpy() for k in ("pads", "scales"))
+    if len(served) != n:
+        raise AssertionError(f"{label}: {len(served)} predictions for {n} images")
+    n_dets = 0
+    for i, p in enumerate(served):
+        v = net["valid"][i].cpu().numpy()
+        boxes = net["boxes"][i].cpu().numpy()[v]
+        want = (boxes - np.tile(pads[i], 2)) / np.tile(scales[i], 2)
+        if p["labels"] != net["labels"][i][net["valid"][i]].tolist() or not np.allclose(
+                np.reshape(p["boxes"], (-1, 4)), want, atol=1e-3, rtol=1e-5):
+            raise AssertionError(f"{label}: served image {i} differs from the predict step "
+                                 "un-letterboxed")
+        n_dets += len(p["labels"])
+    return {"served_launches": served_launches, "infer_cli_s": cli_s,
+            "served_images": n, "served_detections": n_dets,
+            "first_pads": pads[0].tolist(), "first_scale": float(scales[0][0])}
+
+
 def nanodet_phase(workdir: Path) -> tuple[dict, object]:
     """``conf/coco_nanodetplus.yml`` trained through ``Trainer.run()`` (bbox
     validation through ``nms_keep``) and served through ``infer.main`` on
@@ -2687,80 +2809,37 @@ def nanodet_phase(workdir: Path) -> tuple[dict, object]:
     427×640 frame."""
     import torch
 
-    from cvpytorch_tpu_torch import infer
     from cvpytorch_tpu_torch import trainer as trainer_mod
     from cvpytorch_tpu_torch.config import CommonConfiguration
-    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
-    from cvpytorch_tpu_torch.train_state import make_predict_step
 
     workdir.mkdir()
     setting = nanodet_config(workdir)
     trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
     # the main path of this phase, counts read just around it
-    run = run_instrumented(trainer, trainer_mod)
-    state, metrics, times, run_s, launches = (
-        run[k] for k in ("state", "metrics", "times", "run_s", "launches"))
-    names = ("qfl_loss", "bbox_loss", "dfl_loss", "loss")
-    if len(metrics) != NANODET_STEPS or state.step != NANODET_STEPS:
-        raise AssertionError(f"{len(metrics)} steps recorded, state at step {state.step}")
-    losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
-    if set(losses) != set(names) or not all(np.isfinite(v).all() for v in losses.values()):
-        raise AssertionError(f"train losses {losses}")
-    val_batches = -(-NANODET_VAL_IMAGES // NANODET_BATCH)
-    if launches != val_batches:
-        raise AssertionError(f"nms_keep launched {launches} times for {val_batches} val batches")
-    (val_metrics,) = run["val"]
-    if not np.isfinite(val_metrics["mAP"]):
-        raise AssertionError(f"val mAP {val_metrics['mAP']}")
-    print(f"NanoDet-Plus Trainer.run(): {NANODET_STEPS} steps in {run_s:.2f} s (host clock, "
-          f"from model build to the last checkpoint), losses {losses}, nms_keep launches "
-          f"{launches} for {val_batches} val batches, val mAP {val_metrics['mAP']}", flush=True)
-
-    # the last checkpoint (its EMA weights) serves one batch through the CLI
-    t0 = time.perf_counter()
-    infer.main(["--setting", str(setting), "--checkpoint",
-                str(Path(trainer.checkpoints.save_dir) / "last.pt"),
-                "--out", str(workdir / "served")])
-    cli_s = time.perf_counter() - t0
-    served_launches = nms_keep.launches - launches
-    if served_launches != 1:
-        raise AssertionError(f"nms_keep launched {served_launches} times serving 1 batch")
-    served = json.loads((workdir / "served" / "predictions.json").read_text())
-    images, letterbox = infer_batch(trainer, NANODET_BATCH)
-    predict = make_predict_step(state.ema)
-    net = predict(images)
-    pads, scales = (letterbox[k].cpu().numpy() for k in ("pads", "scales"))
-    if len(served) != NANODET_BATCH:
-        raise AssertionError(f"{len(served)} predictions for {NANODET_BATCH} images")
-    n_dets = 0
-    for i, p in enumerate(served):
-        v = net["valid"][i].cpu().numpy()
-        boxes = net["boxes"][i].cpu().numpy()[v]
-        want = (boxes - np.tile(pads[i], 2)) / np.tile(scales[i], 2)
-        if p["labels"] != net["labels"][i][net["valid"][i]].tolist() or not np.allclose(
-                np.reshape(p["boxes"], (-1, 4)), want, atol=1e-3, rtol=1e-5):
-            raise AssertionError(f"served image {i} differs from the predict step "
-                                 "un-letterboxed")
-        n_dets += len(p["labels"])
-    print(f"infer.main on the trained NanoDet-Plus: {NANODET_BATCH} images, {n_dets} detections "
-          f"in the {NANODET_FRAME[0]}×{NANODET_FRAME[1]} frame's pixels (pads {pads[0].tolist()}, "
-          f"scale {scales[0][0]:.4f}), nms_keep launches {nms_keep.launches}", flush=True)
-    del predict, net
+    run = det_run(trainer, trainer_mod, "NanoDet-Plus", NANODET_STEPS,
+                  ("qfl_loss", "bbox_loss", "dfl_loss", "loss"),
+                  -(-NANODET_VAL_IMAGES // NANODET_BATCH))
+    times = run["times"]
+    print(f"NanoDet-Plus Trainer.run(): {NANODET_STEPS} steps in {run['run_s']:.2f} s (host "
+          f"clock, from model build to the last checkpoint), losses {run['losses']}, nms_keep "
+          f"launches {run['launches']}, val mAP {run['val_mAP']}", flush=True)
+    served = serve_checkpoint(workdir, setting, trainer, run["state"], NANODET_BATCH,
+                              "NanoDet-Plus")
+    print(f"infer.main on the trained NanoDet-Plus: {json.dumps(served)} in the "
+          f"{NANODET_FRAME[0]}×{NANODET_FRAME[1]} frame's pixels", flush=True)
     torch.cuda.empty_cache()
     return {
         "steps": NANODET_STEPS,
-        "launches": launches,
-        "served_launches": served_launches,
-        "losses": losses,
-        "run_s": run_s,
+        "launches": run["launches"],
+        "losses": run["losses"],
+        "run_s": run["run_s"],
         "train_epoch_s": times["train_epoch"][0],
         "fed_images_per_s": NANODET_BATCH * NANODET_STEPS / times["train_epoch"][0],
         "val_epoch_s": times["val_epoch"][0],
         "val_evaluator_s": times["evaluator"],
         "val_evaluator_share": times["evaluator"] / times["val_epoch"][0],
-        "val_mAP": val_metrics["mAP"],
-        "infer_cli_s": cli_s,
-        "served_detections": n_dets,
+        "val_mAP": run["val_mAP"],
+        **served,
     }, trainer
 
 
@@ -2868,6 +2947,401 @@ def dsl_timing(state, batch) -> dict:
            "peak_above_inputs_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
            "positives": positives}
     print(f"DSL assigner alone: {json.dumps(out)}", flush=True)
+    return out
+
+
+YOLOV6_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_yolov6_s.yml
+YOLOV6_EPOCHS = 5  # one step an epoch: epochs 0-3 assign with ATSS, epoch 4 with TAL
+YOLOV6_VAL_IMAGES = 64  # one val epoch of 2 batches, after epoch 4
+# NanoDet v1's other configs, one train step and one val batch each at their
+# batch: COCO ones on the COCO directory, voc_nanodet on a VOCdevkit
+ONE_STEP_CONFIGS = {"coco_nanodet_t": 160, "coco_nanodet_g": 128, "coco_nanodet_repvgg": 128,
+                    "coco_nanodet_efficientnet_lite": 160, "coco_nanodet_416": 128,
+                    "voc_nanodet": 64}
+
+
+def coco_det_config(workdir: Path, name: str, coco: dict, n_train: int, n_val: int,
+                    n_infer: int, epochs: int = 1) -> Path:
+    """``conf/<name>.yml`` as written (its ``CocoDetection``, transforms,
+    model, recipe and batch), only ``IMG_DIR``/``ANN_FILE`` pointed at the
+    first ``n_train``/``n_val`` images of the COCO directory of JPEG files;
+    ``epochs`` epochs, validated after the last; the INFER stage (the
+    first ``n_infer`` val images) serves the checkpoint afterwards."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / f"{name}.yml"))
+    data = cfg.DATASET
+    data.DICTIONARY = str(ROOT / data.DICTIONARY)
+    for stage, n in (("TRAIN", n_train), ("VAL", n_val)):
+        img_dir, ann_file = coco_subset(coco, stage.lower(), n)
+        data.get(stage).update({"IMG_DIR": img_dir, "ANN_FILE": ann_file})
+    data.INFER = {**dict(data.VAL), "ANN_FILE": coco_subset(coco, "val", n_infer)[1]}
+    cfg.EVALUATOR.EVAL_INTERVALS = epochs
+    cfg.update({"N_MAX_EPOCHS": epochs, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+                "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
+    path = workdir / f"{name}_jpeg_files.json"
+    path.write_text(json.dumps(cfg, default=lambda c: c.data))
+    return path
+
+
+def nanodet_v1_phase(workdir: Path, coco: dict) -> tuple[dict, object]:
+    """``conf/coco_nanodet.yml`` as written (ShuffleNetV2-1.0 with leaky
+    ReLU, PAN 96, 3×3 head stacks, strides 8-32, ATSS-assigned GFL loss,
+    80 classes, letterbox 320, RandomAffine, flip, ColorHSV, SGD 0.937,
+    cosine, warmup, grad clip 10, AMP, EMA, batch 160, bbox evaluation) on
+    the COCO directory's JPEG files: ``Trainer.run()`` for 2 steps, bbox
+    validation of 160 images (``nms_keep`` once, at (160, 1024)), the
+    checkpoint served through ``infer.main`` (once more)."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    workdir.mkdir()
+    n_train = NANODET_V1_BATCH * NANODET_V1_STEPS
+    setting = coco_det_config(workdir, "coco_nanodet", coco, n_train, NANODET_V1_VAL_IMAGES,
+                              NANODET_V1_BATCH)
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    model = trainer.model
+    if not (model.v1 and type(model.neck).__name__ == "PAN" and model.strides == (8, 16, 32)):
+        raise AssertionError(f"coco_nanodet built {type(model.neck).__name__}, v1 {model.v1}, "
+                             f"strides {model.strides}")
+    # the main path of this phase, counts read just around it
+    run = det_run(trainer, trainer_mod, "NanoDet v1", NANODET_V1_STEPS,
+                  ("qfl_loss", "bbox_loss", "dfl_loss", "loss"),
+                  -(-NANODET_V1_VAL_IMAGES // NANODET_V1_BATCH))
+    served = serve_checkpoint(workdir, setting, trainer, run["state"], NANODET_V1_BATCH,
+                              "NanoDet v1")
+    times = run["times"]
+    out = {"steps": NANODET_V1_STEPS, "launches": run["launches"], "losses": run["losses"],
+           "val_mAP": run["val_mAP"], "run_s": run["run_s"],
+           "train_epoch_s": times["train_epoch"][0],
+           "fed_images_per_s": n_train / times["train_epoch"][0],
+           "val_epoch_s": times["val_epoch"][0],
+           "val_evaluator_share": times["evaluator"] / times["val_epoch"][0], **served}
+    print(f"NanoDet v1 (coco_nanodet) Trainer.run() on {n_train} JPEG files: "
+          f"{json.dumps(out)}", flush=True)
+    torch.cuda.empty_cache()
+    return out, trainer
+
+
+def atss_timing(state, batch) -> dict:
+    """The ATSS assignment of NanoDet v1's loss alone on one train batch's
+    targets (the octave cells of the (i + 0.5)·stride priors): CUDA events
+    over 3 calls after 1, and its peak memory above its inputs."""
+    import torch
+
+    from cvpytorch_tpu_torch.models.assigners.atss_assigner import atss_assign, grid_cells
+    from cvpytorch_tpu_torch.train_state import prepare_images
+
+    model, t = state.model, batch["target"]
+    with torch.no_grad():
+        _, _, priors, level_priors = model.eval()._forward_levels(
+            prepare_images(batch["image"]), train=False)
+    cells = grid_cells(priors, model.octave_base_scale)
+
+    def call():
+        return atss_assign(priors, level_priors, cells, t["boxes"], t["valid"],
+                           model.atss_topk)
+
+    positives = int((call()["matched_gt"] >= 0).sum())
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_time_ms(call, iters=3, warmup=1)
+    out = {"B_P_M": [t["boxes"].shape[0], priors.shape[0], t["boxes"].shape[1]], "ms": ms,
+           "peak_above_inputs_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "positives": positives}
+    print(f"ATSS assigner alone: {json.dumps(out)}", flush=True)
+    return out
+
+
+def nanodet_v1_card_vs_cpu(trainer, batches) -> dict:
+    """NanoDet v1 (coco_nanodet) at 320², B = 2, f32: eval-mode head
+    outputs within 1e-4 of their largest value; the ATSS assignment of the
+    CPU's priors and targets equal on the card (``matched_gt``: the
+    distance ties of grid priors resolved alike); the train-mode losses
+    within 1e-4 relative."""
+    import torch
+
+    from cvpytorch_tpu_torch.models.assigners.atss_assigner import atss_assign, grid_cells
+
+    def forward(model, batch):
+        x, t = batch["image"], batch["target"]
+        with torch.no_grad():
+            head, _, priors, level_priors = model.eval()._forward_levels(x, train=False)
+            _, losses = model.train()(x, t, mode="train")
+        return {"head": head, "priors": priors, "losses": losses, "target": t,
+                "level_priors": torch.tensor(level_priors)}
+
+    def check(cpu, card):
+        model = trainer.model
+        matched = {}
+        for device in ("cpu", "cuda"):
+            priors = cpu["priors"].to(device)
+            t = {k: v.to(device) for k, v in cpu["target"].items()}
+            matched[device] = atss_assign(
+                priors, tuple(cpu["level_priors"].tolist()),
+                grid_cells(priors, model.octave_base_scale), t["boxes"], t["valid"],
+                model.atss_topk)["matched_gt"].cpu()
+        out = {"head_max_rel_err": max_rel_err(card["head"], cpu["head"]),
+               "atss_matched_gt_equal": bool(torch.equal(matched["cpu"], matched["cuda"])),
+               "atss_positives": int((matched["cpu"] >= 0).sum()),
+               "train_loss_rel": {k: abs(float(card["losses"][k]) - float(v))
+                                  / max(abs(float(v)), 1e-12)
+                                  for k, v in cpu["losses"].items()},
+               "train_loss_cpu": {k: float(v) for k, v in cpu["losses"].items()}}
+        print(f"NanoDet v1 card vs CPU, f32, B=2, 320²: {json.dumps(out)}", flush=True)
+        if not (out["head_max_rel_err"] <= 1e-4 and out["atss_matched_gt_equal"]
+                and max(out["train_loss_rel"].values()) <= 1e-4):
+            raise AssertionError(f"NanoDet v1 card vs CPU: {out}")
+        return out
+
+    return card_vs_cpu(trainer, batches, forward, check)
+
+
+@contextlib.contextmanager
+def yolov6_branches():
+    """Records the epoch each ``yolov6_loss`` call gets and which assigner
+    it runs (``atss``, ``tal``)."""
+    from cvpytorch_tpu_torch.models import yolov6
+
+    seen = {"epochs": [], "assigners": []}
+    real = {k: getattr(yolov6, k) for k in ("yolov6_loss", "atss_assign", "tal_assign")}
+
+    def loss(*args, **kwargs):
+        epoch = args[5] if len(args) > 5 else kwargs.get("epoch")
+        if epoch is not None and type(epoch) is not int:
+            raise AssertionError(f"yolov6_loss got the epoch as {type(epoch).__name__}, "
+                                 "not the host integer")
+        seen["epochs"].append(epoch)
+        return real["yolov6_loss"](*args, **kwargs)
+
+    def recorded(name):
+        def call(*args, **kwargs):
+            seen["assigners"].append(name.split("_")[0])
+            return real[name](*args, **kwargs)
+        return call
+
+    yolov6.yolov6_loss = loss
+    yolov6.atss_assign, yolov6.tal_assign = recorded("atss_assign"), recorded("tal_assign")
+    try:
+        yield seen
+    finally:
+        for k, v in real.items():
+            setattr(yolov6, k, v)
+
+
+def yolov6_phase(workdir: Path, coco: dict) -> tuple[dict, object]:
+    """``conf/coco_yolov6_s.yml`` as written (EfficientRep + RepBiPAN +
+    Effidehead at s's multipliers, 80 classes, mosaic + affine at 640² on
+    LOAD_NUM = 4 groups, flip, ColorHSV, SGD 0.937, cosine, warmup, grad
+    clip 10, AMP, EMA, batch 32, bbox evaluation) on the COCO directory's
+    JPEG files: ``Trainer.run()`` for 5 epochs of one step, epochs 0-3
+    assigned with ATSS and epoch 4 with TAL, the epoch the host integer
+    the trainer puts in the targets; bbox validation of 64 images after
+    epoch 4 (TAL; ``nms_keep`` once a batch) and one served batch (once
+    more)."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    workdir.mkdir()
+    setting = coco_det_config(workdir, "coco_yolov6_s", coco, YOLOV6_BATCH, YOLOV6_VAL_IMAGES,
+                              YOLOV6_BATCH, epochs=YOLOV6_EPOCHS)
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    if type(trainer.model).__name__ != "YOLOv6" or trainer.model.neck.out_channels != [
+            64, 128, 256]:
+        raise AssertionError(f"coco_yolov6_s built {type(trainer.model).__name__}")
+    # class logits' biases at 0 instead of −log 99, so that the few steps'
+    # random-weight model scores above the 0.03 threshold and the val and
+    # served batches hold detections
+    with torch.no_grad():
+        for i in range(trainer.model.head.n_levels):
+            getattr(trainer.model.head, f"cls_out{i}").bias.zero_()
+    val_batches = -(-YOLOV6_VAL_IMAGES // YOLOV6_BATCH)
+    with yolov6_branches() as seen:  # the main path of this phase
+        run = det_run(trainer, trainer_mod, "YOLOv6-s", YOLOV6_EPOCHS,
+                      ("cls_loss", "box_loss", "loss"), val_batches)
+    want = {"epochs": list(range(YOLOV6_EPOCHS)) + [YOLOV6_EPOCHS - 1] * val_batches,
+            "assigners": ["atss"] * 4 + ["tal"] * (YOLOV6_EPOCHS - 4 + val_batches)}
+    if seen != want:
+        raise AssertionError(f"YOLOv6 loss calls {seen}, not {want}")
+    served = serve_checkpoint(workdir, setting, trainer, run["state"], YOLOV6_BATCH, "YOLOv6-s")
+    times = run["times"]
+    out = {"epochs": YOLOV6_EPOCHS, "steps": YOLOV6_EPOCHS, "launches": run["launches"],
+           "loss_calls": seen, "losses": run["losses"], "val_mAP": run["val_mAP"],
+           "run_s": run["run_s"], "train_epoch_s": times["train_epoch"],
+           "val_epoch_s": times["val_epoch"][0], **served}
+    print(f"YOLOv6-s (coco_yolov6_s) Trainer.run() across the ATSS → TAL switch: "
+          f"{json.dumps(out)}", flush=True)
+    torch.cuda.empty_cache()
+    return out, trainer
+
+
+def yolov6_timing(trainer) -> tuple[dict, dict, dict]:
+    """YOLOv6-s's AMP train step at batch 32 on a host-augmented batch
+    already on the card, with the TAL assignment (no epoch in the targets)
+    and with ATSS (epoch 3), by CUDA events over 5 steps after 2, peak
+    memory; the val and predict steps.  Returns the numbers, the AMP
+    states and the batches."""
+    import torch
+
+    timed, states, batches = milestone_timing(trainer, YOLOV6_BATCH, None, iters=5,
+                                              ema_decay=0.9999, amp_only=True)
+    atss_batch = {**batches["train"], "target": {**batches["train"]["target"], "epoch": 3}}
+    timed["atss_epoch_3"], states["atss"] = train_step_timing(
+        trainer, atss_batch, YOLOV6_BATCH, iters=5, ema_decay=0.9999, amp_only=True)
+    batches["atss"] = atss_batch
+    torch.cuda.empty_cache()
+    print(f"YOLOv6-s steps at bs{YOLOV6_BATCH}: {json.dumps(timed)}", flush=True)
+    return timed, states, batches
+
+
+def yolov6_card_vs_cpu(trainer, batches) -> dict:
+    """YOLOv6-s at 640², B = 2, in both branches (epoch 3: ATSS, 4: TAL):
+    eval-mode head outputs within 1e-4 of their largest value; the
+    assignment of the CPU's inputs (ATSS: priors and targets; TAL: the
+    CPU's train-mode predictions too) equal on the card; the eval-mode
+    (val) losses in float32 and the train-mode losses in float64 within
+    1e-4 relative (a term under 1e-3 of the total: of 1e-3 of the total).
+    The float32 train-mode losses are reported beside them: BN on the
+    batch's statistics in this deep random-weight network puts one
+    device's own float32 losses up to 3e-4 off its float64 ones."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.models.assigners.atss_assigner import atss_assign, grid_cells
+    from cvpytorch_tpu_torch.models.assigners.tal_assigner import tal_assign
+    from cvpytorch_tpu_torch.models.yolov6 import decode_yolov6
+
+    def forward(model, batch):
+        x, t = batch["image"], batch["target"]
+        out = {"target": t}
+        with torch.no_grad():
+            out["head"], out["priors"], level_priors = model.eval()._forward(x)
+            out["level_priors"] = torch.tensor(level_priors)
+            model64 = copy.deepcopy(model).double()
+            t64 = {**t, "boxes": t["boxes"].double()}
+            for epoch in (3, 4):
+                out[f"val_epoch{epoch}"] = model.eval()(x, {**t, "epoch": epoch}, mode="val")[0]
+                out[f"train_epoch{epoch}"] = model.train()(x, {**t, "epoch": epoch},
+                                                           mode="train")[1]
+                out[f"train_f64_epoch{epoch}"] = model64.train()(
+                    x.double(), {**t64, "epoch": epoch}, mode="train")[1]
+            out["train_preds"], _, _ = model._forward(x)
+        return out
+
+    def rel(card, cpu):
+        total = abs(float(cpu["loss"]))
+        return {k: abs(float(card[k]) - float(v)) / max(abs(float(v)), 1e-3 * total)
+                for k, v in cpu.items()}
+
+    def check(cpu, card):
+        matched = {}
+        for device in ("cpu", "cuda"):
+            priors = cpu["priors"].to(device)
+            t = {k: v.to(device) for k, v in cpu["target"].items()}
+            preds = cpu["train_preds"].to(device)
+            matched[f"atss_{device}"] = atss_assign(
+                priors, tuple(cpu["level_priors"].tolist()), grid_cells(priors, 5), t["boxes"],
+                t["valid"], topk=9, center_eps=1e-9, strict_thr=True,
+                dedup_unmasked=True)["matched_gt"].cpu()
+            matched[f"tal_{device}"] = tal_assign(
+                torch.sigmoid(preds[..., 4:]), priors, decode_yolov6(preds, priors), t["boxes"],
+                t["labels"], t["valid"])["matched_gt"].cpu()
+        out = {"head_max_rel_err": max_rel_err(card["head"], cpu["head"])}
+        for name in ("atss", "tal"):
+            out[f"{name}_matched_gt_equal"] = bool(torch.equal(matched[f"{name}_cpu"],
+                                                               matched[f"{name}_cuda"]))
+            out[f"{name}_positives"] = int((matched[f"{name}_cpu"] >= 0).sum())
+        gated = []
+        for epoch in (3, 4):
+            for key in (f"val_epoch{epoch}", f"train_f64_epoch{epoch}", f"train_epoch{epoch}"):
+                out[f"{key}_loss_rel"] = rel(card[key], cpu[key])
+                if not key.startswith("train_epoch"):
+                    gated.append(max(out[f"{key}_loss_rel"].values()))
+            out[f"train_epoch{epoch}_cpu_f32_vs_f64"] = rel(cpu[f"train_epoch{epoch}"],
+                                                            cpu[f"train_f64_epoch{epoch}"])
+        print(f"YOLOv6-s card vs CPU, B=2, 640²: {json.dumps(out)}", flush=True)
+        if not (out["head_max_rel_err"] <= 1e-4 and out["atss_matched_gt_equal"]
+                and out["tal_matched_gt_equal"] and max(gated) <= 1e-4):
+            raise AssertionError(f"YOLOv6-s card vs CPU: {out}")
+        return out
+
+    return card_vs_cpu(trainer, batches, forward, check)
+
+
+def voc_det_config(workdir: Path, name: str, n: int) -> Path:
+    """``conf/<name>.yml`` as written (``VOCDetection``), ``IMG_DIR``
+    pointed at a VOCdevkit of ``n`` ids (``data/layouts.write_voc``: JPEG
+    copies of the fixtures and a PNG, XML annotations with difficult
+    flags and a name in no dictionary); TRAIN and VAL read every id, as
+    written; one epoch."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration, load_dictionary
+    from cvpytorch_tpu_torch.data import layouts
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / f"{name}.yml"))
+    data = cfg.DATASET
+    data.DICTIONARY = str(ROOT / data.DICTIONARY)
+    names = [next(iter(d)) for d in load_dictionary(data.DICTIONARY, data.DICTIONARY_NAME)[1]]
+    jpegs = [str(FIXTURES / f) for f in sorted(fixture_manifest())]
+    root = layouts.write_voc(str(workdir / "data" / "VOCdevkit" / "VOC2012"), jpegs, names, n,
+                             n // 2)["IMG_DIR"]
+    for stage in ("TRAIN", "VAL"):
+        data.get(stage).update({"IMG_DIR": root})
+    cfg.EVALUATOR.EVAL_INTERVALS = 1
+    cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+                "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
+    path = workdir / f"{name}_voc_layout.json"
+    path.write_text(json.dumps(cfg, default=lambda c: c.data))
+    return path
+
+
+def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
+    """``conf/<name>.yml`` as written on its dataset (the COCO directory's
+    JPEG files, or for ``voc_nanodet`` a VOCdevkit through the
+    ``voc_detection`` evaluator): one train step and one val batch at the
+    config's batch through ``Trainer.run()`` (``nms_keep`` once), finite
+    losses and metric, ``nms_keep`` bit-exact against ``nms_keep_plain``
+    on the val input the path gave it.  Not timed."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+
+    workdir.mkdir(parents=True)
+    n = ONE_STEP_CONFIGS[name]
+    setting = (voc_det_config(workdir, name, n) if name.startswith("voc")
+               else coco_det_config(workdir, name, coco, n, n, n))
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    sizes = {stage: len(trainer.datasets[stage]) for stage in ("train", "val")}
+    if sizes != {"train": n, "val": n} or not trainer.model.v1:
+        raise AssertionError(f"{name}: {sizes}, v1 {trainer.model.v1}")
+    seen, restore = capture_nms_inputs()
+    try:
+        run = det_run(trainer, trainer_mod, name, 1, ("qfl_loss", "bbox_loss", "dfl_loss",
+                                                      "loss"), 1)
+    finally:
+        restore()
+    (boxes, thr), = seen
+    before = nms_keep.launches
+    if not torch.equal(nms_keep(boxes, thr), nms_keep_plain(boxes, thr)):
+        raise AssertionError(f"{name}: nms_keep != nms_keep_plain on its val input")
+    nms_keep.launches = before  # comparison launches do not count
+    model = trainer.model
+    out = {"dataset": type(trainer.datasets["train"]).__name__, "batch": n,
+           "backbone": type(model.backbone).__name__, "neck": type(model.neck).__name__,
+           "launches": run["launches"], "losses": run["losses"], "val_mAP": run["val_mAP"],
+           "val_nms_input": {"shape": list(boxes.shape), "bit_exact": True,
+                             "bound_ms": nms_bound_ms(*boxes.shape[:2])[0]},
+           "run_s": run["run_s"]}
+    print(f"{name}: one step and one val batch on the card: {json.dumps(out)}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3030,6 +3504,34 @@ def main() -> int:
         print(json.dumps({"nanodet_card_vs_cpu": nanodet_card_vs_cpu(nd_trainer, nd_batches),
                           "card": card}), flush=True)
         mark("nanodet")
+        torch.cuda.empty_cache()
+        ndv1, ndv1_trainer = nanodet_v1_phase(Path(tmp) / "nanodet_v1", coco)
+        print(json.dumps({"nanodet_v1": ndv1, "card": card}), flush=True)
+        ndv1_timed, ndv1_states, ndv1_batches = milestone_timing(
+            ndv1_trainer, NANODET_V1_BATCH, None, iters=5, ema_decay=0.9999)
+        ndv1_timed["atss_assign"] = atss_timing(ndv1_states["train"], ndv1_batches["train"])
+        print(json.dumps({"nanodet_v1_timing": ndv1_timed, "card": card}), flush=True)
+        ndv1_nms, ndv1_input = val_nms_input(ndv1_states["train"], ndv1_batches["val"],
+                                             "NanoDet v1")
+        print(json.dumps({"nanodet_v1_card_vs_cpu": nanodet_v1_card_vs_cpu(
+            ndv1_trainer, ndv1_batches), "card": card}), flush=True)
+        del ndv1_trainer
+        mark("nanodet_v1")
+        torch.cuda.empty_cache()
+        v6, v6_trainer = yolov6_phase(Path(tmp) / "yolov6", coco)
+        print(json.dumps({"yolov6_s": v6, "card": card}), flush=True)
+        v6_timed, v6_states, v6_batches = yolov6_timing(v6_trainer)
+        print(json.dumps({"yolov6_s_timing": v6_timed, "card": card}), flush=True)
+        v6_nms, v6_input = val_nms_input(v6_states["train"], v6_batches["val"], "YOLOv6-s")
+        print(json.dumps({"yolov6_s_card_vs_cpu": yolov6_card_vs_cpu(v6_trainer, v6_batches),
+                          "card": card}), flush=True)
+        del v6_trainer
+        mark("yolov6_s")
+        one_step = {}
+        for name in ONE_STEP_CONFIGS:
+            torch.cuda.empty_cache()
+            one_step[name] = one_step_run(Path(tmp) / name, name, coco)
+            mark(name)
         # the host-augmented YOLOv5 path after the other phases
         torch.cuda.empty_cache()
         host_aug, ha_trainer = host_aug_phase(Path(tmp) / "host_aug", coco)
@@ -3055,7 +3557,9 @@ def main() -> int:
         mark("kernel_checks")
         # the profiler last: its sessions slow the host's launches afterwards
         split = device_phase({**times.pop("inputs"), "path_input": path_input,
-                              "nanodet_val_input": nd_input})
+                              "nanodet_val_input": nd_input,
+                              "nanodet_v1_val_input": ndv1_input,
+                              "yolov6_val_input": v6_input})
         mark("device_phase")
         train_step_fn, aug_fn = _profiled_train_state(trainer)
         print(json.dumps({"device_aug_profile": profile_device(aug_fn, steps=3, top=8),
@@ -3116,6 +3620,23 @@ def main() -> int:
                 prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / amp_ms
                 print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
                       flush=True)
+        # NanoDet v1 and YOLOv6-s (TAL, then ATSS): the assigners' ranges
+        for key, state, batch, amp_ms, assign in (
+                ("nanodet_v1", ndv1_states["train"], ndv1_batches["train"],
+                 ndv1_timed["amp_step_ms"], "atss_assign"),
+                ("yolov6_s_tal", v6_states["train"], v6_batches["train"],
+                 v6_timed["amp_step_ms"], "tal_assign"),
+                ("yolov6_s_atss", v6_states["atss"], v6_batches["atss"],
+                 v6_timed["atss_epoch_3"]["amp_step_ms"], "atss_assign")):
+            torch.cuda.empty_cache()
+            step = make_train_step(amp=True, ema_decay=0.9999)
+            prof = profile_device(lambda: step(state, batch), steps=2, top=15)
+            prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / amp_ms
+            span = prof["annotated_ms"].get(assign)
+            prof[f"{assign}_share_of_busy"] = None if span is None else span / prof[
+                "device_busy_ms"]
+            print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
+                  flush=True)
     mark("cls and nanodet profiles")
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
@@ -3128,6 +3649,10 @@ def main() -> int:
     nd_nms["bound_ms"], _ = nms_bound_ms(*nd_nms["shape"][:2])
     nd_nms["bound_ms_milestone_B128"], _ = nms_bound_ms(NANODET_MILESTONE_BATCH, 1024)
     nd_nms.update(split["nanodet_val_input"])
+    for record, B, key in ((ndv1_nms, NANODET_V1_BATCH, "nanodet_v1_val_input"),
+                           (v6_nms, YOLOV6_BATCH, "yolov6_val_input")):
+        record["bound_ms"], _ = nms_bound_ms(B, 1024)
+        record.update(split[key])
     # each path's main run: the count set to 0 just before and read just after
     by_path = {"infer": path["launches"], "train": train["launches"],
                "yolov5_host_aug_train_and_val": host_aug["launches"],
@@ -3139,7 +3664,12 @@ def main() -> int:
                **{f"{name}_train_and_val": run["launches"] for name, run in layouts.items()},
                "cls_train_and_val": cls["nms_keep_launches"],
                "nanodet_train_and_val": nanodet["launches"],
-               "nanodet_served": nanodet["served_launches"]}
+               "nanodet_served": nanodet["served_launches"],
+               "nanodet_v1_train_and_val": ndv1["launches"],
+               "nanodet_v1_served": ndv1["served_launches"],
+               "yolov6_s_train_and_val": v6["launches"],
+               "yolov6_s_served": v6["served_launches"],
+               **{f"{name}_train_and_val": run["launches"] for name, run in one_step.items()}}
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
         "route": "cuda",
@@ -3164,6 +3694,9 @@ def main() -> int:
         "device_ms_by_kernel": split,
         "maskrcnn_path_inputs": mrcnn_nms,
         "nanodet_path_input": nd_nms,
+        "nanodet_v1_path_input": ndv1_nms,
+        "yolov6_s_path_input": v6_nms,
+        "one_step_val_inputs": {name: run["val_nms_input"] for name, run in one_step.items()},
         "dataset_layout_path_inputs": {name: run["nms_inputs"] for name, run in layouts.items()
                                        if run["nms_inputs"]},
     }]}))

@@ -139,3 +139,27 @@ class DropPath(nn.Module):
         shape = (x.shape[0],) + (1,) * (x.ndim - 1)
         mask = torch.empty(shape, device=x.device).bernoulli_(keep).bool()
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class MultiHeadDense(nn.Linear):
+    """``nn.Linear`` standing for one of the ``DenseGeneral`` projections of
+    Flax's ``MultiHeadDotProductAttention``: ``split='heads'`` projects
+    ``in_features`` to ``heads`` heads of ``out_features // heads`` (the
+    query, key and value; Flax kernel (in, H, D), bias (H, D)), and
+    ``split='merge'`` projects the heads back (the output; kernel (H, D,
+    out), bias (out,)).  The weight carry reshapes those by this rule
+    (``utils/porting``)."""
+
+    def __init__(self, in_features: int, out_features: int, heads: int, split: str):
+        super().__init__(in_features, out_features)
+        if split not in ("heads", "merge"):
+            raise ValueError(f"split is 'heads' or 'merge', not {split!r}")
+        self.heads, self.split = heads, split
+
+    def flax_shape(self, leaf: str) -> tuple:
+        """The Flax shape of the ``kernel`` or ``bias`` this module holds."""
+        if self.split == "heads":
+            d = self.out_features // self.heads
+            return (self.in_features, self.heads, d) if leaf == "kernel" else (self.heads, d)
+        d = self.in_features // self.heads
+        return (self.heads, d, self.out_features) if leaf == "kernel" else (self.out_features,)

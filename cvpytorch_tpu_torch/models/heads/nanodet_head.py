@@ -5,12 +5,15 @@ Each level: ``stacked_convs`` depthwise blocks (``convs{i}_{s}_dw``, a
 k×k depthwise convolution, BN and activation, then ``convs{i}_{s}_pw``,
 1×1) and the 1×1 ``gfl_cls{i}`` emitting C + 4·(reg_max + 1) channels.
 Decode: the integral of each ltrb distribution times the stride, around
-the centre priors (x·stride, y·stride).  Loss: DSL assignment on detached
+the centre priors.  NanoDet-Plus's loss: DSL assignment on detached
 predictions, then QFL + GIoU + DFL with the sigma-weighted averages of
 the JAX loss (sums over the whole batch).
 
-The NanoDet v1 loss (ATSS assignment on (i + 0.5)·stride priors) is not
-ported yet (ROADMAP, Queue 1 item 7).
+NanoDet v1 (``center_priors_v1``, ``nanodet_v1_loss``): priors at
+(i + 0.5)·stride, ATSS assignment on the octave cells (5·stride squares
+around them), and the QFL target the aligned IoU of the *decoded
+prediction* against its gt, not the assignment's IoU; the same GIoU ×2
+and DFL ×0.25 sigma-weighted terms.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from ...registry import HEADS
+from ..assigners.atss_assigner import atss_assign, grid_cells
 from ..assigners.dsl_assigner import dsl_assign
 from ..bricks import ConvBNAct
 from ..losses.gfl_loss import (distribution_focal_loss, giou_loss, integral_project,
@@ -60,16 +64,23 @@ class NanoDetPlusHead(nn.Module):
         return torch.cat(outs, 1)
 
 
-def center_priors(featmap_sizes, strides, device=None):
-    """(P, 4): x·s, y·s, s, s for every cell of every level."""
+def center_priors(featmap_sizes, strides, device=None, offset: float = 0.0):
+    """(P, 4): (x + offset)·s, (y + offset)·s, s, s for every cell of every
+    level (offset 0.5: ``center_priors_v1``)."""
     priors = []
     for (h, w), s in zip(featmap_sizes, strides):
-        ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=device) * s,
-                                torch.arange(w, dtype=torch.float32, device=device) * s,
-                                indexing="ij")
+        ys, xs = torch.meshgrid(
+            (torch.arange(h, dtype=torch.float32, device=device) + offset) * s,
+            (torch.arange(w, dtype=torch.float32, device=device) + offset) * s,
+            indexing="ij")
         p = torch.stack([xs, ys, torch.full_like(xs, s), torch.full_like(xs, s)], -1)
         priors.append(p.reshape(-1, 4))
     return torch.cat(priors, 0)
+
+
+def center_priors_v1(featmap_sizes, strides, device=None):
+    """NanoDet v1's GFL priors: centres at (i + 0.5)·stride."""
+    return center_priors(featmap_sizes, strides, device, offset=0.5)
 
 
 def decode_nanodet(preds, priors, num_classes, reg_max):
@@ -90,24 +101,43 @@ def nanodet_loss(preds, priors, targets, num_classes, reg_max, topk: int = 13,
     the predictions the assignment is computed from (the aux head's, which
     then drive the matching of both heads); by default ``preds``."""
     cls_logits, decoded, reg = decode_nanodet(preds, priors, num_classes, reg_max)
-    C = cls_logits.shape[-1]
     a_cls, a_dec = cls_logits, decoded
     if assign_preds is not None:
         a_cls, a_dec, _ = decode_nanodet(assign_preds, priors, num_classes, reg_max)
     with record_function("dsl_assign"):  # a range in step profiles
         assign = dsl_assign(a_cls.detach(), priors, a_dec.detach(), targets["boxes"],
                             targets["labels"], targets["valid"], topk, 3.0)
-    matched_gt, matched_iou = assign["matched_gt"], assign["matched_iou"]
+    return gfl_terms(cls_logits, decoded, reg, priors, targets, assign["matched_gt"],
+                     assign["matched_iou"], reg_max)
 
+
+def _aligned_iou(a, b):
+    """IoU of aligned xyxy boxes (..., 4), the union at least 1e-6."""
+    lt = torch.maximum(a[..., :2], b[..., :2])
+    rb = torch.minimum(a[..., 2:], b[..., 2:])
+    wh = (rb - lt).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_a = (a[..., 2] - a[..., 0]).clamp(min=0) * (a[..., 3] - a[..., 1]).clamp(min=0)
+    area_b = (b[..., 2] - b[..., 0]).clamp(min=0) * (b[..., 3] - b[..., 1]).clamp(min=0)
+    return inter / (area_a + area_b - inter).clamp(min=1e-6)
+
+
+def gfl_terms(cls_logits, decoded, reg, priors, targets, matched_gt, score, reg_max):
+    """QFL against ``score`` (the quality target of each prior; None: the
+    detached aligned IoU of each positive's decoded box with its gt), and
+    the sigma-weighted GIoU ×2 and DFL ×0.25 of the positives: the terms
+    NanoDet v1 and NanoDet-Plus share once the priors are assigned."""
+    C = cls_logits.shape[-1]
     pos = matched_gt >= 0
     safe_gt = matched_gt.clamp(min=0)
     gt_boxes = targets["boxes"].gather(1, safe_gt[..., None].expand(-1, -1, 4))
     gt_labels = targets["labels"].gather(1, safe_gt)
-    labels = torch.where(pos, gt_labels, num_classes)
+    labels = torch.where(pos, gt_labels, C)
     num_pos = pos.sum().float().clamp(min=1.0)
+    if score is None:
+        score = _aligned_iou(decoded, gt_boxes).detach() * pos
 
-    qfl = quality_focal_loss(cls_logits.reshape(-1, C), labels.reshape(-1),
-                             matched_iou.reshape(-1))
+    qfl = quality_focal_loss(cls_logits.reshape(-1, C), labels.reshape(-1), score.reshape(-1))
     loss_qfl = qfl.sum() / num_pos
 
     weight = torch.sigmoid(cls_logits).amax(-1).detach() * pos
@@ -125,3 +155,16 @@ def nanodet_loss(preds, priors, targets, num_classes, reg_max, topk: int = 13,
 
     total = loss_qfl + loss_bbox + loss_dfl
     return total, {"qfl_loss": loss_qfl, "bbox_loss": loss_bbox, "dfl_loss": loss_dfl}
+
+
+def nanodet_v1_loss(preds, priors, targets, num_classes, reg_max, num_level_priors,
+                    octave_base_scale: int = 5, topk: int = 9):
+    """NanoDet v1's GFL loss of a padded-target batch (float32): ATSS on
+    the octave cells of the (i + 0.5)·stride ``priors`` (``num_level_priors``
+    per level), the QFL target the detached aligned IoU of each positive's
+    decoded box with its gt."""
+    cls_logits, decoded, reg = decode_nanodet(preds, priors, num_classes, reg_max)
+    with record_function("atss_assign"):  # a range in step profiles
+        matched_gt = atss_assign(priors, num_level_priors, grid_cells(priors, octave_base_scale),
+                                 targets["boxes"], targets["valid"], topk)["matched_gt"]
+    return gfl_terms(cls_logits, decoded, reg, priors, targets, matched_gt, None, reg_max)

@@ -30,14 +30,21 @@
  *    predictors, the point transform, restarts, libjpeg's uniform grey for
  *    a row begun out of data, and no colour conversion (a grey read takes
  *    grey or CMYK files, a colour read RGB or CMYK ones);
+ *  - arithmetic-coded sequential and progressive files (SOF9, SOF10) as
+ *    jdarith.c decodes them: the Qe table of jaricom.c, the DAC
+ *    conditioning (L = 0, U = 1, Kx = 5 where no DAC defines a table),
+ *    DC and AC first scans and refinements, restarts that reset the
+ *    statistics, and libjpeg's "corrupt data" path: a magnitude or
+ *    spectral overflow leaves the rest of the restart interval as it is;
  *  - libjpeg's fatal checks of the markers: SOF and DRI lengths exact, DAC
- *    indices and bounds (the tables themselves are unused), a scan's
- *    components in frame order, and in a progressive or lossless file no
- *    standard Huffman table stands in for a missing one.
+ *    indices and bounds, a scan's components in frame order, and in a
+ *    progressive or lossless file no standard Huffman table stands in for
+ *    a missing one.
  *
- * Arithmetic coding, hierarchical files, subsampled lossless files and
- * other precisions are refused with a message.  All state lives in one struct on the
- * caller's stack: threads decode at once.
+ * Lossless arithmetic-coded files (SOF11; libjpeg-turbo has no decoder for
+ * them), hierarchical files, subsampled lossless files and other
+ * precisions are refused with a message, as cv2.imread refuses them.  All
+ * state lives in one struct on the caller's stack: threads decode at once.
  */
 #include <stdint.h>
 #include <stdio.h>
@@ -72,6 +79,7 @@ typedef struct {
     int16_t *coef;
     uint16_t *samples; /* lossless files: the undifferenced samples */
     int al, scanned;   /* lossless files: the point transform; whether a scan coded it */
+    int dc_context;    /* arithmetic coding: the DC conditioning category */
     uint16_t q[64];
     int q_latched;
     int dc_tbl, ac_tbl;
@@ -85,7 +93,7 @@ typedef struct {
 typedef struct {
     const uint8_t *data;
     size_t size, pos;
-    int width, height, ncomp, progressive, lossless, precision, seen_sof;
+    int width, height, ncomp, progressive, lossless, arith, precision, seen_sof;
     int maxh, maxv, mcux, mcuy;
     comp_t comp[MAXC];
     uint16_t qt[4][64];
@@ -102,6 +110,13 @@ typedef struct {
     int ns, scomp[MAXC], Ss, Se, Ah, Al;
     unsigned int eobrun;
     int restarts_to_go, next_restart;
+    /* arithmetic decoding (jdarith.c): the DAC conditioning of the 16
+     * tables, the C and A registers and the bit counter (-1 after an
+     * error), and the statistics bins */
+    uint8_t dac_L[16], dac_U[16], dac_K[16];
+    int64_t ac_c, ac_a;
+    int ac_ct;
+    uint8_t dc_stats[16][64], ac_stats[16][256], fixed_bin[4];
     char *err;
     int errlen;
 } jd_t;
@@ -314,9 +329,10 @@ static int parse_dht(jd_t *d) {
     return 0;
 }
 
-/* jdmarker.c get_dac: (index, value) pairs, index < 32, a DC pair's low
- * bound at most its high one, and the pairs filling the length exactly.
- * The conditioning values are not kept: arithmetic scans are refused. */
+/* jdmarker.c get_dac: (index, value) pairs, index < 32 (16 and up: an AC
+ * table's Kx), a DC pair's low bound L at most its high one U, and the
+ * pairs filling the length exactly.  A later DAC overrides for later
+ * scans. */
 static int parse_dac(jd_t *d) {
     int len;
     if (read_u16(d, &len)) return fail(d, "JPEG segment runs past the end of the data");
@@ -325,7 +341,13 @@ static int parse_dac(jd_t *d) {
         int index = d->data[d->pos], val = d->data[d->pos + 1];
         d->pos += 2;
         if (index >= 32) return fail(d, "bad DAC index");
-        if (index < 16 && (val & 15) > (val >> 4)) return fail(d, "bad DAC value");
+        if (index >= 16) {
+            d->dac_K[index - 16] = (uint8_t)val;
+        } else {
+            d->dac_L[index] = (uint8_t)(val & 15);
+            d->dac_U[index] = (uint8_t)(val >> 4);
+            if (d->dac_L[index] > d->dac_U[index]) return fail(d, "bad DAC value");
+        }
     }
     return len ? fail(d, "bad DAC segment length") : 0;
 }
@@ -349,7 +371,8 @@ static int parse_sof(jd_t *d, int marker) {
     if (d->ncomp < 1 || d->ncomp > MAXC || d->ncomp == 2)
         return fail(d, "JPEG with an unsupported number of components");
     if (end - d->pos != 6 + 3 * (size_t)d->ncomp) return fail(d, "bad SOF segment length");
-    d->progressive = marker == 0xC2;
+    d->progressive = marker == 0xC2 || marker == 0xCA;
+    d->arith = marker == 0xC9 || marker == 0xCA;
     d->maxh = d->maxv = 1;
     for (int c = 0; c < d->ncomp; c++) {
         comp_t *cp = &d->comp[c];
@@ -516,23 +539,35 @@ static int parse_sos(jd_t *d) {
             memcpy(cp->q, d->qt[cp->tq], sizeof(cp->q));
             cp->q_latched = 1;
         }
-        /* only the tables this scan reads must exist, as libjpeg derives them */
-        if (d->Ss == 0 && d->Ah == 0) {
-            huff_t *t = table_for_scan(d, 1, cp->dc_tbl);
-            int n = 0;
-            if (!t) return -1;
-            for (int l = 1; l <= 16; l++) n += t->bits[l];
-            for (int k = 0; k < n; k++)
-                if (t->vals[k] > 15) return fail(d, "bad Huffman table");
+        if (d->arith) {
+            /* jdarith.c start_pass: fresh statistics for the tables the
+             * scan codes with (the DC predictions and contexts restart at 0
+             * below; a scan that codes no DC reads neither) */
+            if (!d->progressive || (d->Ss == 0 && d->Ah == 0))
+                memset(d->dc_stats[cp->dc_tbl], 0, sizeof(d->dc_stats[0]));
+            if (!d->progressive || d->Ss) memset(d->ac_stats[cp->ac_tbl], 0, sizeof(d->ac_stats[0]));
+        } else {
+            /* only the tables this scan reads must exist, as libjpeg derives them */
+            if (d->Ss == 0 && d->Ah == 0) {
+                huff_t *t = table_for_scan(d, 1, cp->dc_tbl);
+                int n = 0;
+                if (!t) return -1;
+                for (int l = 1; l <= 16; l++) n += t->bits[l];
+                for (int k = 0; k < n; k++)
+                    if (t->vals[k] > 15) return fail(d, "bad Huffman table");
+            }
+            if (d->Se > 0 && !table_for_scan(d, 0, cp->ac_tbl)) return -1;
         }
-        if (d->Se > 0 && !table_for_scan(d, 0, cp->ac_tbl)) return -1;
         if (d->progressive) {
             for (int k = d->Ss < 1 ? d->Ss : 1; k <= (d->Se > 9 ? d->Se : 9); k++)
                 cp->prev_bits[k] = d->scan_number > 1 ? cp->coef_bits[k] : 0;
             for (int k = d->Ss; k <= d->Se; k++) cp->coef_bits[k] = d->Al;
         }
         cp->last_dc = 0;
+        cp->dc_context = 0;
     }
+    d->ac_c = d->ac_a = 0;
+    d->ac_ct = -16; /* read two bytes into C first */
     d->eobrun = 0;
     d->buf = 0;
     d->bits = 0;
@@ -661,13 +696,238 @@ static void block_ac_refine(jd_t *d, comp_t *cp, int16_t *blk) {
     }
 }
 
-static void decode_block(jd_t *d, comp_t *cp, int16_t *blk) {
+static int arith_block(jd_t *d, comp_t *cp, int16_t *blk);
+
+/* One block of the scan; -1 when an arithmetic decoder's error ends the
+ * MCU. */
+static int decode_block(jd_t *d, comp_t *cp, int16_t *blk) {
+    if (d->arith)
+        return arith_block(d, cp, blk);
     if (!d->progressive)
         block_baseline(d, cp, blk);
     else if (d->Ss == 0)
         d->Ah == 0 ? block_dc_first(d, cp, blk) : block_dc_refine(d, blk);
     else
         d->Ah == 0 ? block_ac_first(d, cp, blk) : block_ac_refine(d, cp, blk);
+    return 0;
+}
+
+/* ---- arithmetic decoding (jdarith.c) -------------------------------- */
+
+/* jaricom.c: Qe << 16 | Next_Index_MPS << 8 | Switch_MPS << 7 |
+ * Next_Index_LPS, T.81 Table D.2; the last entry is the fixed 0.5
+ * estimate of T.851 that codes signs and DC refinement bits. */
+#define V(qe, nlps, nmps, sw) (((int64_t)(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+static const int64_t aritab[114] = {
+    V(0x5a1d, 1, 1, 1),     V(0x2586, 14, 2, 0),    V(0x1114, 16, 3, 0),    V(0x080b, 18, 4, 0),
+    V(0x03d8, 20, 5, 0),    V(0x01da, 23, 6, 0),    V(0x00e5, 25, 7, 0),    V(0x006f, 28, 8, 0),
+    V(0x0036, 30, 9, 0),    V(0x001a, 33, 10, 0),   V(0x000d, 35, 11, 0),   V(0x0006, 9, 12, 0),
+    V(0x0003, 10, 13, 0),   V(0x0001, 12, 13, 0),   V(0x5a7f, 15, 15, 1),   V(0x3f25, 36, 16, 0),
+    V(0x2cf2, 38, 17, 0),   V(0x207c, 39, 18, 0),   V(0x17b9, 40, 19, 0),   V(0x1182, 42, 20, 0),
+    V(0x0cef, 43, 21, 0),   V(0x09a1, 45, 22, 0),   V(0x072f, 46, 23, 0),   V(0x055c, 48, 24, 0),
+    V(0x0406, 49, 25, 0),   V(0x0303, 51, 26, 0),   V(0x0240, 52, 27, 0),   V(0x01b1, 54, 28, 0),
+    V(0x0144, 56, 29, 0),   V(0x00f5, 57, 30, 0),   V(0x00b7, 59, 31, 0),   V(0x008a, 60, 32, 0),
+    V(0x0068, 62, 33, 0),   V(0x004e, 63, 34, 0),   V(0x003b, 32, 35, 0),   V(0x002c, 33, 9, 0),
+    V(0x5ae1, 37, 37, 1),   V(0x484c, 64, 38, 0),   V(0x3a0d, 65, 39, 0),   V(0x2ef1, 67, 40, 0),
+    V(0x261f, 68, 41, 0),   V(0x1f33, 69, 42, 0),   V(0x19a8, 70, 43, 0),   V(0x1518, 72, 44, 0),
+    V(0x1177, 73, 45, 0),   V(0x0e74, 74, 46, 0),   V(0x0bfb, 75, 47, 0),   V(0x09f8, 77, 48, 0),
+    V(0x0861, 78, 49, 0),   V(0x0706, 79, 50, 0),   V(0x05cd, 48, 51, 0),   V(0x04de, 50, 52, 0),
+    V(0x040f, 50, 53, 0),   V(0x0363, 51, 54, 0),   V(0x02d4, 52, 55, 0),   V(0x025c, 53, 56, 0),
+    V(0x01f8, 54, 57, 0),   V(0x01a4, 55, 58, 0),   V(0x0160, 56, 59, 0),   V(0x0125, 57, 60, 0),
+    V(0x00f6, 58, 61, 0),   V(0x00cb, 59, 62, 0),   V(0x00ab, 61, 63, 0),   V(0x008f, 61, 32, 0),
+    V(0x5b12, 65, 65, 1),   V(0x4d04, 80, 66, 0),   V(0x412c, 81, 67, 0),   V(0x37d8, 82, 68, 0),
+    V(0x2fe8, 83, 69, 0),   V(0x293c, 84, 70, 0),   V(0x2379, 86, 71, 0),   V(0x1edf, 87, 72, 0),
+    V(0x1aa9, 87, 73, 0),   V(0x174e, 72, 74, 0),   V(0x1424, 72, 75, 0),   V(0x119c, 74, 76, 0),
+    V(0x0f6b, 74, 77, 0),   V(0x0d51, 75, 78, 0),   V(0x0bb6, 77, 79, 0),   V(0x0a40, 77, 48, 0),
+    V(0x5832, 80, 81, 1),   V(0x4d1c, 88, 82, 0),   V(0x438e, 89, 83, 0),   V(0x3bdd, 90, 84, 0),
+    V(0x34ee, 91, 85, 0),   V(0x2eae, 92, 86, 0),   V(0x299a, 93, 87, 0),   V(0x2516, 86, 71, 0),
+    V(0x5570, 88, 89, 1),   V(0x4ca9, 95, 90, 0),   V(0x44d9, 96, 91, 0),   V(0x3e22, 97, 92, 0),
+    V(0x3824, 99, 93, 0),   V(0x32b4, 99, 94, 0),   V(0x2e17, 93, 86, 0),   V(0x56a8, 95, 96, 1),
+    V(0x4f46, 101, 97, 0),  V(0x47e5, 102, 98, 0),  V(0x41cf, 103, 99, 0),  V(0x3c3d, 104, 100, 0),
+    V(0x375e, 99, 93, 0),   V(0x5231, 105, 102, 0), V(0x4c0f, 106, 103, 0), V(0x4639, 107, 104, 0),
+    V(0x415e, 103, 99, 0),  V(0x5627, 105, 106, 1), V(0x50e7, 108, 107, 0), V(0x4b85, 109, 103, 0),
+    V(0x5597, 110, 109, 0), V(0x504f, 111, 107, 0), V(0x5a10, 110, 111, 1), V(0x5522, 112, 109, 0),
+    V(0x59eb, 112, 111, 1), V(0x5a1d, 113, 113, 0)};
+#undef V
+
+/* One binary decision (T.81 D.2.4-D.2.6, jdarith.c arith_decode).  A
+ * marker inside the data stops the input: zeros follow, as the standard
+ * allows, and the marker is left for the marker reader. */
+static int arith_decode(jd_t *d, uint8_t *st) {
+    while (d->ac_a < 0x8000) {
+        if (--d->ac_ct < 0) {
+            int data = 0;
+            if (!d->marker) {
+                data = d->data[d->pos++];
+                if (data == 0xFF) {
+                    do data = d->data[d->pos++];
+                    while (data == 0xFF);
+                    if (data == 0) {
+                        data = 0xFF;
+                    } else {
+                        d->marker = data;
+                        data = 0;
+                    }
+                }
+            }
+            d->ac_c = (int64_t)((uint64_t)d->ac_c << 8) | data;
+            if ((d->ac_ct += 8) < 0 && ++d->ac_ct == 0) d->ac_a = 0x8000; /* two bytes in: A = 0x10000 below */
+        }
+        d->ac_a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = aritab[sv & 0x7F];
+    int nl = (int)(qe & 0xFF), nm = (int)((qe >> 8) & 0xFF);
+    qe >>= 16;
+    int64_t temp = d->ac_a - qe;
+    d->ac_a = temp;
+    temp = (int64_t)((uint64_t)temp << d->ac_ct);
+    if (d->ac_c >= temp) {
+        d->ac_c -= temp;
+        /* conditional LPS exchange */
+        if (d->ac_a < qe) {
+            d->ac_a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        } else {
+            d->ac_a = qe;
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        }
+    } else if (d->ac_a < 0x8000) {
+        /* conditional MPS exchange */
+        if (d->ac_a < qe) {
+            *st = (uint8_t)((sv & 0x80) ^ nl);
+            sv ^= 0x80;
+        } else {
+            *st = (uint8_t)((sv & 0x80) ^ nm);
+        }
+    }
+    return sv >> 7;
+}
+
+/* The magnitude bits of a value of category m (F.24) from the bins at
+ * st, then v = sign * (bits + 1). */
+static int arith_bits(jd_t *d, uint8_t *st, int m, int sign) {
+    int v = m;
+    while (m >>= 1)
+        if (arith_decode(d, st)) v |= m;
+    v += 1;
+    return sign ? -v : v;
+}
+
+/* A DC difference (F.19, F.21-F.23, the conditioning of F.1.4.4.1)
+ * added to the component's prediction mod 2^16.  -1 on a magnitude
+ * overflow, which sets ct = -1: libjpeg's "corrupt data" warning. */
+static int arith_dc(jd_t *d, comp_t *cp) {
+    int tbl = cp->dc_tbl, sign, m;
+    uint8_t *st = d->dc_stats[tbl] + cp->dc_context;
+    if (arith_decode(d, st) == 0) {
+        cp->dc_context = 0;
+        return 0;
+    }
+    sign = arith_decode(d, st + 1);
+    st += 2 + sign;
+    if ((m = arith_decode(d, st)) != 0) {
+        st = d->dc_stats[tbl] + 20;
+        while (arith_decode(d, st)) {
+            if ((m <<= 1) == 0x8000) {
+                d->ac_ct = -1;
+                return -1;
+            }
+            st++;
+        }
+    }
+    if (m < (int)((1L << d->dac_L[tbl]) >> 1))
+        cp->dc_context = 0;
+    else if (m > (int)((1L << d->dac_U[tbl]) >> 1))
+        cp->dc_context = 12 + sign * 4;
+    else
+        cp->dc_context = 4 + sign * 4;
+    cp->last_dc = (cp->last_dc + arith_bits(d, st + 14, m, sign)) & 0xFFFF;
+    return 0;
+}
+
+/* AC coefficients Ss..Se (F.20-F.24), each shifted left by Al.  -1 on a
+ * spectral or magnitude overflow (ct = -1). */
+static int arith_ac(jd_t *d, comp_t *cp, int16_t *blk, int Ss, int Se, int Al) {
+    int tbl = cp->ac_tbl;
+    for (int k = Ss; k <= Se; k++) {
+        uint8_t *st = d->ac_stats[tbl] + 3 * (k - 1);
+        int sign, m;
+        if (arith_decode(d, st)) break; /* EOB */
+        while (arith_decode(d, st + 1) == 0) {
+            st += 3;
+            if (++k > Se) {
+                d->ac_ct = -1;
+                return -1;
+            }
+        }
+        sign = arith_decode(d, d->fixed_bin);
+        st += 2;
+        if ((m = arith_decode(d, st)) != 0 && arith_decode(d, st)) {
+            m <<= 1;
+            st = d->ac_stats[tbl] + (k <= d->dac_K[tbl] ? 189 : 217);
+            while (arith_decode(d, st)) {
+                if ((m <<= 1) == 0x8000) {
+                    d->ac_ct = -1;
+                    return -1;
+                }
+                st++;
+            }
+        }
+        blk[natural_order[k]] = (int16_t)(int)((unsigned)arith_bits(d, st + 14, m, sign) << Al);
+    }
+    return 0;
+}
+
+/* A refinement scan's bits of AC coefficients Ss..Se (decode_mcu_AC_refine):
+ * past the block's last nonzero coefficient of earlier scans an EOB bin,
+ * then for each coefficient a correction bit if it was nonzero, else a
+ * newly-nonzero bin and a sign. */
+static int arith_ac_refine(jd_t *d, comp_t *cp, int16_t *blk) {
+    int tbl = cp->ac_tbl, p1 = 1 << d->Al, m1 = (int)(-1u << d->Al), kex, k;
+    for (kex = d->Se; kex > 0; kex--)
+        if (blk[natural_order[kex]]) break;
+    for (k = d->Ss; k <= d->Se; k++) {
+        uint8_t *st = d->ac_stats[tbl] + 3 * (k - 1);
+        if (k > kex && arith_decode(d, st)) break; /* EOB */
+        for (;;) {
+            int16_t *c = blk + natural_order[k];
+            if (*c) {
+                if (arith_decode(d, st + 2)) *c = (int16_t)(*c < 0 ? *c + m1 : *c + p1);
+                break;
+            }
+            if (arith_decode(d, st + 1)) {
+                *c = (int16_t)(arith_decode(d, d->fixed_bin) ? m1 : p1);
+                break;
+            }
+            st += 3;
+            if (++k > d->Se) {
+                d->ac_ct = -1;
+                return -1;
+            }
+        }
+    }
+    return 0;
+}
+
+/* One block of an arithmetic-coded scan; -1 after an error. */
+static int arith_block(jd_t *d, comp_t *cp, int16_t *blk) {
+    if (!d->progressive) {
+        if (arith_dc(d, cp)) return -1;
+        blk[0] = (int16_t)cp->last_dc;
+        return arith_ac(d, cp, blk, 1, 63, 0);
+    }
+    if (d->Ss == 0) {
+        if (d->Ah) {
+            if (arith_decode(d, d->fixed_bin)) blk[0] = (int16_t)(blk[0] | (1 << d->Al));
+            return 0;
+        }
+        if (arith_dc(d, cp)) return -1;
+        blk[0] = (int16_t)(int)((unsigned)cp->last_dc << d->Al);
+        return 0;
+    }
+    return d->Ah ? arith_ac_refine(d, cp, blk) : arith_ac(d, cp, blk, d->Ss, d->Se, d->Al);
 }
 
 /* jdmarker.c read_restart_marker and jpeg_resync_to_restart */
@@ -700,6 +960,20 @@ static void process_restart(jd_t *d) {
         }
     }
     d->next_restart = (d->next_restart + 1) & 7;
+    if (d->arith) {
+        /* jdarith.c process_restart: the scan's statistics afresh, and C
+         * and A read anew */
+        for (int i = 0; i < d->ns; i++) {
+            comp_t *cp = &d->comp[d->scomp[i]];
+            if (!d->progressive || (d->Ss == 0 && d->Ah == 0)) {
+                memset(d->dc_stats[cp->dc_tbl], 0, sizeof(d->dc_stats[0]));
+                cp->dc_context = 0;
+            }
+            if (!d->progressive || d->Ss) memset(d->ac_stats[cp->ac_tbl], 0, sizeof(d->ac_stats[0]));
+        }
+        d->ac_c = d->ac_a = 0;
+        d->ac_ct = -16;
+    }
     for (int c = 0; c < d->ncomp; c++) d->comp[c].last_dc = 0;
     d->eobrun = 0;
     d->restarts_to_go = d->restart_interval;
@@ -772,18 +1046,23 @@ static void decode_scan(jd_t *d) {
     int my_n = single ? c0->bh : d->mcuy;
     for (int my = 0; my < my_n; my++) {
         for (int mx = 0; mx < mx_n; mx++) {
+            /* jdcoefct.c consume_data: the last good iMCU row (which rows
+             * block smoothing treats as complete) moves on where the data
+             * sufficed before this MCU, the restart it may begin with not
+             * yet read */
+            if (!d->insufficient) d->last_good_row = single ? my / c0->v : my;
             if (d->restart_interval && d->restarts_to_go == 0) process_restart(d);
-            if (!d->insufficient) {
-                d->last_good_row = single ? my / c0->v : my;
-                if (single) {
-                    decode_block(d, c0, c0->coef + ((size_t)my * c0->aw + mx) * 64);
-                } else {
-                    for (int i = 0; i < d->ns; i++) {
-                        comp_t *cp = &d->comp[d->scomp[i]];
-                        for (int yy = 0; yy < cp->v; yy++)
-                            for (int xx = 0; xx < cp->h; xx++)
-                                decode_block(d, cp, cp->coef + (((size_t)my * cp->v + yy) * cp->aw + (size_t)mx * cp->h + xx) * 64);
-                    }
+            /* out of Huffman data, or after an arithmetic decoder's error
+             * until the next restart: the MCU is left as it is */
+            int err = d->insufficient || (d->arith && d->ac_ct == -1);
+            if (single && !err) {
+                decode_block(d, c0, c0->coef + ((size_t)my * c0->aw + mx) * 64);
+            } else {
+                for (int i = 0; i < d->ns && !err; i++) {
+                    comp_t *cp = &d->comp[d->scomp[i]];
+                    for (int yy = 0; yy < cp->v && !err; yy++)
+                        for (int xx = 0; xx < cp->h && !err; xx++)
+                            err = decode_block(d, cp, cp->coef + (((size_t)my * cp->v + yy) * cp->aw + (size_t)mx * cp->h + xx) * 64);
                 }
             }
             if (d->restart_interval) d->restarts_to_go--;
@@ -1210,8 +1489,13 @@ static int decode_all(jd_t *d, int gray) {
         if (m == 0xD9) break;
         if (m >= 0xC0 && m <= 0xC3) {
             if (parse_sof(d, m)) return -1;
-        } else if ((m >= 0xC5 && m <= 0xCB) || (m >= 0xCD && m <= 0xCF)) {
-            return fail(d, "arithmetic-coded and hierarchical JPEG files are not supported");
+        } else if (m == 0xC9 || m == 0xCA) {
+            if (parse_sof(d, m)) return -1;
+        } else if (m == 0xCB) {
+            /* libjpeg-turbo reads the frame, then has no decoder for it */
+            return fail(d, "lossless arithmetic-coded JPEG files are not supported");
+        } else if ((m >= 0xC5 && m <= 0xC8) || (m >= 0xCD && m <= 0xCF)) {
+            return fail(d, "hierarchical JPEG files are not supported");
         } else if (m == 0xC4) {
             if (parse_dht(d)) return -1;
         } else if (m == 0xDB) {
@@ -1292,6 +1576,10 @@ int64_t jpeg_decode(const uint8_t *data, int64_t size, uint8_t *out, int64_t hei
         padded[size + 2 * i + 1] = 0xD9;
     }
     memset(&d, 0, sizeof(d));
+    /* jdmarker.c get_soi: the conditioning of tables no DAC defines */
+    memset(d.dac_U, 1, sizeof(d.dac_U));
+    memset(d.dac_K, 5, sizeof(d.dac_K));
+    d.fixed_bin[0] = 113;
     d.data = padded;
     d.size = (size_t)size + 2 * EOI_PAIRS;
     d.err = err;

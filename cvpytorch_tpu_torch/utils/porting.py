@@ -13,13 +13,20 @@ submodules carry the Flax names, so the key map is a join of the path:
   params/…/<layer>/bias           → ….bias
   params/…/bn/scale | bn/bias     → ….bn.weight | ….bn.bias
   batch_stats/…/bn/mean | bn/var  → ….bn.running_mean | ….bn.running_var
+  params/…/query|key|value/kernel (C, H, D) → (C, H·D) → ….weight (H·D, C),
+      …/bias (H, D) → (H·D,)      where the port's module is a
+  params/…/out/kernel (H, D, C) → (H·D, C) → ….weight (C, H·D),
+      …/bias (C,) as is            ``MultiHeadDense`` (Flax's attention
+                                    ``DenseGeneral``s; its ``split`` says
+                                    which, the exact 3-D shape is checked)
   params/…/<name> (any other leaf) → ….<name>, where the port holds an
                                     ``nn.Parameter`` of that name (MSCAN's
-                                    layer scales ``ls1``/``ls2``), as is
+                                    layer scales ``ls1``/``ls2``, TAN's
+                                    ``pos_embed``), as is
 
 The kernel rule follows the type of the port module that owns the tensor
-(``nn.Linear``, a 1×1 ``nn.Conv2d`` given a Dense kernel,
-``nn.ConvTranspose2d``, otherwise a convolution), because
+(``MultiHeadDense``, ``nn.Linear``, a 1×1 ``nn.Conv2d`` given a Dense
+kernel, ``nn.ConvTranspose2d``, otherwise a convolution), because
 they cannot be told apart by shape: a square Dense kernel and a
 ConvTranspose kernel with as many inputs as outputs pass the shape check
 under the wrong rule.  Flax's ``ConvTranspose`` (``transpose_kernel=False``)
@@ -39,6 +46,8 @@ from typing import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from ..models.bricks import MultiHeadDense
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -74,14 +83,24 @@ def _convert(name: str, arr: np.ndarray, target: torch.Tensor,
              owner: nn.Module | None = None) -> np.ndarray:
     """The tree's leaf ``arr`` in the layout of the port tensor ``target``;
     ``owner`` is the port module holding it (None: a convolution or BN)."""
-    if isinstance(owner, nn.Linear) and arr.ndim == 2:  # (in, out) → (out, in)
+    if isinstance(owner, MultiHeadDense):
+        leaf = "kernel" if target.ndim == 2 else "bias"
+        if tuple(arr.shape) != owner.flax_shape(leaf):
+            raise KeyError(f"shape mismatch at {name}: tree {arr.shape} vs the "
+                           f"{owner.split} DenseGeneral {leaf} {owner.flax_shape(leaf)}")
+        if leaf == "kernel":
+            arr = (arr.reshape(arr.shape[0], -1) if owner.split == "heads"
+                   else arr.reshape(-1, arr.shape[-1])).T
+        else:
+            arr = arr.reshape(-1)
+    elif isinstance(owner, nn.Linear) and arr.ndim == 2:  # (in, out) → (out, in)
         arr = arr.T
     elif (isinstance(owner, nn.Conv2d) and owner.kernel_size == (1, 1)
           and owner.groups == 1 and arr.ndim == 2):  # Dense (in, out) → (out, in, 1, 1)
         arr = arr.T[:, :, None, None]
     elif isinstance(owner, nn.ConvTranspose2d) and arr.ndim == 4:
         arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # HWIO → (I, O, kh, kw)
-    elif arr.ndim == 4:  # conv kernel HWIO → OIHW
+    elif arr.ndim == 4 and name.endswith(".weight"):  # conv kernel HWIO → OIHW
         if tuple(target.shape[2:]) == (6, 6) and arr.shape[:2] == (3, 3):
             arr = s2d_to_stem6_kernel(arr)
         arr = arr.transpose(3, 2, 0, 1)

@@ -31,10 +31,15 @@ SEG_ZOO = ([f"cityscapes_segnext_{s}" for s in "tsbl"]
            + ["cityscapes_stdc", "cityscapes_stdc2", "camvid_stdc", "cityscapes_icnet",
               "cityscapes_ppliteseg", "cityscapes_lednet", "cityscapes_lspnet",
               "cityscapes_sgcpnet", "cityscapes_segnet", "cityscapes_enet", "camvid_enet"])
+# NanoDet v1 (ShuffleNetV2, RepVGG, EfficientNet-Lite, CustomCspNet; PAN and
+# TAN) and YOLOv6 n/t/s/m/l
+DET_V1_V6 = (["coco_nanodet", "coco_nanodet_416", "coco_nanodet_t", "coco_nanodet_g",
+              "coco_nanodet_repvgg", "coco_nanodet_efficientnet_lite", "voc_nanodet"]
+             + [f"coco_yolov6_{s}" for s in "ntsml"])
 NOW_BUILD = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "visdrone_yolov5",
              "coco_nanodetplus_m", "coco_nanodetplus", "mini-imagenet", "cityscapes_unet",
              "coco_maskrcnn"] + [f"cityscapes_segformer_b{i}" for i in range(6)] + [
-             f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)] + SEG_ZOO
+             f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)] + SEG_ZOO + DET_V1_V6
 
 
 # configs whose dataset class the port has: the COCO ones (CocoDetection,
@@ -45,7 +50,7 @@ WITH_DATASET = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "coco_nanodetpl
                 "hymenoptera", "pet", "cityscapes_unet", "ade20k_deeplabv3plus", "camvid_unet",
                 "pennfudan_maskrcnn", "pennfudan_fasterrcnn", "portrait", "portrait_unet",
                 "visdrone_yolov5", "voc_deeplabv3plus", "widerface_faceboxes",
-                "cityscapes_segformer_b2", "cityscapes_sfnet_r18"] + SEG_ZOO
+                "cityscapes_segformer_b2", "cityscapes_sfnet_r18"] + SEG_ZOO + DET_V1_V6
 
 
 def build(path):

@@ -47,7 +47,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "'data.layouts', 'evaluator.voc', 'models.heads.seg_heads_extra', "
         "'models.backbones.seg_transformers', 'models.backbones.seg_light', "
         "'models.light_seg', 'models.light_seg2', 'models.light_seg3', "
-        "'models.segnet_enet', 'ops.pool'):\n"
+        "'models.segnet_enet', 'ops.pool', 'models.assigners.atss_assigner', "
+        "'models.assigners.tal_assigner', 'models.necks.pan', 'models.necks.tan', "
+        "'models.backbones.repvgg', 'models.backbones.efficientnet_lite', "
+        "'models.backbones.custom_cspnet', 'models.yolov6'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -7,6 +7,11 @@ bundled libjpeg-turbo 3.1.2), byte for byte, no tolerance:
   tables, restart intervals), grey files, CMYK files written by PIL, EXIF
   orientations 1-8 in either byte order, and files cut short (baseline,
   and progressive in its first scan and later: libjpeg's block smoothing);
+* arithmetic-coded files (``tests/data/torch_jpeg_arith``, written by
+  libjpeg-turbo 2.1.5 through ``write_arith.c`` there): sequential and
+  progressive, grey and colour, restarts, DAC conditioning, cut short and
+  damaged; lossless arithmetic and hierarchical files refused as cv2
+  refuses them;
 * the committed fixtures (``tests/data/torch_jpeg``) against the sha256 of
   ``cv2.imread``'s pixels in their manifest, which also holds the decoder
   to libjpeg-turbo where OpenCV is absent (``chip_smoke.py``);
@@ -15,7 +20,8 @@ bundled libjpeg-turbo 3.1.2), byte for byte, no tolerance:
 * the PNG row unfilter in C against its numpy plain version.
 
 ``python -m tests.test_torch_jpeg --write-fixtures`` writes the fixtures
-and their manifest anew (OpenCV and PIL write them); ``--fuzz N`` prints
+and their manifest anew (OpenCV and PIL write them), ``--write-arith-fixtures``
+the arithmetic-coded ones (the system's libjpeg); ``--fuzz N`` prints
 how N randomly damaged files read in the port against ``cv2.imread``;
 ``--time`` prints the one-thread decode of the 640×427 fixture beside
 ``cv2.imdecode``'s and the PNG unfilter at 1024×2048 in C beside numpy.
@@ -242,13 +248,14 @@ def test_truncated_files(tmp_path, progressive, sampling):
 
 def fuzz(n: int, seed: int) -> collections.Counter:
     """``n`` files damaged by 1-7 random bytes (a third also cut short),
-    each read by ``image_io.decode`` and by ``cv2.imread`` → counts of
+    from Huffman-coded base files and arithmetic-coded fixtures, each read by ``image_io.decode`` and by ``cv2.imread`` → counts of
     equal, both refused, port reads / cv2 refuses, cv2 reads / port
     refuses, and differ."""
     rng = np.random.RandomState(seed)
     kinds = [("420", 0), ("444", 1), ("422", 1), ("411", 0), ("440", 1)]
     base = [encode(scene(37 + 5 * i, 53 + 7 * i, i), quality=60 + 7 * i, sampling=k,
                    progressive=p, restart=i % 2) for i, (k, p) in enumerate(kinds)]
+    base += [arith_files()[name] for name in ARITH_FUZZ_BASE]
     out = collections.Counter()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "damaged.jpg")
@@ -280,6 +287,27 @@ def test_damaged_files_read_as_cv2_or_not_at_all():
     assert counts["differ"] == 0 and counts["cv2 reads, port refuses"] == 0, counts
     assert counts["port reads, cv2 refuses"] == 0, counts
     assert counts["equal"] > 50
+
+
+DAMAGED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_jpeg_damaged")
+
+
+@pytest.mark.parametrize("name", sorted(os.listdir(DAMAGED)))
+def test_damaged_fixtures_read_as_cv2(name):
+    """Damaged files the fuzz found, committed.  ``progressive_444_restart_
+    fuzz8000_seed0.jpg`` (``--fuzz 8000`` before arithmetic base files
+    joined it, seed 0, file 4431: a 4:4:4 progressive file with a restart
+    every MCU, cut short, one byte changed in a scan and the first value of
+    an AC table turned from EOB into 0x94, so its blocks run past their
+    segments): libjpeg moves its last good iMCU row, which decides the
+    rows block smoothing treats as complete, only where the data sufficed
+    before the MCU, ahead of the restart the MCU begins with."""
+    path = os.path.join(DAMAGED, name)
+    want = cv2.imread(path, cv2.IMREAD_COLOR)
+    assert want is not None
+    np.testing.assert_array_equal(image_io.imread(path), want)
+    np.testing.assert_array_equal(image_io.imread(path, grayscale=True),
+                                  cv2.imread(path, cv2.IMREAD_GRAYSCALE))
 
 
 def segment(marker: int, body: bytes) -> bytes:
@@ -602,9 +630,162 @@ def test_damaged_lossless_files_read_as_cv2_or_not_at_all(tmp_path):
     assert counts["equal"] > 150
 
 
-# ---- the formats the port refuses ----
+# ---- arithmetic-coded files ----
 
-REFUSED = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_jpeg_refused")
+ARITH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data", "torch_jpeg_arith")
+# name → (height, width, components, h_samp, v_samp, quality, mode, restart rows, DAC L, U, Kx):
+# mode 0 sequential, 1 one sequential scan per component, 2 progressive
+# (libjpeg's simple progression, with refinement scans); the DAC values
+# are table 0's, the defaults (0, 1, 5) unless said
+ARITH_FIXTURES = {
+    "arith_grey_48x32.jpg": (32, 48, 1, 1, 1, 75, 0, 0, 0, 1, 5),
+    "arith_grey_progressive_48x32.jpg": (32, 48, 1, 1, 1, 80, 2, 0, 0, 1, 5),
+    "arith_444_restart_64x48.jpg": (48, 64, 3, 1, 1, 70, 0, 1, 0, 1, 5),
+    "arith_444_q100_48x32.jpg": (32, 48, 3, 1, 1, 100, 0, 0, 0, 1, 5),
+    "arith_420_64x48.jpg": (48, 64, 3, 2, 2, 90, 0, 0, 0, 1, 5),
+    "arith_420_scans_restart_64x48.jpg": (48, 64, 3, 2, 2, 75, 1, 2, 0, 1, 5),
+    "arith_422_progressive_restart_64x48.jpg": (48, 64, 3, 2, 1, 75, 2, 1, 0, 1, 5),
+    "arith_420_progressive_64x48.jpg": (48, 64, 3, 2, 2, 85, 2, 0, 0, 1, 5),
+    "arith_444_progressive_restart_56x40.jpg": (40, 56, 3, 1, 1, 80, 2, 1, 0, 1, 5),
+    "arith_dac_420_64x48.jpg": (48, 64, 3, 2, 2, 85, 0, 0, 2, 6, 2),
+    "arith_dac_progressive_64x48.jpg": (48, 64, 3, 2, 2, 95, 2, 0, 1, 3, 12),
+}
+
+
+def write_arith_fixtures() -> None:
+    """Writes ``ARITH_FIXTURES`` with the system's libjpeg (``write_arith.c``
+    in the fixtures' directory, built with ``cc ... -ljpeg``)."""
+    import subprocess
+
+    with tempfile.TemporaryDirectory() as tmp:
+        exe = os.path.join(tmp, "write_arith")
+        subprocess.run(["cc", "-O2", "-o", exe, os.path.join(ARITH, "write_arith.c"), "-ljpeg"],
+                       check=True)
+        for i, (name, spec) in enumerate(sorted(ARITH_FIXTURES.items())):
+            h, w, nc, hs, vs, q, mode, rst, dc_l, dc_u, ac_k = spec
+            img = scene(h, w, 20 + i)
+            img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) if nc == 1 else img[..., ::-1]
+            raw = os.path.join(tmp, "in.raw")
+            with open(raw, "wb") as f:
+                f.write(np.ascontiguousarray(img).tobytes())
+            subprocess.run([exe, raw, str(w), str(h), str(nc), os.path.join(ARITH, name)]
+                           + [str(v) for v in (hs, vs, q, mode, rst, dc_l, dc_u, ac_k)], check=True)
+
+
+def arith_files() -> dict:
+    """name → bytes of every arithmetic-coded file in ``ARITH``: the
+    fixtures above and the two first ones (40×24, sequential and
+    progressive, libjpeg's defaults)."""
+    return {name: open(os.path.join(ARITH, name), "rb").read()
+            for name in sorted(os.listdir(ARITH)) if name.endswith(".jpg")}
+
+
+def without_dac(data: bytes) -> bytes:
+    """``data`` with every DAC segment taken out: the conditioning falls
+    back to libjpeg's defaults."""
+    out, pos = bytearray(data[:2]), 2
+    while True:
+        marker, (length,) = data[pos + 1], struct.unpack(">H", data[pos + 2:pos + 4])
+        if marker == 0xDA:  # the rest, scans included, as it is (later DACs too)
+            rest = data[pos:]
+            while b"\xff\xcc" in rest:
+                i = rest.index(b"\xff\xcc")
+                (n,) = struct.unpack(">H", rest[i + 2:i + 4])
+                rest = rest[:i] + rest[i + 2 + n:]
+            return bytes(out + rest)
+        if marker != 0xCC:
+            out += data[pos:pos + 2 + length]
+        pos += 2 + length
+
+
+# the arithmetic-coded base files of the damaged-file fuzz
+ARITH_FUZZ_BASE = ["arith_420_64x48.jpg", "arith_444_restart_64x48.jpg",
+                   "arith_420_scans_restart_64x48.jpg", "arith_422_progressive_restart_64x48.jpg",
+                   "arith_dac_progressive_64x48.jpg", "arith_grey_progressive_48x32.jpg"]
+
+
+def test_arith_fixtures_are_the_listed_ones():
+    names = set(arith_files())
+    assert set(ARITH_FIXTURES) <= names and len(names) == len(ARITH_FIXTURES) + 2
+    for name, data in arith_files().items():
+        assert len(data) < 8192 and data[:2] == jpeg.SOI, name
+        sof = [m for _, m, _ in markers(data) if m in (0xC9, 0xCA)]
+        assert sof == [0xCA if "progressive" in name else 0xC9], name
+
+
+@pytest.mark.parametrize("flags", [cv2.IMREAD_COLOR, cv2.IMREAD_GRAYSCALE], ids=["colour", "grey"])
+@pytest.mark.parametrize("name", sorted(ARITH_FIXTURES) + ["arithmetic_progressive_40x24.jpg",
+                                                           "arithmetic_sequential_40x24.jpg"])
+def test_arithmetic_files_equal_cv2(name, flags):
+    """Sequential (SOF9) and progressive (SOF10) files, grey, 4:4:4, 4:2:0
+    and 4:2:2, with and without restarts, one scan per component, refinement
+    scans, DAC conditioning other than the defaults: byte for byte."""
+    path = os.path.join(ARITH, name)
+    want = cv2.imread(path, flags)
+    assert want is not None
+    np.testing.assert_array_equal(image_io.imread(path, grayscale=flags == cv2.IMREAD_GRAYSCALE), want)
+
+
+@pytest.mark.parametrize("name", ["arith_420_64x48.jpg", "arith_dac_420_64x48.jpg",
+                                  "arith_dac_progressive_64x48.jpg"])
+def test_arithmetic_files_without_dac_use_the_default_conditioning(tmp_path, name):
+    """Without a DAC, L = 0, U = 1, Kx = 5: a file written with them reads
+    as before; one written with others reads as libjpeg reads it with the
+    defaults (other pixels, the same on both sides)."""
+    data = without_dac(arith_files()[name])
+    assert b"\xff\xcc" not in data
+    want = cv2_read(tmp_path, data)
+    assert want is not None
+    np.testing.assert_array_equal(jpeg.decode(data), want)
+    if name == "arith_420_64x48.jpg":
+        np.testing.assert_array_equal(want, cv2.imread(os.path.join(ARITH, name)))
+
+
+@pytest.mark.parametrize("name", ["arith_444_restart_64x48.jpg", "arith_420_scans_restart_64x48.jpg",
+                                  "arith_422_progressive_restart_64x48.jpg",
+                                  "arith_420_progressive_64x48.jpg", "arith_grey_progressive_48x32.jpg"])
+def test_truncated_arithmetic_files(tmp_path, name):
+    """Cut inside the first scan, half way and near the end: past the data
+    the decoder reads zeros (a marker ends the input in arithmetic coding),
+    and a progressive file left without its refinements is smoothed."""
+    data = arith_files()[name]
+    starts = scan_starts(data)
+    cuts = [starts[0] + 30, (starts[0] + len(data)) // 2, len(data) - 20]
+    if len(starts) > 1:
+        cuts += [(starts[0] + starts[1]) // 2, starts[-1] + 20]
+    for cut in cuts:
+        want = cv2_read(tmp_path, data[:cut])
+        if want is None:
+            with pytest.raises(ValueError):
+                jpeg.decode(data[:cut])
+        else:
+            np.testing.assert_array_equal(jpeg.decode(data[:cut]), want, err_msg=str(cut))
+            np.testing.assert_array_equal(jpeg.decode(data[:cut], grayscale=True),
+                                          cv2_read(tmp_path, data[:cut], flags=cv2.IMREAD_GRAYSCALE))
+
+
+def test_arithmetic_corrupt_data_path(tmp_path):
+    """libjpeg's "corrupt data" path: a spectral or magnitude overflow
+    stops the restart interval (left as it is, ct = -1) and the next
+    restart decodes again.  Flipped bytes inside the scans of each
+    fixture, each read as cv2 reads it."""
+    rng = np.random.RandomState(5)
+    for name, data in arith_files().items():
+        start = scan_starts(data)[0] + 12
+        for _ in range(6):
+            bad = bytearray(data)
+            for _ in range(rng.randint(1, 4)):
+                i = rng.randint(start, len(data) - 2)
+                bad[i] = rng.randint(0, 255) if data[i - 1] != 0xFF else bad[i]
+            want = cv2_read(tmp_path, bytes(bad))
+            if want is None:
+                with pytest.raises(ValueError):
+                    jpeg.decode(bytes(bad))
+            else:
+                np.testing.assert_array_equal(jpeg.decode(bytes(bad)), want, err_msg=name)
+
+
+# ---- the formats the port refuses ----
 
 
 def twelve_bit_file() -> bytes:
@@ -616,20 +797,35 @@ def twelve_bit_file() -> bytes:
             + segment(0xDA, b"\x01\x01\x00\x00\x3f\x00") + b"\x64\x7f\xff\xd9")
 
 
+def with_sof(data: bytes, marker: int) -> bytes:
+    """``data`` with its frame header's marker replaced."""
+    pos = next(p for p, m, _ in markers(data) if m in _SOF_MARKERS)
+    return data[:pos + 1] + bytes([marker]) + data[pos + 2:]
+
+
+_SOF_MARKERS = {0xC0, 0xC1, 0xC2, 0xC3, 0xC9, 0xCA}
+
+
 def test_formats_the_port_refuses(tmp_path):
-    """12-bit files: cv2 (libjpeg-turbo's 8-bit API) refuses them, and so
-    does the port.  Arithmetic-coded files (written by libjpeg-turbo
-    2.1.5, ``tests/data/torch_jpeg_refused``) are read by cv2 and refused
-    by the port with a message naming the format: an open fault (ROADMAP,
-    Queue 3), never other pixels."""
+    """12-bit files, hierarchical frames (SOF5-7, 13-15) and lossless
+    arithmetic-coded ones (SOF11): cv2 (libjpeg-turbo's 8-bit API, which
+    decodes neither of the last two) refuses them, and so does the port,
+    with a message naming the format.  Arithmetic-coded sequential and
+    progressive files are read (the tests above)."""
     assert cv2_read(tmp_path, twelve_bit_file(), flags=cv2.IMREAD_UNCHANGED) is None
     with pytest.raises(ValueError, match="precision other than 8 bits"):
         jpeg.decode(twelve_bit_file(), grayscale=True)
-    for name in sorted(os.listdir(REFUSED)):
-        data = open(os.path.join(REFUSED, name), "rb").read()
-        with pytest.raises(ValueError, match="arithmetic-coded"):
+    base = encode(scene(24, 40, 9), quality=80)
+    for marker in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
+        data = with_sof(base, marker)
+        assert cv2_read(tmp_path, data) is None, hex(marker)
+        with pytest.raises(ValueError, match="hierarchical"):
+            jpeg.decode(data)
+    img = cv2.cvtColor(scene(16, 24, 3), cv2.COLOR_BGR2GRAY)
+    for data in (with_sof(lossless_jpeg(img), 0xCB), with_sof(arith_files()["arith_grey_48x32.jpg"], 0xCB)):
+        assert cv2_read(tmp_path, data, flags=cv2.IMREAD_GRAYSCALE) is None
+        with pytest.raises(ValueError, match="lossless arithmetic-coded"):
             jpeg.decode(data, grayscale=True)
-        assert cv2.imread(os.path.join(REFUSED, name)).shape == (24, 40, 3)
 
 
 def timings() -> dict:
@@ -733,6 +929,9 @@ if __name__ == "__main__":
     if "--write-fixtures" in sys.argv:
         write_fixtures()
         print(json.dumps(manifest(), indent=1))
+    if "--write-arith-fixtures" in sys.argv:
+        write_arith_fixtures()
+        print(json.dumps({k: len(v) for k, v in arith_files().items()}, indent=1))
     if "--fuzz" in sys.argv:
         n = int(sys.argv[sys.argv.index("--fuzz") + 1])
         print(json.dumps({seed: fuzz(n, seed) for seed in range(3)}))

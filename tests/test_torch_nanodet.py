@@ -320,10 +320,18 @@ def test_val_and_infer_predictions_match_jax(pair128):
 
 
 def test_unported_paths_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        NanoDetPlus(DICTIONARY, {}, assigner="atss")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        NanoDetPlus(DICTIONARY, {"CLASS": "src.models.nanodet.NanoDet"})
+    """NanoDet v1 and its PAN and TAN necks are ported (tests/
+    test_torch_nanodet_v1.py, test_torch_tan.py): they build.  The
+    detectors the port still lacks raise naming their ROADMAP item."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.infer import build_model
+
+    assert NanoDetPlus(DICTIONARY, {}, assigner="atss").v1
+    assert NanoDetPlus(DICTIONARY, {"CLASS": "src.models.nanodet.NanoDet"}).v1
     for neck in ("PAN", "TAN"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            NanoDetPlus(DICTIONARY, {"NECK": {"name": neck}})
+        assert type(NanoDetPlus(DICTIONARY, {"NECK": {"name": neck}}).neck).__name__ == neck
+    for cls, item in (("src.models.yolox.YOLOX", "7.3"), ("src.models.yolov7.YOLOv7", "7.4"),
+                      ("src.models.fcos.FCOS", "7.5"), ("src.models.airdet.AIRDet", "7.6")):
+        cfg = CommonConfiguration({"USE_MODEL": {"CLASS": cls}})
+        with pytest.raises(KeyError, match=f"Queue 1 item {item}"):
+            build_model(cfg, DICTIONARY)
