@@ -30,7 +30,7 @@
    ``cvpytorch_tpu_torch.trainer.Trainer(cfg).run()`` on the flagship's
    recipe (``conf/coco_yolov5_s.yml``: AMP, EMA, SGD 0.937 with wd 5e-4,
    LambdaLR, linear warmup, grad clip 10, batch 32) with the device
-   augmentation, 8 steps an epoch for 2 epochs, validating 64 images every
+   augmentation, 4 steps an epoch for 2 epochs, validating 64 images every
    epoch; checks that every step's loss is finite, that ``nms_keep`` ran
    once per val batch, that checkpoints were written and that the last one
    serves a batch through ``infer.main``.  Times the train step at bs32
@@ -45,7 +45,7 @@
 5. Mask R-CNN phase: ``conf/coco_maskrcnn.yml`` (R50-FPN, 80 classes,
    AMP, SGD 0.9, MultiStepLR, warmup, bbox + segm evaluation) on
    SyntheticInstanceSegmentation at 800² (MASK_SIZE 112), trained through
-   ``Trainer.run()`` for 4 steps at batch 16 and validated on 32 images;
+   ``Trainer.run()`` for 2 steps at batch 16 and validated on 32 images;
    checks that the five losses are finite and that ``nms_keep`` ran once
    per step (the RPN's proposals) and twice per val batch (proposals and
    detections); serves the checkpoint through ``infer.main``.  Times the
@@ -68,7 +68,7 @@
    SGD 0.9 with weight decay 1e-4, PolyLR, warmup, batch 8, 512×1024
    crops with flip and photometric distortion) on SyntheticSegmentation
    at the 1024×2048 Cityscapes frame: trained through ``Trainer.run()``
-   (4 and 2 steps), validated on 16 images (mIoU), the checkpoint served
+   (2 steps each), validated on 16 images (mIoU), the checkpoint served
    through ``infer.main`` as palette PNGs checked against the predict
    step's argmax; ``nms_keep`` is not launched on these paths.  Times the
    AMP and f32 train steps at batch 8 (CUDA events, peak memory), the
@@ -80,7 +80,7 @@
    1e-3 relative).
 6b. SegFormer and SFNet, the same way: ``conf/cityscapes_segformer_b2.yml``
    (MiT-B2, 256-channel SegFormerHead, batch 8, SGD, PolyLR, warmup, AMP,
-   EMA, grad clip 10; 4 steps) and ``conf/cityscapes_sfnet_r18.yml``
+   EMA, grad clip 10; 2 steps) and ``conf/cityscapes_sfnet_r18.yml``
    (ResNet-18 v1c at output stride 8, 128-channel UperNetAlignHead, its
    batch 16; 2 steps), each as written on SyntheticSegmentation at
    1024×2048: ``Trainer.run()``, mIoU val of 16 images, one served batch,
@@ -89,8 +89,8 @@
    off at the DeepLabV3+ gates; 0 ``nms_keep`` launches.
 6c. The transformer and light zoo, the same way, each config as written:
    ``conf/cityscapes_segnext_b.yml`` (MSCAN-B, LightHamHead of 256
-   channels and NMF rank 64, batch 8; 4 steps, 8 served images, AMP and
-   f32 steps over 5 calls, card vs CPU at B = 1 with 7 NMF rounds in eval
+   channels and NMF rank 64, batch 8; 2 steps, 8 served images, AMP and
+   f32 steps over 3 calls, card vs CPU at B = 1 with 7 NMF rounds in eval
    mode and 6 in train mode), ``conf/cityscapes_incepformer_t.yml``
    (IPT-T, UpConcatHead of 512 channels, batch 8, ``BACKBONE_LR``; 2
    steps, card vs CPU; its AMP peak beside the GB of one stage-1 block's
@@ -99,8 +99,8 @@
    16 images, one served batch, 0 ``nms_keep`` launches.
 6e. The self-contained segmenters, the same way, each config as written:
    ``conf/cityscapes_stdc.yml`` (STDCNet-1, OHEM + detail loss, batch 16,
-   EMA, clip 10; 4 steps, 16 val images, 8 served, AMP and f32 steps over
-   5 calls, card vs CPU at B = 1; the detail target is the
+   EMA, clip 10; 2 steps, 16 val images, 8 served, AMP and f32 steps over
+   3 calls, card vs CPU at B = 1; the detail target is the
    ``detail_target`` range of its profile), ``conf/cityscapes_ppliteseg.yml``
    and ``conf/cityscapes_sgcpnet.yml`` (batch 16), ``conf/cityscapes_enet.yml``
    and ``conf/cityscapes_segnet.yml`` (batch 8; SegNet trains on BCE of
@@ -187,6 +187,28 @@
    ``coco_nanodet_efficientnet_lite`` and ``coco_nanodet_416`` on the COCO
    directory, ``voc_nanodet`` on a VOCdevkit through the ``voc_detection``
    evaluator; ``nms_keep`` once each, bit-exact on its val input.
+8f. Slice 13 (``slice13_phases``), each config as written on the COCO
+   directory's JPEG files: ``conf/coco_yolox_s.yml`` (Focus CSPDarknet,
+   PAFPN, the decoupled head, SimOTA; mosaic + affine at 640², SGD,
+   cosine, AMP, EMA; class and objectness biases at 0 so that the batches
+   hold detections) through ``Trainer.run()`` for 2 epochs of 2 steps at
+   bs32, bbox validation of 64 images after epoch 2 (``nms_keep`` once a
+   batch), one served batch (once more); the AMP and f32 steps at bs32,
+   the val and predict steps; ``nms_keep`` bit-exact on its (32, 1024) val
+   input and timed; card vs CPU at B = 2 (head outputs 1e-4, SimOTA
+   ``matched_gt`` equal on the CPU's inputs, val losses in f32 and train
+   losses in f64 1e-4).  ``conf/coco_yolov7.yml`` (YOLOv7-l, its OTA
+   loss): 2 steps at bs16, one val and one served batch, the AMP step,
+   ``nms_keep`` on its (16, 1024) val input, card vs CPU at B = 2 (raw
+   maps 1e-4, the OTA stage's selection and matched gts equal on the CPU's
+   raw maps, val losses 1e-4).  ``conf/coco_fcos.yml`` (ResNet-50, FCOSFPN
+   P3–P7, the FCOS head at 800²): 2 steps at bs16, one val batch, the AMP
+   step, ``nms_keep`` on its (16, 1024) val input.  Then one train step and
+   one val batch each of ``coco_yolox_n``, ``coco_pai_yolox`` and
+   ``coco_pai_yolox_s`` (EfficientRep with the ReLU SPPF, ASFF),
+   ``coco_yolov7x`` (bs12), ``coco_lfd``, ``widerface_faceboxes`` (on
+   WIDER FACE's layout) and ``pennfudan_retinanet`` (on PennFudanPed's),
+   ``nms_keep`` once each and bit-exact on its val input.
 8b. YOLOv5 host-augmentation phase (``yolov5_host_aug``), after the
    other phases:
    ``conf/coco_yolov5_s.yml`` as written, its ``CocoDetection`` reading
@@ -221,22 +243,22 @@
    device busy and idle share and the top operations of the device
    augmentation alone, of the YOLOv5 AMP train step with it, and of the
    Mask R-CNN AMP train step with the share of the ROIAlign gathers and
-   of their backward, and of the DeepLabV3+, UNet, SegFormer-B2 (the
+   of their backward, and of the SegFormer-B2 (the
    attention's float32 logits matmuls, its softmax, LayerNorm and GELU
    as named groups, the attention's forward as the ``mit_attention``
    range), SFNet-R18 (the flow warp's gathers and their scatter-add
-   backward), SegNeXt-B (the NMF's float32 matmuls and GELU kernels; in a
-   session of its own with shapes, the device time under the depthwise
-   strip, 5×5 and 3×3 convolutions, GroupNorm, GELU and the ``nmf``
-   range), IncepFormer-T (as SegFormer's, the attention's forward as the
-   ``incepformer_attention`` range), TopFormer-B, RegSeg, STDC (the
-   ``detail_target`` range's share of the busy time), PP-LiteSeg, SGCPNet,
-   ENet and SegNet (the pools' and unpools' kernels as named groups),
-   MobileNetV2 and
-   NanoDet-Plus AMP train steps (NanoDet-Plus's (96, 1024), NanoDet v1's
+   backward), SegNeXt-B (the NMF's float32 matmuls and GELU kernels),
+   IncepFormer-T (as SegFormer's, the attention's forward as the
+   ``incepformer_attention`` range), STDC (the ``detail_target`` range's
+   share of the busy time), PP-LiteSeg and SegNet (the pools' and
+   unpools' kernels as a named group), MobileNetV2 and NanoDet-Plus (at
+   the config's batch) AMP train steps (NanoDet-Plus's (96, 1024), NanoDet v1's
    (160, 1024) and YOLOv6-s's (32, 1024) NMS inputs among the kernel
    inputs), and of the NanoDet v1 and YOLOv6-s AMP steps (TAL and ATSS)
-   with the share of the ``atss_assign`` and ``tal_assign`` ranges.
+   with the share of the ``atss_assign`` and ``tal_assign`` ranges, and
+   of the YOLOX-s, YOLOv7-l and FCOS-R50 AMP steps with the share of the
+   ``simota_assign``, ``yolov7_ota`` and ``fcos_targets`` ranges (their
+   val inputs among the NMS kernel inputs).
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -257,7 +279,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 32  # VAL and TRAIN BATCH_SIZE of conf/coco_yolov5_s.yml
-TRAIN_STEPS_PER_EPOCH = 8
+TRAIN_STEPS_PER_EPOCH = 4
 TRAIN_EPOCHS = 2
 VAL_IMAGES = 64  # the evaluator's matcher is Python: a small val set
 
@@ -708,34 +730,6 @@ def profile_device(fn, steps: int = 3, top: int = 12, groups=None) -> dict:
                  "ms": e.self_device_time_total / 1e3 / steps,
                  "calls": e.count / steps} for e in kernels[:top]],
     }
-
-
-def operator_device_ms(fn, groups, steps: int = 3) -> dict:
-    """torch.profiler with shapes over ``steps`` calls of ``fn``: for each
-    of ``groups`` ({name: predicate(operator name, input shapes)}), the
-    device time per call of the kernels launched under the operators it
-    picks (their children's too) and its share of the session's busy
-    time.  A session of its own: recording shapes costs host time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not getattr(e, "is_user_annotation", False)) / 1e3 / steps
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CPU]
-    out = {"device_busy_ms": busy_ms}
-    for name, pick in groups.items():
-        ms = sum(e.device_time_total for e in events
-                 if pick(e.name, e.input_shapes or [])) / 1e3 / steps
-        out[name] = {"ms": ms, "share_of_busy": ms / busy_ms}
-    return out
 
 
 def path_phase(workdir: Path) -> dict:
@@ -1549,7 +1543,7 @@ def cls_loader_check(workdir: Path) -> dict:
 
 
 MASKRCNN_BATCH = 16  # TRAIN and VAL BATCH_SIZE of conf/coco_maskrcnn.yml
-MASKRCNN_STEPS = 4  # one epoch of 4 train steps
+MASKRCNN_STEPS = 2  # one epoch of 2 train steps
 MASKRCNN_VAL_IMAGES = 32  # one val epoch of 2 batches
 MASK_SIZE = 112  # CocoSegmentation's default raster (cvpytorch_tpu/data/datasets/coco.py:176)
 # the ROIAlign tap gathers (index_select: PyTorch's vectorized_gather_kernel,
@@ -1935,12 +1929,10 @@ SEG_FRAME = [1024, 2048]  # a Cityscapes frame: RandomScaleCrop and Resize work 
 SEG_VAL_IMAGES = 16  # one val epoch of 2 batches (1 at a batch of 16)
 SEG_VAL = {"lednet": 8}  # one val batch of the one-step paths; else SEG_VAL_IMAGES
 SEG_SERVED = {"stdc": 8}  # images served through infer.main; else one batch
-SEG_STEPS = {"deeplabv3plus": 4, "unet": 2, "segformer_b2": 4, "sfnet_r18": 2,  # one epoch
-             "segnext_b": 4, "incepformer_t": 2, "topformer_b": 2, "regseg": 2,  # each
-             "stdc": 4, "ppliteseg": 2, "sgcpnet": 2, "enet": 2, "segnet": 2,
+SEG_STEPS = {"deeplabv3plus": 2, "unet": 2, "segformer_b2": 2, "sfnet_r18": 2,  # one epoch
+             "segnext_b": 2, "incepformer_t": 2, "topformer_b": 2, "regseg": 2,  # each
+             "stdc": 2, "ppliteseg": 2, "sgcpnet": 2, "enet": 2, "segnet": 2,
              "icnet": 1, "lednet": 1, "lspnet": 1}
-SEG_TIMED_CALLS = {"deeplabv3plus": 5, "segformer_b2": 5, "segnext_b": 5,  # else 3
-                   "stdc": 5}
 # the paths that run once on the card and are not timed or profiled, and
 # those whose f32 step is not timed
 SEG_UNTIMED = ("icnet", "lednet", "lspnet")
@@ -1982,29 +1974,12 @@ POOL_GROUPS = {"pool_unpool_scatter_gather": re.compile(r"scatter|gather", re.I)
                "pool_reduce_and_argmax": re.compile(r"reduce_kernel.*(max|Max)|argmax|ArgMax")}
 PROFILE_GROUPS = {"segformer_b2": SEGFORMER_GROUPS, "sfnet_r18": SFNET_GROUPS,
                   "segnext_b": SEGNEXT_GROUPS, "incepformer_t": SEGFORMER_GROUPS,
-                  "segnet": POOL_GROUPS, "enet": POOL_GROUPS}
-
-
-def _depthwise(name: str, shapes) -> bool:
-    """A depthwise convolution's forward or backward operator with a
-    spatial kernel: the weight (C, 1, kh, kw), C > 1, kh·kw > 1 (input 1
-    of ``aten::convolution``, 2 of ``aten::convolution_backward``)."""
-    at = {"aten::convolution": 1, "aten::convolution_backward": 2}.get(name)
-    if at is None or len(shapes) <= at or len(shapes[at]) != 4:
-        return False
-    c, i, kh, kw = shapes[at]
-    return c > 1 and i == 1 and kh * kw > 1
-
-
-# SegNeXt's operator groups, forward and backward: the depthwise strip,
-# 5×5 and 3×3 convolutions, GroupNorm, GELU, and the NMF's forward range
-SEGNEXT_OPS = {
-    "depthwise_convs": _depthwise,
-    "group_norm": lambda name, _: name in ("aten::native_group_norm",
-                                           "aten::native_group_norm_backward"),
-    "gelu": lambda name, _: name in ("aten::gelu", "aten::gelu_backward"),
-    "nmf_forward_range": lambda name, _: name == "nmf",
-}
+                  "segnet": POOL_GROUPS}
+# the seg paths profiled at the end of the run: those with a named group or
+# range, and PP-LiteSeg (its upsample backward); a profiler session costs
+# ~5 s, and the run keeps within its time limit
+SEG_PROFILED = ("segformer_b2", "sfnet_r18", "segnext_b", "incepformer_t", "stdc", "ppliteseg",
+                "segnet")
 
 
 def incepformer_logits_gb(model, images) -> float:
@@ -3234,11 +3209,6 @@ def yolov6_card_vs_cpu(trainer, batches) -> dict:
             out["train_preds"], _, _ = model._forward(x)
         return out
 
-    def rel(card, cpu):
-        total = abs(float(cpu["loss"]))
-        return {k: abs(float(card[k]) - float(v)) / max(abs(float(v)), 1e-3 * total)
-                for k, v in cpu.items()}
-
     def check(cpu, card):
         matched = {}
         for device in ("cpu", "cuda"):
@@ -3260,11 +3230,11 @@ def yolov6_card_vs_cpu(trainer, batches) -> dict:
         gated = []
         for epoch in (3, 4):
             for key in (f"val_epoch{epoch}", f"train_f64_epoch{epoch}", f"train_epoch{epoch}"):
-                out[f"{key}_loss_rel"] = rel(card[key], cpu[key])
+                out[f"{key}_loss_rel"] = _rel_losses(card[key], cpu[key])
                 if not key.startswith("train_epoch"):
                     gated.append(max(out[f"{key}_loss_rel"].values()))
-            out[f"train_epoch{epoch}_cpu_f32_vs_f64"] = rel(cpu[f"train_epoch{epoch}"],
-                                                            cpu[f"train_f64_epoch{epoch}"])
+            out[f"train_epoch{epoch}_cpu_f32_vs_f64"] = _rel_losses(
+                cpu[f"train_epoch{epoch}"], cpu[f"train_f64_epoch{epoch}"])
         print(f"YOLOv6-s card vs CPU, B=2, 640²: {json.dumps(out)}", flush=True)
         if not (out["head_max_rel_err"] <= 1e-4 and out["atss_matched_gt_equal"]
                 and out["tal_matched_gt_equal"] and max(gated) <= 1e-4):
@@ -3302,8 +3272,10 @@ def voc_det_config(workdir: Path, name: str, n: int) -> Path:
 
 def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
     """``conf/<name>.yml`` as written on its dataset (the COCO directory's
-    JPEG files, or for ``voc_nanodet`` a VOCdevkit through the
-    ``voc_detection`` evaluator): one train step and one val batch at the
+    JPEG files; for ``voc_nanodet`` a VOCdevkit through the
+    ``voc_detection`` evaluator; for ``widerface_faceboxes`` and
+    ``pennfudan_retinanet`` directories in their layouts, ``layout_det_config``;
+    YOLOX's class biases at 0): one train step and one val batch at the
     config's batch through ``Trainer.run()`` (``nms_keep`` once), finite
     losses and metric, ``nms_keep`` bit-exact against ``nms_keep_plain``
     on the val input the path gave it.  Not timed."""
@@ -3314,17 +3286,24 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
     from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
 
     workdir.mkdir(parents=True)
-    n = ONE_STEP_CONFIGS[name]
-    setting = (voc_det_config(workdir, name, n) if name.startswith("voc")
-               else coco_det_config(workdir, name, coco, n, n, n))
+    n = {**ONE_STEP_CONFIGS, **OTA_FCOS_ONE_STEP}[name]
+    if name.startswith("voc"):
+        setting = voc_det_config(workdir, name, n)
+    elif name in ("widerface_faceboxes", "pennfudan_retinanet"):
+        setting = layout_det_config(workdir, name, n)
+    else:
+        setting = coco_det_config(workdir, name, coco, n, n, n)
     trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    kind = type(trainer.model).__name__
     sizes = {stage: len(trainer.datasets[stage]) for stage in ("train", "val")}
-    if sizes != {"train": n, "val": n} or not trainer.model.v1:
-        raise AssertionError(f"{name}: {sizes}, v1 {trainer.model.v1}")
+    if sizes != {"train": n, "val": n} or (kind == "NanoDetPlus") != (name in ONE_STEP_CONFIGS) \
+            or kind == "NanoDetPlus" and not trainer.model.v1:
+        raise AssertionError(f"{name}: {sizes}, {kind}")
+    if kind == "YOLOX":
+        zero_class_biases(trainer.model)
     seen, restore = capture_nms_inputs()
     try:
-        run = det_run(trainer, trainer_mod, name, 1, ("qfl_loss", "bbox_loss", "dfl_loss",
-                                                      "loss"), 1)
+        run = det_run(trainer, trainer_mod, name, 1, LOSS_NAMES[kind], 1)
     finally:
         restore()
     (boxes, thr), = seen
@@ -3333,8 +3312,9 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
         raise AssertionError(f"{name}: nms_keep != nms_keep_plain on its val input")
     nms_keep.launches = before  # comparison launches do not count
     model = trainer.model
-    out = {"dataset": type(trainer.datasets["train"]).__name__, "batch": n,
-           "backbone": type(model.backbone).__name__, "neck": type(model.neck).__name__,
+    out = {"dataset": type(trainer.datasets["train"]).__name__, "batch": n, "model": kind,
+           "backbone": type(getattr(model, "backbone", None)).__name__,
+           "neck": type(getattr(model, "neck", getattr(model, "fpn", None))).__name__,
            "launches": run["launches"], "losses": run["losses"], "val_mAP": run["val_mAP"],
            "val_nms_input": {"shape": list(boxes.shape), "bit_exact": True,
                              "bound_ms": nms_bound_ms(*boxes.shape[:2])[0]},
@@ -3343,6 +3323,299 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
     del trainer
     torch.cuda.empty_cache()
     return out
+
+
+# -- slice 13: YOLOX, PAI-YOLOX, YOLOv7, FCOS, LFD, RetinaNet -------------------------
+YOLOX_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_yolox_s.yml
+YOLOX_EPOCHS = 2
+YOLOX_STEPS = 2  # an epoch: 64 of the COCO directory's train images
+YOLOX_VAL_IMAGES = 64  # one val epoch of 2 batches, after epoch 2
+YOLOV7_BATCH = 16  # TRAIN and VAL BATCH_SIZE of conf/coco_yolov7.yml
+YOLOV7_STEPS = 2
+FCOS_BATCH = 16  # TRAIN and VAL BATCH_SIZE of conf/coco_fcos.yml
+FCOS_STEPS = 2
+# the slice's other configs, one train step and one val batch each at their
+# batch: COCO ones on the COCO directory, widerface_faceboxes and
+# pennfudan_retinanet on directories in their datasets' layouts
+OTA_FCOS_ONE_STEP = {"coco_yolox_n": 32, "coco_pai_yolox": 32, "coco_pai_yolox_s": 32,
+                     "coco_yolov7x": 12, "coco_lfd": 32, "widerface_faceboxes": 32,
+                     "pennfudan_retinanet": 4}
+LOSS_NAMES = {"NanoDetPlus": ("qfl_loss", "bbox_loss", "dfl_loss", "loss"),
+              "YOLOX": ("obj_loss", "cls_loss", "iou_loss", "loss"),
+              "YOLOv7": ("box_loss", "obj_loss", "cls_loss", "loss"),
+              "FCOS": ("cls_loss", "cnt_loss", "reg_loss", "loss"),
+              "LFD": ("cls_loss", "cnt_loss", "reg_loss", "loss"),
+              "RetinaNet": ("cls_loss", "reg_loss", "loss")}
+
+
+def zero_class_biases(model) -> None:
+    """YOLOX's class and objectness biases at 0 instead of −log 99, so that
+    a few steps' random-weight model scores above the 0.01 threshold and
+    the val and served batches hold detections (as the YOLOv6 phase)."""
+    import torch
+
+    with torch.no_grad():
+        for i in range(model.head.n_levels):
+            for name in ("cls_out", "obj_out"):
+                getattr(model.head, f"{name}{i}").bias.zero_()
+
+
+def layout_det_config(workdir: Path, name: str, n: int) -> Path:
+    """``conf/<name>.yml`` as written on a directory in its dataset's layout
+    (``data/layouts.py``): WIDER FACE (JPEG copies of the fixtures and the
+    ``wider_face_train_bbx_gt.txt`` list, a train and a val directory) or
+    PennFudanPed (PNG images and palette instance masks; TRAIN and VAL read
+    one folder, as written); only ``IMG_DIR``/``ANN_FILE`` changed, ``n``
+    images a stage, one epoch."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.data import layouts
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / f"{name}.yml"))
+    data = cfg.DATASET
+    data.DICTIONARY = str(ROOT / data.DICTIONARY)
+    root = workdir / "data"
+    if name == "widerface_faceboxes":
+        jpegs = [str(FIXTURES / f) for f in sorted(fixture_manifest())]
+        for stage, seed in (("TRAIN", 1), ("VAL", 2)):
+            data.get(stage).update(layouts.write_widerface(
+                str(root / f"WIDER_{stage.lower()}"), jpegs, n, seed=seed))
+    else:
+        img_dir = layouts.write_pennfudan(str(root / "PennFudanPed"), n)
+        for stage in ("TRAIN", "VAL"):
+            data.get(stage).update({"IMG_DIR": img_dir})
+    cfg.EVALUATOR.EVAL_INTERVALS = 1
+    cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+                "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
+    path = workdir / f"{name}_layout.json"
+    path.write_text(json.dumps(cfg, default=lambda c: c.data))
+    return path
+
+
+def det_phase(workdir: Path, name: str, coco: dict, batch: int, steps: int, epochs: int,
+              n_val: int, serve: bool) -> tuple[dict, object]:
+    """``conf/<name>.yml`` as written on the COCO directory's JPEG files
+    (``coco_det_config``): ``Trainer.run()`` for ``epochs`` epochs of
+    ``steps`` steps, validated on ``n_val`` images after the last
+    (``nms_keep`` once a val batch), and with ``serve`` one served batch
+    through ``infer.main`` (once more)."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    workdir.mkdir(parents=True)
+    setting = coco_det_config(workdir, name, coco, batch * steps, n_val, batch, epochs=epochs)
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    kind = type(trainer.model).__name__
+    if kind == "YOLOX":
+        zero_class_biases(trainer.model)
+    run = det_run(trainer, trainer_mod, name, steps * epochs, LOSS_NAMES[kind],
+                  -(-n_val // batch))  # the main path of this phase
+    served = (serve_checkpoint(workdir, setting, trainer, run["state"], batch, name)
+              if serve else {})
+    times = run["times"]
+    out = {"model": kind, "epochs": epochs, "steps": steps * epochs, "batch": batch,
+           "launches": run["launches"], "losses": run["losses"], "val_mAP": run["val_mAP"],
+           "run_s": run["run_s"], "train_epoch_s": times["train_epoch"],
+           "fed_images_per_s": batch * steps / times["train_epoch"][-1],
+           "val_epoch_s": times["val_epoch"][0],
+           "val_evaluator_share": times["evaluator"] / times["val_epoch"][0], **served}
+    print(f"{name} Trainer.run() on the COCO JPEG files: {json.dumps(out)}", flush=True)
+    torch.cuda.empty_cache()
+    return out, trainer
+
+
+def assigner_range_profile(state, batch, amp_ms: float, span: str) -> dict:
+    """Two profiled AMP steps (EMA on, as the recipe): the busy and idle
+    share and the ``span`` range's share of the busy time."""
+    import torch
+
+    from cvpytorch_tpu_torch.train_state import make_train_step
+
+    torch.cuda.empty_cache()
+    step = make_train_step(amp=True, ema_decay=0.9999)
+    prof = profile_device(lambda: step(state, batch), steps=2, top=15)
+    prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / amp_ms
+    ms = prof["annotated_ms"].get(span)
+    prof[f"{span}_share_of_busy"] = None if ms is None else ms / prof["device_busy_ms"]
+    return prof
+
+
+def _rel_losses(card, cpu) -> dict:
+    """Each loss term's relative difference (a term under 1e-3 of the
+    total: relative to 1e-3 of the total)."""
+    total = abs(float(cpu["loss"]))
+    return {k: abs(float(card[k]) - float(v)) / max(abs(float(v)), 1e-3 * total)
+            for k, v in cpu.items()}
+
+
+def yolox_card_vs_cpu(trainer, batches) -> dict:
+    """YOLOX-s at 640², B = 2: eval-mode head outputs within 1e-4 of their
+    largest value (f32); on shared inputs, float64 on both devices, SimOTA
+    on the CPU's train-mode predictions (``matched_gt`` equal) and the loss
+    on the CPU's eval-mode predictions (val losses within 1e-4 relative);
+    the train-mode losses of the whole model in float64 within 1e-4.  In
+    float32 the assignment is reported, not gated: 1e8 added to a cost
+    rounds it to a multiple of 8, and a 1-ulp difference between the
+    devices' class-cost sums moves a cost across a rounding boundary, and
+    so the stable rank (the float32 val losses of each device's own
+    predictions are reported beside)."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.models.assigners.ota_assigner import simota_assign
+    from cvpytorch_tpu_torch.models.yolox import decode_yolox, yolox_loss
+
+    def forward(model, batch):
+        x, t = batch["image"], batch["target"]
+        out = {"target": t}
+        with torch.no_grad():
+            out["head"], out["priors"] = model.eval()._forward(x)
+            out["val"] = model.eval()(x, t, mode="val")[0]
+            out["train"] = model.train()(x, t, mode="train")[1]
+            out["train_preds"], _ = model._forward(x)
+            out["train_f64"] = copy.deepcopy(model).double().train()(
+                x.double(), {**t, "boxes": t["boxes"].double()}, mode="train")[1]
+        return out
+
+    def check(cpu, card):
+        num_classes = trainer.model.num_classes
+        matched, val64 = {}, {}
+        for device in ("cpu", "cuda"):
+            t = {k: v.to(device) for k, v in cpu["target"].items()}
+            for dtype in (torch.float32, torch.float64):
+                p = cpu["train_preds"].to(device, dtype)
+                priors = cpu["priors"].to(device, dtype)
+                matched[device, dtype] = simota_assign(
+                    torch.sigmoid(p[..., 5:]), torch.sigmoid(p[..., 4]), priors,
+                    decode_yolox(p, priors), t["boxes"].to(dtype), t["labels"],
+                    t["valid"])["matched_gt"].cpu()
+            total, parts = yolox_loss(cpu["head"].to(device, torch.float64),
+                                      cpu["priors"].to(device, torch.float64),
+                                      {**t, "boxes": t["boxes"].double()}, num_classes)
+            val64[device] = {**parts, "loss": total}
+        f64, f32 = torch.float64, torch.float32
+        out = {"head_max_rel_err": max_rel_err(card["head"], cpu["head"]),
+               "simota_f64_matched_gt_equal": bool(torch.equal(matched["cpu", f64],
+                                                               matched["cuda", f64])),
+               "simota_f32_matched_gt_differing": int((matched["cpu", f32]
+                                                       != matched["cuda", f32]).sum()),
+               "simota_positives": int((matched["cpu", f64] >= 0).sum()),
+               "val_f64_shared_loss_rel": _rel_losses(val64["cuda"], val64["cpu"]),
+               "train_f64_loss_rel": _rel_losses(card["train_f64"], cpu["train_f64"]),
+               "val_f32_loss_rel": _rel_losses(card["val"], cpu["val"]),
+               "train_f32_loss_rel": _rel_losses(card["train"], cpu["train"]),
+               "train_cpu_f32_vs_f64": _rel_losses(cpu["train"], cpu["train_f64"])}
+        print(f"YOLOX-s card vs CPU, B=2, 640²: {json.dumps(out)}", flush=True)
+        if not (out["head_max_rel_err"] <= 1e-4 and out["simota_f64_matched_gt_equal"]
+                and max(out["val_f64_shared_loss_rel"].values()) <= 1e-4
+                and max(out["train_f64_loss_rel"].values()) <= 1e-4):
+            raise AssertionError(f"YOLOX-s card vs CPU: {out}")
+        return out
+
+    return card_vs_cpu(trainer, batches, forward, check)
+
+
+def yolov7_card_vs_cpu(trainer, batches) -> dict:
+    """YOLOv7-l at 640², B = 2: eval-mode raw maps within 1e-4 of their
+    largest value (f32); on shared inputs, float64 on both devices, the
+    OTA stage of the loss (its selection and matched gts) on the CPU's
+    train-mode raw maps equal, and the loss on the CPU's eval-mode raw
+    maps (val losses within 1e-4 relative); the float32 matches and the
+    float32 val and train losses of each device's own maps reported (the
+    1e8 cost terms, as YOLOX's)."""
+    import torch
+
+    def forward(model, batch):
+        x, t = batch["image"], batch["target"]
+        with torch.no_grad():
+            raw = model.eval()._raw(x)
+            val = model.eval()(x, t, mode="val")[0]
+            train = model.train()(x, t, mode="train")[1]
+            train_raw = model._raw(x)
+        return {"val": val, "train": train, "target": t, "image": x,
+                **{f"raw{i}": r for i, r in enumerate(raw)},
+                **{f"train_raw{i}": r for i, r in enumerate(train_raw)}}
+
+    def check(cpu, card):
+        model, img_size = trainer.model, float(cpu["image"].shape[1])
+        matched, val64 = {}, {}
+        for device in ("cpu", "cuda"):
+            t = model._normalized_targets(cpu["image"].to(device),
+                                          {k: v.to(device) for k, v in cpu["target"].items()})
+            for dtype in (torch.float32, torch.float64):
+                td = {**t, "boxes": t["boxes"].to(dtype)}
+                raw = [cpu[f"train_raw{i}"].to(device, dtype) for i in range(3)]
+                sel, mg = model.loss.ota_match(model.loss.candidates(raw, td), td, img_size)
+                matched[device, dtype] = torch.where(sel, mg, -1).cpu()
+            t64 = {**t, "boxes": t["boxes"].double()}
+            val64[device] = model.loss([cpu[f"raw{i}"].to(device, torch.float64)
+                                        for i in range(3)], t64, img_size)
+        f64, f32 = torch.float64, torch.float32
+        raw_card = torch.cat([card[f"raw{i}"].flatten(1) for i in range(3)], 1)
+        raw_cpu = torch.cat([cpu[f"raw{i}"].flatten(1) for i in range(3)], 1)
+        shared = {device: {**parts, "loss": total} for device, (total, parts) in val64.items()}
+        out = {"raw_max_rel_err": max_rel_err(raw_card, raw_cpu),
+               "ota_f64_matches_equal": bool(torch.equal(matched["cpu", f64],
+                                                         matched["cuda", f64])),
+               "ota_f32_matches_differing": int((matched["cpu", f32]
+                                                 != matched["cuda", f32]).sum()),
+               "ota_selected": int((matched["cpu", f64] >= 0).sum()),
+               "val_f64_shared_loss_rel": _rel_losses(shared["cuda"], shared["cpu"]),
+               "val_f32_loss_rel": _rel_losses(card["val"], cpu["val"]),
+               "train_f32_loss_rel": _rel_losses(card["train"], cpu["train"])}
+        print(f"YOLOv7-l card vs CPU, B=2, 640²: {json.dumps(out)}", flush=True)
+        if not (out["raw_max_rel_err"] <= 1e-4 and out["ota_f64_matches_equal"]
+                and max(out["val_f64_shared_loss_rel"].values()) <= 1e-4):
+            raise AssertionError(f"YOLOv7-l card vs CPU: {out}")
+        return out
+
+    return card_vs_cpu(trainer, batches, forward, check)
+
+
+def slice13_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
+    """YOLOX-s (2 epochs of 2 steps at bs32, 64 val, one served batch, AMP
+    and f32 steps, card vs CPU), YOLOv7-l (2 steps at bs16, one val and one
+    served batch, the AMP step, card vs CPU) and FCOS-R50 800² (2 steps at
+    bs16, one val batch, the AMP step), each ``nms_keep`` bit-exact on its
+    val input; then the other configs of the slice, one step and one val
+    batch each.  Returns every record, and the states and batches the
+    profiles take at the end of the run."""
+    import torch
+
+    out, later = {}, {}
+    for key, name, batch, steps, epochs, n_val, serve in (
+            ("yolox_s", "coco_yolox_s", YOLOX_BATCH, YOLOX_STEPS, YOLOX_EPOCHS,
+             YOLOX_VAL_IMAGES, True),
+            ("yolov7_l", "coco_yolov7", YOLOV7_BATCH, YOLOV7_STEPS, 1, YOLOV7_BATCH, True),
+            ("fcos_r50", "coco_fcos", FCOS_BATCH, FCOS_STEPS, 1, FCOS_BATCH, False)):
+        torch.cuda.empty_cache()
+        run, trainer = det_phase(workdir / key, name, coco, batch, steps, epochs, n_val, serve)
+        print(json.dumps({key: run, "card": card}), flush=True)
+        timed, states, batches = milestone_timing(trainer, batch, None, iters=5,
+                                                  ema_decay=0.9999, amp_only=key != "yolox_s")
+        print(json.dumps({f"{key}_timing": timed, "card": card}), flush=True)
+        nms, nms_input = val_nms_input(states["train"], batches["val"], key)
+        if key == "yolox_s":
+            check = yolox_card_vs_cpu(trainer, batches)
+        elif key == "yolov7_l":
+            check = yolov7_card_vs_cpu(trainer, batches)
+        else:
+            check = None
+        if check is not None:
+            print(json.dumps({f"{key}_card_vs_cpu": check, "card": card}), flush=True)
+        out[key] = {"run": run, "timing": timed, "nms": nms, "card_vs_cpu": check}
+        later[key] = {"state": states["train"], "batch": batches["train"],
+                      "amp_ms": timed["amp_step_ms"], "nms_input": nms_input}
+        del trainer
+        mark(key)
+    out["one_step"] = {}
+    for name in OTA_FCOS_ONE_STEP:
+        torch.cuda.empty_cache()
+        out["one_step"][name] = one_step_run(workdir / name, name, coco)
+        mark(name)
+    return out, later
 
 
 def letterbox_timing(n: int = 20) -> dict:
@@ -3452,7 +3725,7 @@ def main() -> int:
                 mark(name)
                 continue
             steps_timed, states, batches = milestone_timing(
-                seg_trainer, SEG_BATCH[name], None, iters=SEG_TIMED_CALLS.get(name, 3),
+                seg_trainer, SEG_BATCH[name], None, iters=3,
                 ema_decay=SEG_EMA.get(name, 0.0), amp_only=name in SEG_AMP_ONLY)
             if name in SEG_COUNT_FLOPS:
                 step = make_train_step(amp=True, ema_decay=SEG_EMA.get(name, 0.0))
@@ -3469,8 +3742,9 @@ def main() -> int:
             if name in SEG_CARD_VS_CPU:
                 print(json.dumps({f"{name}_card_vs_cpu": seg_card_vs_cpu(
                     seg_trainer, batches, SEG_CARD_VS_CPU[name]), "card": card}), flush=True)
-            seg[name] = {"result": result, "timing": steps_timed, "state": states["train"],
-                         "batch": batches["train"]}
+            seg[name] = {"result": result, "timing": steps_timed}
+            if name in SEG_PROFILED:  # kept on the card for the profiles at the end
+                seg[name].update(state=states["train"], batch=batches["train"])
             del seg_trainer, states
             mark(name)
         torch.cuda.empty_cache()
@@ -3532,6 +3806,8 @@ def main() -> int:
             torch.cuda.empty_cache()
             one_step[name] = one_step_run(Path(tmp) / name, name, coco)
             mark(name)
+        # slice 13: YOLOX-s, YOLOv7-l, FCOS-R50, then the slice's other configs
+        s13, s13_later = slice13_phases(Path(tmp) / "slice13", coco, card)
         # the host-augmented YOLOv5 path after the other phases
         torch.cuda.empty_cache()
         host_aug, ha_trainer = host_aug_phase(Path(tmp) / "host_aug", coco)
@@ -3559,7 +3835,9 @@ def main() -> int:
         split = device_phase({**times.pop("inputs"), "path_input": path_input,
                               "nanodet_val_input": nd_input,
                               "nanodet_v1_val_input": ndv1_input,
-                              "yolov6_val_input": v6_input})
+                              "yolov6_val_input": v6_input,
+                              **{f"{key}_val_input": run["nms_input"]
+                                 for key, run in s13_later.items()}})
         mark("device_phase")
         train_step_fn, aug_fn = _profiled_train_state(trainer)
         print(json.dumps({"device_aug_profile": profile_device(aug_fn, steps=3, top=8),
@@ -3586,7 +3864,7 @@ def main() -> int:
         # two profiled steps a seg and cls/NanoDet path: the profiler's own
         # cost (~5 s a session of three) holds the run's time limit
         for name, run in seg.items():
-            if "state" not in run:  # the one-step paths
+            if name not in SEG_PROFILED:
                 continue
             torch.cuda.empty_cache()
             seg_step = make_train_step(amp=True, ema_decay=SEG_EMA.get(name, 0.0))
@@ -3594,9 +3872,6 @@ def main() -> int:
                                   groups=PROFILE_GROUPS.get(name))
             prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / run[
                 "timing"]["amp_step_ms"]
-            if name == "segnext_b":
-                prof["operator_groups"] = operator_device_ms(
-                    lambda: seg_step(run["state"], run["batch"]), SEGNEXT_OPS)
             if name == "stdc":  # the detail target's range against the busy time
                 detail = prof["annotated_ms"].get("detail_target")
                 prof["detail_target_share_of_busy"] = (
@@ -3604,22 +3879,19 @@ def main() -> int:
             print(json.dumps({f"{name}_amp_train_step_profile": prof, "card": card}),
                   flush=True)
         mark("seg profiles")
-        # each config's batch and its bench milestone's (bs256, bs128)
-        for name, states, batches, timed, milestone, ema in (
-                ("cls", cls_states, cls_batches, cls_timed, CLS_MILESTONE_BATCH, 0.0),
-                ("nanodet", nd_states, nd_batches, nd_timed, NANODET_MILESTONE_BATCH,
-                 0.9999)):
-            for run, key, amp_ms in (
-                    ("train", name, timed["amp_step_ms"]),
-                    ("milestone", f"{name}_bs{milestone}",
-                     timed[f"milestone_bs{milestone}"]["amp_step_ms"])):
-                torch.cuda.empty_cache()
-                step = make_train_step(amp=True, ema_decay=ema)
-                prof = profile_device(lambda: step(states[run], batches[run]), steps=2,
-                                      top=15)
-                prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / amp_ms
-                print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
-                      flush=True)
+        # each config's batch (the bench milestones' batches are timed, not
+        # profiled: the run's time limit)
+        for key, states, batches, timed, ema in (
+                ("cls", cls_states, cls_batches, cls_timed, 0.0),
+                ("nanodet", nd_states, nd_batches, nd_timed, 0.9999)):
+            torch.cuda.empty_cache()
+            step = make_train_step(amp=True, ema_decay=ema)
+            prof = profile_device(lambda: step(states["train"], batches["train"]), steps=2,
+                                  top=15)
+            prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / timed[
+                "amp_step_ms"]
+            print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
+                  flush=True)
         # NanoDet v1 and YOLOv6-s (TAL, then ATSS): the assigners' ranges
         for key, state, batch, amp_ms, assign in (
                 ("nanodet_v1", ndv1_states["train"], ndv1_batches["train"],
@@ -3637,7 +3909,17 @@ def main() -> int:
                 "device_busy_ms"]
             print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
                   flush=True)
-    mark("cls and nanodet profiles")
+        # slice 13: the SimOTA, YOLOv7 OTA and FCOS target ranges' shares
+        for key, span in (("yolox_s", "simota_assign"), ("yolov7_l", "yolov7_ota"),
+                          ("fcos_r50", "fcos_targets")):
+            run = s13_later[key]
+            prof = assigner_range_profile(run["state"], run["batch"], run["amp_ms"], span)
+            print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
+                  flush=True)
+            s13[key]["profile"] = {k: prof[k] for k in (
+                "device_busy_ms", "device_idle_share", "device_idle_share_unprofiled",
+                f"{span}_share_of_busy")}
+    mark("cls, nanodet and slice 13 profiles")
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
     print(json.dumps({"nms_keep_B1_K1024": {**times["B1"], **split["B1"],
@@ -3650,7 +3932,9 @@ def main() -> int:
     nd_nms["bound_ms_milestone_B128"], _ = nms_bound_ms(NANODET_MILESTONE_BATCH, 1024)
     nd_nms.update(split["nanodet_val_input"])
     for record, B, key in ((ndv1_nms, NANODET_V1_BATCH, "nanodet_v1_val_input"),
-                           (v6_nms, YOLOV6_BATCH, "yolov6_val_input")):
+                           (v6_nms, YOLOV6_BATCH, "yolov6_val_input"),
+                           *((s13[k]["nms"], s13[k]["nms"]["shape"][0], f"{k}_val_input")
+                             for k in s13_later)):
         record["bound_ms"], _ = nms_bound_ms(B, 1024)
         record.update(split[key])
     # each path's main run: the count set to 0 just before and read just after
@@ -3669,7 +3953,12 @@ def main() -> int:
                "nanodet_v1_served": ndv1["served_launches"],
                "yolov6_s_train_and_val": v6["launches"],
                "yolov6_s_served": v6["served_launches"],
-               **{f"{name}_train_and_val": run["launches"] for name, run in one_step.items()}}
+               **{f"{name}_train_and_val": run["launches"] for name, run in one_step.items()},
+               **{f"{key}_train_and_val": s13[key]["run"]["launches"] for key in s13_later},
+               **{f"{key}_served": s13[key]["run"]["served_launches"] for key in s13_later
+                  if "served_launches" in s13[key]["run"]},
+               **{f"{name}_train_and_val": run["launches"]
+                  for name, run in s13["one_step"].items()}}
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
         "route": "cuda",
@@ -3696,7 +3985,9 @@ def main() -> int:
         "nanodet_path_input": nd_nms,
         "nanodet_v1_path_input": ndv1_nms,
         "yolov6_s_path_input": v6_nms,
-        "one_step_val_inputs": {name: run["val_nms_input"] for name, run in one_step.items()},
+        "one_step_val_inputs": {name: run["val_nms_input"]
+                                for name, run in {**one_step, **s13["one_step"]}.items()},
+        **{f"{key}_path_input": s13[key]["nms"] for key in s13_later},
         "dataset_layout_path_inputs": {name: run["nms_inputs"] for name, run in layouts.items()
                                        if run["nms_inputs"]},
     }]}))

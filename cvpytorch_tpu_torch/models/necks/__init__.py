@@ -1,2 +1,2 @@
 """Necks of the port.  Importing it registers them."""
-from . import fcos_fpn, ghost_pan, pan, tan, yolov5_neck  # noqa: F401
+from . import asff, fcos_fpn, ghost_pan, pan, tan, yolov5_neck  # noqa: F401

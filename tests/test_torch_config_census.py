@@ -36,21 +36,26 @@ SEG_ZOO = ([f"cityscapes_segnext_{s}" for s in "tsbl"]
 DET_V1_V6 = (["coco_nanodet", "coco_nanodet_416", "coco_nanodet_t", "coco_nanodet_g",
               "coco_nanodet_repvgg", "coco_nanodet_efficientnet_lite", "voc_nanodet"]
              + [f"coco_yolov6_{s}" for s in "ntsml"])
+# YOLOX and PAI-YOLOX, YOLOv7, FCOS, LFD and RetinaNet
+DET_OTA_FCOS = ["coco_yolox_s", "coco_yolox_n", "coco_pai_yolox", "coco_pai_yolox_s",
+                "coco_yolov7", "coco_yolov7x", "coco_fcos", "coco_lfd", "widerface_faceboxes",
+                "pennfudan_retinanet"]
 NOW_BUILD = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "visdrone_yolov5",
              "coco_nanodetplus_m", "coco_nanodetplus", "mini-imagenet", "cityscapes_unet",
              "coco_maskrcnn"] + [f"cityscapes_segformer_b{i}" for i in range(6)] + [
-             f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)] + SEG_ZOO + DET_V1_V6
+             f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)] + SEG_ZOO + DET_V1_V6 + DET_OTA_FCOS
 
 
 # configs whose dataset class the port has: the COCO ones (CocoDetection,
 # CocoSegmentation), the JPEG classification folders, VOC and the
-# remaining datasets (widerface_faceboxes: its dataset, not its model)
+# remaining datasets
 WITH_DATASET = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "coco_nanodetplus",
                 "coco_nanodetplus_m", "coco_maskrcnn", "mini-imagenet", "imagenet", "flower",
                 "hymenoptera", "pet", "cityscapes_unet", "ade20k_deeplabv3plus", "camvid_unet",
                 "pennfudan_maskrcnn", "pennfudan_fasterrcnn", "portrait", "portrait_unet",
-                "visdrone_yolov5", "voc_deeplabv3plus", "widerface_faceboxes",
-                "cityscapes_segformer_b2", "cityscapes_sfnet_r18"] + SEG_ZOO + DET_V1_V6
+                "visdrone_yolov5", "voc_deeplabv3plus",
+                "cityscapes_segformer_b2", "cityscapes_sfnet_r18"] + SEG_ZOO + DET_V1_V6 \
+    + DET_OTA_FCOS
 
 
 def build(path):

@@ -52,10 +52,10 @@ def images(hw, seed=0):
 
 def check_both_modes(jm, tm, x, seed=5):
     """Eval mode in float32, and train mode with the running statistics it
-    leaves in float64, against JAX."""
+    leaves in float64, against JAX (each side of JAX one jitted call)."""
     variables = init_tree(jm, jnp.asarray(x), seed=seed)
     tm = load_jax_variables(tm, variables)
-    want = jm.apply(variables, jnp.asarray(x))
+    want = jax.jit(jm.apply)(variables, jnp.asarray(x))
     with torch.no_grad():
         got = tm.eval()(nchw(x))
     assert len(got) == len(want)
@@ -63,8 +63,9 @@ def check_both_modes(jm, tm, x, seed=5):
         assert_close_to_scale(g.permute(0, 2, 3, 1).numpy(), w)
     as64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
     with jax.enable_x64(True):
-        want, new_vars = jm.apply(as64, jnp.asarray(x, jnp.float64), train=True,
-                                  mutable=["batch_stats"])
+        want, new_vars = jax.jit(lambda v, a: jm.apply(v, a, train=True,
+                                                        mutable=["batch_stats"]))(
+            as64, jnp.asarray(x, jnp.float64))
         want = [np.asarray(w) for w in want]
         new_stats = jax.tree_util.tree_map(np.asarray, new_vars["batch_stats"])
     trained = copy.deepcopy(tm).double().train()

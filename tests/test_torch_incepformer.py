@@ -140,10 +140,13 @@ def test_same_pad_per_axis():
 
 
 def test_ipt_t_train_loss_and_grads_match_jax():
-    """Train mode at 40×72, a size no ratio divides (10×18, 5×9, 3×5): the
-    loss and float64 per-leaf gradients."""
-    jm, variables, tm = make_pair(INCEPFORMER, 40, 72, seed=4)
-    check_train_loss_and_grads(jm, variables, tm, 40, 72)
+    """Train mode at 40×40, a size no ratio divides (10×10, 5×5, 3×3 at the
+    reduction ratios 8, 4, 2): the loss and float64 per-leaf gradients.
+    (XLA's float64 run takes most of the time, and it scales with the
+    pixels; 40×40 is the smallest square size whose 1/4 map still holds
+    a pooled token at ratio 8.)"""
+    jm, variables, tm = make_pair(INCEPFORMER, 40, 40, seed=4)
+    check_train_loss_and_grads(jm, variables, tm, 40, 40)
 
 
 def test_up_concat_head_matches_jax():

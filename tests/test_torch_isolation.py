@@ -50,7 +50,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "'models.segnet_enet', 'ops.pool', 'models.assigners.atss_assigner', "
         "'models.assigners.tal_assigner', 'models.necks.pan', 'models.necks.tan', "
         "'models.backbones.repvgg', 'models.backbones.efficientnet_lite', "
-        "'models.backbones.custom_cspnet', 'models.yolov6'):\n"
+        "'models.backbones.custom_cspnet', 'models.yolov6', 'models.necks.asff', "
+        "'models.assigners.ota_assigner', 'models.yolox', 'models.losses.yolov7_loss', "
+        "'models.yolov7', 'models.necks.fcos_fpn', 'models.heads.fcos_head', 'models.fcos', "
+        "'models.backbones.lfd_resnet', 'models.lfd', 'models.retinanet'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )

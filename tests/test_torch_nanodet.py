@@ -321,8 +321,9 @@ def test_val_and_infer_predictions_match_jax(pair128):
 
 def test_unported_paths_raise_naming_the_roadmap():
     """NanoDet v1 and its PAN and TAN necks are ported (tests/
-    test_torch_nanodet_v1.py, test_torch_tan.py): they build.  The
-    detectors the port still lacks raise naming their ROADMAP item."""
+    test_torch_nanodet_v1.py, test_torch_tan.py): they build, as do YOLOX,
+    PAI-YOLOX, YOLOv7, FCOS, LFD and RetinaNet.  The detectors the port
+    still lacks raise naming their ROADMAP item."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
     from cvpytorch_tpu_torch.infer import build_model
 
@@ -330,8 +331,15 @@ def test_unported_paths_raise_naming_the_roadmap():
     assert NanoDetPlus(DICTIONARY, {"CLASS": "src.models.nanodet.NanoDet"}).v1
     for neck in ("PAN", "TAN"):
         assert type(NanoDetPlus(DICTIONARY, {"NECK": {"name": neck}}).neck).__name__ == neck
-    for cls, item in (("src.models.yolox.YOLOX", "7.3"), ("src.models.yolov7.YOLOv7", "7.4"),
-                      ("src.models.fcos.FCOS", "7.5"), ("src.models.airdet.AIRDet", "7.6")):
+    for cls in ("src.models.yolox.YOLOX", "src.models.pai_yolox.PAI_YOLOX",
+                "src.models.yolov7.YOLOv7", "src.models.fcos.FCOS", "src.models.lfd.LFD",
+                "src.models.retinanet.RetinaNet"):
+        with torch.device("meta"):
+            model = build_model(CommonConfiguration({"USE_MODEL": {"CLASS": cls}}), DICTIONARY)
+        assert type(model).__name__ == cls.split(".")[-1].replace("PAI_", ""), cls
+    for cls, item in (("src.models.airdet.AIRDet", "7.6"), ("src.models.objectbox.ObjectBox",
+                                                           "7.6"),
+                      ("src.models.keypoint.LitePose", "9")):
         cfg = CommonConfiguration({"USE_MODEL": {"CLASS": cls}})
         with pytest.raises(KeyError, match=f"Queue 1 item {item}"):
             build_model(cfg, DICTIONARY)

@@ -220,18 +220,33 @@ def test_train_mode_losses_match_jax(pair128, epoch):
         np.testing.assert_allclose(float(parts[k]), jparts[k], rtol=1e-9, err_msg=k)
 
 
+@pytest.fixture(scope="module")
+def jax_grads64(pair128):
+    """The JAX model's float64 gradients at the epoch given, one ``jit``
+    for both branches (the epoch is a traced argument, JAX's ``lax.cond``
+    takes the branch at run time)."""
+    jm, variables, _ = pair128
+    x, t = images(128), targets(128)
+    as64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
+    with jax.enable_x64(True):
+        grad = jax.jit(jax.grad(lambda p, epoch: jax_train(
+            jm, as64, p, jnp.asarray(x, jnp.float64), {**t, "epoch": epoch})[0]))
+
+    def at(epoch):
+        with jax.enable_x64(True):
+            g = grad(as64["params"], jnp.asarray(epoch, jnp.int32))
+            return jax.tree_util.tree_map(np.asarray, g)
+
+    return at
+
+
 @pytest.mark.parametrize("epoch", [3, 4], ids=["atss", "tal"])
-def test_train_mode_grads_match_jax(pair128, epoch):
+def test_train_mode_grads_match_jax(pair128, jax_grads64, epoch):
     """Per leaf, max |Δg| ≤ 5e-3 of max(leaf max |g|, 1e-3 · global max
     |g|), float64 on both sides, in either branch."""
     jm, variables, tm = pair128
     x, t = images(128), targets(128)
-    as64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
-    with jax.enable_x64(True):
-        jt = {**t, "epoch": np.asarray(epoch, np.int32)}
-        jgrads = jax.jit(jax.grad(lambda p: jax_train(
-            jm, as64, p, jnp.asarray(x, jnp.float64), jt)[0]))(as64["params"])
-        jgrads = jax.tree_util.tree_map(np.asarray, jgrads)
+    jgrads = jax_grads64(epoch)
     tm = copy.deepcopy(tm).double().train()
     total, _ = tm(torch.from_numpy(x).double(),
                   {**{k: torch.from_numpy(v) for k, v in t.items()}, "epoch": epoch}, mode="train")
