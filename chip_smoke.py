@@ -30,7 +30,7 @@
    ``cvpytorch_tpu_torch.trainer.Trainer(cfg).run()`` on the flagship's
    recipe (``conf/coco_yolov5_s.yml``: AMP, EMA, SGD 0.937 with wd 5e-4,
    LambdaLR, linear warmup, grad clip 10, batch 32) with the device
-   augmentation, 4 steps an epoch for 2 epochs, validating 64 images every
+   augmentation, 2 steps an epoch for 2 epochs, validating 64 images every
    epoch; checks that every step's loss is finite, that ``nms_keep`` ran
    once per val batch, that checkpoints were written and that the last one
    serves a batch through ``infer.main``.  Times the train step at bs32
@@ -95,8 +95,9 @@
    (IPT-T, UpConcatHead of 512 channels, batch 8, ``BACKBONE_LR``; 2
    steps, card vs CPU; its AMP peak beside the GB of one stage-1 block's
    float32 attention logits), ``conf/cityscapes_topformer_b.yml`` and
-   ``conf/cityscapes_regseg.yml`` (batch 16; 2 steps each): mIoU val of
-   16 images, one served batch, 0 ``nms_keep`` launches.
+   ``conf/cityscapes_regseg.yml`` (batch 16; 2 steps each, the AMP step
+   timed): mIoU val of 16 images, one served batch, 0 ``nms_keep``
+   launches.
 6e. The self-contained segmenters, the same way, each config as written:
    ``conf/cityscapes_stdc.yml`` (STDCNet-1, OHEM + detail loss, batch 16,
    EMA, clip 10; 2 steps, 16 val images, 8 served, AMP and f32 steps over
@@ -105,7 +106,7 @@
    and ``conf/cityscapes_sgcpnet.yml`` (batch 16), ``conf/cityscapes_enet.yml``
    and ``conf/cityscapes_segnet.yml`` (batch 8; SegNet trains on BCE of
    logit channel 0), 2 steps each with 16 val images and the AMP step
-   timed; STDC and these four also count the AMP step's FLOPs
+   timed; STDC also counts the AMP step's FLOPs
    (``torch.utils.flop_counter``: matmuls and convolutions, forward and
    backward) for an achieved TFLOP/s.  ENet and SegNet run the card vs
    CPU check with the CPU's pool indices handed to the card
@@ -145,7 +146,7 @@
 8. NanoDet-Plus phase: ``conf/coco_nanodetplus.yml`` as written
    (ShuffleNetV2 x1.0, GhostPAN, 80 classes, letterbox 320, flip,
    ColorHSV, AdamW, cosine, warmup, AMP, EMA, batch 96) on
-   SyntheticDetection at 427×640: ``Trainer.run()`` for 4 steps, bbox
+   SyntheticDetection at 427×640: ``Trainer.run()`` for 2 steps, bbox
    validation of 96 images (``nms_keep`` once per val batch), the
    checkpoint served through ``infer.main`` (once more per served batch;
    boxes equal to the predict step's un-letterboxed to the 427×640
@@ -209,6 +210,28 @@
    ``coco_yolov7x`` (bs12), ``coco_lfd``, ``widerface_faceboxes`` (on
    WIDER FACE's layout) and ``pennfudan_retinanet`` (on PennFudanPed's),
    ``nms_keep`` once each and bit-exact on its val input.
+8g. Slice 14 (``slice14_phases``), each config as written on the COCO
+   directory's JPEG files: ``conf/coco_efficientdet.yml`` (EfficientDet-D0:
+   EfficientNet-B0, 3 BiFPN cells of 64 channels, the shared heads over
+   49,104 anchors at 512²) through ``Trainer.run()`` for 2 epochs of 2
+   steps at bs32, bbox validation of 64 images after epoch 2 (``nms_keep``
+   once a batch), one served batch (once more); the AMP and f32 steps, the
+   val and predict steps; ``nms_keep`` bit-exact on its (32, 1024) val
+   input and timed; card vs CPU at B = 2 (head outputs 1e-4, the loss's
+   positive, negative and ignored anchors and best gts equal in f64 on
+   shared targets, losses in f64 1e-4, stochastic depth off).
+   ``conf/coco_airdet.yml`` (AIRDet-s: CSPDarknet-s, GiraffeNeck, GFLv2
+   with DGQP; mosaic at 640²; its class biases at 0 so that the batches
+   hold detections): 2 steps at bs32, one val and one served batch, the
+   AMP step, ``nms_keep`` on its (32, 1024) val input, card vs CPU at B = 2
+   (head outputs 1e-4, SimOTA's ``matched_gt`` equal in f64 on the CPU's
+   outputs, losses in f64 1e-4).  Then one train step and one val batch
+   each of ``coco_giraffedet`` (bs24), ``coco_objectbox`` (bs32),
+   ``coco_yolop`` (bs24, its two seg decoders) and ``coco_fastestdet``
+   (bs64 at 352², ``nms_keep`` at (64, 484)), ``nms_keep`` once each and
+   bit-exact on its val input; then NAS-FPN and RFP (ResNet-18 inside) at
+   64 channels: one train-mode forward and backward on the card against
+   the CPU (outputs and gradients 1e-4).
 8b. YOLOv5 host-augmentation phase (``yolov5_host_aug``), after the
    other phases:
    ``conf/coco_yolov5_s.yml`` as written, its ``CocoDetection`` reading
@@ -243,22 +266,14 @@
    device busy and idle share and the top operations of the device
    augmentation alone, of the YOLOv5 AMP train step with it, and of the
    Mask R-CNN AMP train step with the share of the ROIAlign gathers and
-   of their backward, and of the SegFormer-B2 (the
-   attention's float32 logits matmuls, its softmax, LayerNorm and GELU
-   as named groups, the attention's forward as the ``mit_attention``
-   range), SFNet-R18 (the flow warp's gathers and their scatter-add
-   backward), SegNeXt-B (the NMF's float32 matmuls and GELU kernels),
-   IncepFormer-T (as SegFormer's, the attention's forward as the
-   ``incepformer_attention`` range), STDC (the ``detail_target`` range's
-   share of the busy time), PP-LiteSeg and SegNet (the pools' and
-   unpools' kernels as a named group), MobileNetV2 and NanoDet-Plus (at
-   the config's batch) AMP train steps (NanoDet-Plus's (96, 1024), NanoDet v1's
-   (160, 1024) and YOLOv6-s's (32, 1024) NMS inputs among the kernel
-   inputs), and of the NanoDet v1 and YOLOv6-s AMP steps (TAL and ATSS)
-   with the share of the ``atss_assign`` and ``tal_assign`` ranges, and
-   of the YOLOX-s, YOLOv7-l and FCOS-R50 AMP steps with the share of the
-   ``simota_assign``, ``yolov7_ota`` and ``fcos_targets`` ranges (their
-   val inputs among the NMS kernel inputs).
+   of their backward, and of the SegNeXt-B (the NMF's float32 matmuls and
+   GELU kernels as named groups), STDC (the ``detail_target`` range's
+   share of the busy time) and NanoDet-Plus (at the config's batch) AMP
+   train steps, and of the YOLOX-s, EfficientDet-D0 and AIRDet-s AMP
+   steps with the share of the ``simota_assign`` and ``effdet_targets``
+   ranges (every path's val input among the NMS kernel inputs).  The
+   other paths' steps are timed, not profiled: a profiler session costs
+   ~6 s of the run's time limit.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -279,7 +294,7 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 BATCH = 32  # VAL and TRAIN BATCH_SIZE of conf/coco_yolov5_s.yml
-TRAIN_STEPS_PER_EPOCH = 4
+TRAIN_STEPS_PER_EPOCH = 2
 TRAIN_EPOCHS = 2
 VAL_IMAGES = 64  # the evaluator's matcher is Python: a small val set
 
@@ -1936,8 +1951,10 @@ SEG_STEPS = {"deeplabv3plus": 2, "unet": 2, "segformer_b2": 2, "sfnet_r18": 2,  
 # the paths that run once on the card and are not timed or profiled, and
 # those whose f32 step is not timed
 SEG_UNTIMED = ("icnet", "lednet", "lspnet")
-SEG_AMP_ONLY = ("ppliteseg", "sgcpnet", "enet", "segnet")
-SEG_COUNT_FLOPS = ("stdc",) + SEG_AMP_ONLY  # the slice's timed paths: achieved TFLOP/s
+SEG_AMP_ONLY = ("topformer_b", "regseg", "ppliteseg", "sgcpnet", "enet", "segnet")
+# achieved TFLOP/s (counted by torch.utils.flop_counter, a few seconds a
+# path of the run's time limit): STDC
+SEG_COUNT_FLOPS = ("stdc",)
 SEG_CARD_VS_CPU = {"deeplabv3plus": "DeepLabV3+ R50", "segformer_b2": "SegFormer MiT-B2",
                    "sfnet_r18": "SFNet R18", "segnext_b": "SegNeXt MSCAN-B",
                    "incepformer_t": "IncepFormer IPT-T", "stdc": "STDC STDCNet-1",
@@ -1947,39 +1964,16 @@ SEG_CARD_VS_CPU = {"deeplabv3plus": "DeepLabV3+ R50", "segformer_b2": "SegFormer
 SEG_EMA = {name: 0.9999 for name in ("segformer_b2", "sfnet_r18", "segnext_b",
                                      "incepformer_t", "topformer_b", "regseg", "stdc",
                                      "ppliteseg", "sgcpnet", "enet", "segnet")}
-# SegFormer's named groups of device kernels: under AMP the attention
-# logits are its only float32 matmuls (forward and backward), its softmax
-# the only last-dim one (the loss's log-softmax is spatial), and the
-# LayerNorm and GELU passes; the attention's forward is also the
-# ``mit_attention`` range (``annotated_ms``)
-SEGFORMER_GROUPS = {"attention_logits_f32_gemm": re.compile(r"^(?!.*(bf16|fp16|half)).*gemm",
-                                                            re.I),
-                    "attention_softmax": re.compile(r"softmax_warp|SoftMaxForward(?!.*Spatial)"
-                                                    r"|SoftMaxBackward(?!.*Spatial)"),
-                    "layer_norm": re.compile(r"layer_norm|LayerNorm", re.I),
-                    "gelu": re.compile(r"gelu", re.I)}
-# SFNet's flow warp: four gathers a warp and their scatter-add backward,
-# which run one kernel template (its name holds both words)
-SFNET_GROUPS = {"flow_warp_gather_and_scatter_add": re.compile(r"gather", re.I)}
-# SegNeXt under AMP: the NMF's matmuls are its only float32 ones (forward
-# and backward; the NMF's forward is also the ``nmf`` range)
-SEGNEXT_GROUPS = {"nmf_f32_gemm": SEGFORMER_GROUPS["attention_logits_f32_gemm"],
-                  "gelu": SEGFORMER_GROUPS["gelu"]}
-# IncepFormer under AMP: its unscaled attention's float32 logits matmuls
-# (forward and backward) and softmax, the pooled tokens' LayerNorm, GELU;
-# the attention's forward is also the ``incepformer_attention`` range
-# SegNet and ENet: the pools' taps (stack, amax, argmax) and the unpools'
-# scatter_reduce and gather, forward and backward
-POOL_GROUPS = {"pool_unpool_scatter_gather": re.compile(r"scatter|gather", re.I),
-               "pool_reduce_and_argmax": re.compile(r"reduce_kernel.*(max|Max)|argmax|ArgMax")}
-PROFILE_GROUPS = {"segformer_b2": SEGFORMER_GROUPS, "sfnet_r18": SFNET_GROUPS,
-                  "segnext_b": SEGNEXT_GROUPS, "incepformer_t": SEGFORMER_GROUPS,
-                  "segnet": POOL_GROUPS}
-# the seg paths profiled at the end of the run: those with a named group or
-# range, and PP-LiteSeg (its upsample backward); a profiler session costs
-# ~5 s, and the run keeps within its time limit
-SEG_PROFILED = ("segformer_b2", "sfnet_r18", "segnext_b", "incepformer_t", "stdc", "ppliteseg",
-                "segnet")
+# SegNeXt's named groups of device kernels: under AMP the NMF's matmuls are
+# its only float32 ones (forward and backward; the NMF's forward is also the
+# ``nmf`` range), and the GELU passes
+PROFILE_GROUPS = {"segnext_b": {
+    "nmf_f32_gemm": re.compile(r"^(?!.*(bf16|fp16|half)).*gemm", re.I),
+    "gelu": re.compile(r"gelu", re.I)}}
+# the seg paths profiled at the end of the run: SegNeXt-B (its NMF and
+# depthwise convolutions) and STDC (its detail target); a profiler session
+# costs ~6 s, and the run keeps within its time limit
+SEG_PROFILED = ("segnext_b", "stdc")
 
 
 def incepformer_logits_gb(model, images) -> float:
@@ -2629,7 +2623,8 @@ def milestone_timing(trainer, n: int, milestone: int | None, iters: int,
 def card_vs_cpu(trainer, batches, forward, check) -> dict:
     """``forward(model, batch)`` (a dict of tensors) on the card and on the
     CPU at B = 2, f32 with TF32 off, from the same seeded weights with
-    dropout off; ``check(cpu, card)`` compares the two and raises."""
+    dropout and stochastic depth off; ``check(cpu, card)`` compares the
+    two and raises."""
     import copy
 
     import torch
@@ -2639,11 +2634,15 @@ def card_vs_cpu(trainer, batches, forward, check) -> dict:
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: the step makers turn it off")
     two = _tree(batches["train"], lambda t: t[:2])
+    from cvpytorch_tpu_torch.models.bricks import DropPath
+
     torch.manual_seed(0)
     base = build_model(trainer.cfg, trainer.dictionary, trainer.datasets["train"])
     for m in base.modules():
         if isinstance(m, torch.nn.Dropout):
             m.p = 0.0
+        elif isinstance(m, DropPath):  # EfficientNet's stochastic depth
+            m.rate = 0.0
     seen = {}
     for device in ("cpu", "cuda"):
         model = copy.deepcopy(base).to(device, memory_format=torch.channels_last)
@@ -2685,7 +2684,7 @@ def cls_card_vs_cpu(trainer, batches) -> dict:
 NANODET_BATCH = 96  # TRAIN and VAL BATCH_SIZE of conf/coco_nanodetplus.yml
 NANODET_MILESTONE_BATCH = 128  # bench.py's case_nanodet
 NANODET_FRAME = [427, 640]  # a common COCO frame; 320/640 is not an exact half of 427
-NANODET_STEPS = 4  # one epoch
+NANODET_STEPS = 2  # one epoch
 NANODET_VAL_IMAGES = 96  # one val epoch of 1 batch
 
 
@@ -3278,7 +3277,8 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
     YOLOX's class biases at 0): one train step and one val batch at the
     config's batch through ``Trainer.run()`` (``nms_keep`` once), finite
     losses and metric, ``nms_keep`` bit-exact against ``nms_keep_plain``
-    on the val input the path gave it.  Not timed."""
+    on the val input the path gave it, and timed by CUDA events.  The
+    steps are not timed."""
     import torch
 
     from cvpytorch_tpu_torch import trainer as trainer_mod
@@ -3286,7 +3286,7 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
     from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
 
     workdir.mkdir(parents=True)
-    n = {**ONE_STEP_CONFIGS, **OTA_FCOS_ONE_STEP}[name]
+    n = {**ONE_STEP_CONFIGS, **OTA_FCOS_ONE_STEP, **SLICE14_ONE_STEP}[name]
     if name.startswith("voc"):
         setting = voc_det_config(workdir, name, n)
     elif name in ("widerface_faceboxes", "pennfudan_retinanet"):
@@ -3299,8 +3299,7 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
     if sizes != {"train": n, "val": n} or (kind == "NanoDetPlus") != (name in ONE_STEP_CONFIGS) \
             or kind == "NanoDetPlus" and not trainer.model.v1:
         raise AssertionError(f"{name}: {sizes}, {kind}")
-    if kind == "YOLOX":
-        zero_class_biases(trainer.model)
+    zero_class_biases(trainer.model)
     seen, restore = capture_nms_inputs()
     try:
         run = det_run(trainer, trainer_mod, name, 1, LOSS_NAMES[kind], 1)
@@ -3310,15 +3309,16 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
     before = nms_keep.launches
     if not torch.equal(nms_keep(boxes, thr), nms_keep_plain(boxes, thr)):
         raise AssertionError(f"{name}: nms_keep != nms_keep_plain on its val input")
-    nms_keep.launches = before  # comparison launches do not count
     model = trainer.model
     out = {"dataset": type(trainer.datasets["train"]).__name__, "batch": n, "model": kind,
            "backbone": type(getattr(model, "backbone", None)).__name__,
            "neck": type(getattr(model, "neck", getattr(model, "fpn", None))).__name__,
            "launches": run["launches"], "losses": run["losses"], "val_mAP": run["val_mAP"],
            "val_nms_input": {"shape": list(boxes.shape), "bit_exact": True,
+                             "ms": nms_event_ms(boxes, thr),
                              "bound_ms": nms_bound_ms(*boxes.shape[:2])[0]},
            "run_s": run["run_s"]}
+    nms_keep.launches = before  # comparison and timing launches do not count
     print(f"{name}: one step and one val batch on the card: {json.dumps(out)}", flush=True)
     del trainer
     torch.cuda.empty_cache()
@@ -3345,19 +3345,36 @@ LOSS_NAMES = {"NanoDetPlus": ("qfl_loss", "bbox_loss", "dfl_loss", "loss"),
               "YOLOv7": ("box_loss", "obj_loss", "cls_loss", "loss"),
               "FCOS": ("cls_loss", "cnt_loss", "reg_loss", "loss"),
               "LFD": ("cls_loss", "cnt_loss", "reg_loss", "loss"),
-              "RetinaNet": ("cls_loss", "reg_loss", "loss")}
+              "RetinaNet": ("cls_loss", "reg_loss", "loss"),
+              "EfficientDet": ("cls_loss", "box_loss", "loss"),
+              "AIRDet": ("qfl_loss", "bbox_loss", "dfl_loss", "loss"),
+              "GiraffeDet": ("qfl_loss", "bbox_loss", "dfl_loss", "loss"),
+              "ObjectBox": ("box_loss", "obj_loss", "cls_loss", "loss"),
+              "YOLOP": ("box_loss", "obj_loss", "cls_loss", "loss"),
+              "FastestDet": ("box_loss", "obj_loss", "cls_loss", "loss")}
 
 
 def zero_class_biases(model) -> None:
-    """YOLOX's class and objectness biases at 0 instead of −log 99, so that
-    a few steps' random-weight model scores above the 0.01 threshold and
-    the val and served batches hold detections (as the YOLOv6 phase)."""
+    """The class and objectness biases at 0 instead of their priors
+    (YOLOX's and GFLv2's −log 99; the YOLOv5 detect layer's of ObjectBox
+    and YOLOP), so that a few steps' random-weight model scores above the
+    threshold and the val and served batches hold detections (as the
+    YOLOv6 phase).  Other models are left as built."""
     import torch
 
+    kind = type(model).__name__
     with torch.no_grad():
-        for i in range(model.head.n_levels):
-            for name in ("cls_out", "obj_out"):
-                getattr(model.head, f"{name}{i}").bias.zero_()
+        if kind == "YOLOX":
+            for i in range(model.head.n_levels):
+                for name in ("cls_out", "obj_out"):
+                    getattr(model.head, f"{name}{i}").bias.zero_()
+        elif kind in ("AIRDet", "GiraffeDet"):
+            for i in range(model.head.n_levels):
+                getattr(model.head, f"gfl_cls{i}").bias.zero_()
+        elif kind in ("ObjectBox", "YOLOP"):
+            for i in range(model.detect.n_levels):
+                getattr(model.detect, f"m{i}").bias.view(model.detect.num_anchors, -1)[
+                    :, 4:].zero_()
 
 
 def layout_det_config(workdir: Path, name: str, n: int) -> Path:
@@ -3407,8 +3424,7 @@ def det_phase(workdir: Path, name: str, coco: dict, batch: int, steps: int, epoc
     setting = coco_det_config(workdir, name, coco, batch * steps, n_val, batch, epochs=epochs)
     trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
     kind = type(trainer.model).__name__
-    if kind == "YOLOX":
-        zero_class_biases(trainer.model)
+    zero_class_biases(trainer.model)
     run = det_run(trainer, trainer_mod, name, steps * epochs, LOSS_NAMES[kind],
                   -(-n_val // batch))  # the main path of this phase
     served = (serve_checkpoint(workdir, setting, trainer, run["state"], batch, name)
@@ -3593,7 +3609,7 @@ def slice13_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         run, trainer = det_phase(workdir / key, name, coco, batch, steps, epochs, n_val, serve)
         print(json.dumps({key: run, "card": card}), flush=True)
-        timed, states, batches = milestone_timing(trainer, batch, None, iters=5,
+        timed, states, batches = milestone_timing(trainer, batch, None, iters=3,
                                                   ema_decay=0.9999, amp_only=key != "yolox_s")
         print(json.dumps({f"{key}_timing": timed, "card": card}), flush=True)
         nms, nms_input = val_nms_input(states["train"], batches["val"], key)
@@ -3615,6 +3631,260 @@ def slice13_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         out["one_step"][name] = one_step_run(workdir / name, name, coco)
         mark(name)
+    return out, later
+
+
+# -- slice 14: EfficientDet, AIRDet, GiraffeDet, ObjectBox, YOLOP, FastestDet, NAS-FPN, RFP --
+EFFDET_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_efficientdet.yml (512²)
+EFFDET_EPOCHS = 2
+EFFDET_STEPS = 2  # an epoch: 64 of the COCO directory's train images
+EFFDET_VAL_IMAGES = 64  # one val epoch of 2 batches, after epoch 2
+AIRDET_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_airdet.yml (640²)
+AIRDET_STEPS = 2
+# the slice's other configs, one train step and one val batch each at their
+# batch on the COCO directory (FastestDet's NMS input is (64, 484): 22² cells
+# at 352²)
+SLICE14_ONE_STEP = {"coco_giraffedet": 24, "coco_objectbox": 32, "coco_yolop": 24,
+                    "coco_fastestdet": 64}
+NECK_CHECK_HW = 256  # NAS-FPN's and RFP's card-vs-CPU input (ResNet-18 inside RFP)
+
+
+def effdet_card_vs_cpu(trainer, batches) -> dict:
+    """EfficientDet-D0 at 512², B = 2: eval-mode class probabilities and
+    regressions within 1e-4 of their largest value (f32); on shared
+    inputs, float64 on both devices, the loss's targets (positive,
+    negative and ignored anchors, each anchor's best gt) equal and the
+    loss on the CPU's eval-mode outputs within 1e-4 relative; the
+    train-mode losses of the whole model in float64 within 1e-4
+    (stochastic depth off).  The float32 losses of each device's own
+    outputs are reported."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.models.efficientdet import effdet_targets, efficientdet_loss
+
+    def forward(model, batch):
+        x, t = batch["image"], batch["target"]
+        t64 = {**t, "boxes": t["boxes"].double()}
+        with torch.no_grad():
+            cls, reg, anchors = model.eval()._forward(x)
+            val = model.eval()(x, t, mode="val")[0]
+            train = model.train()(x, t, mode="train")[1]
+            train_f64 = copy.deepcopy(model).double().train()(x.double(), t64, mode="train")[1]
+        return {"target": t, "cls": cls, "reg": reg, "anchors": anchors, "val": val,
+                "train": train, "train_f64": train_f64}
+
+    def check(cpu, card):
+        f64 = torch.float64
+        assigned, val64 = {}, {}
+        for device in ("cpu", "cuda"):
+            t = {k: v.to(device) for k, v in cpu["target"].items()}
+            t64 = {**t, "boxes": t["boxes"].double()}
+            anchors = cpu["anchors"].to(device)
+            iou, arg = effdet_targets(anchors, t64["boxes"], t64["valid"])
+            assigned[device] = {"positive": iou >= 0.5, "negative": iou < 0.4,
+                                "ignored": (iou >= 0.4) & (iou < 0.5), "best_gt": arg}
+            assigned[device] = {k: v.cpu() for k, v in assigned[device].items()}
+            cls_l, box_l = efficientdet_loss(cpu["cls"].to(device, f64),
+                                             cpu["reg"].to(device, f64), anchors, t64)
+            val64[device] = {"cls_loss": cls_l, "box_loss": box_l, "loss": cls_l + box_l}
+        out = {"head_cls_max_rel_err": max_rel_err(card["cls"], cpu["cls"]),
+               "head_reg_max_rel_err": max_rel_err(card["reg"], cpu["reg"]),
+               "targets_f64_equal": {k: bool(torch.equal(v, assigned["cuda"][k]))
+                                     for k, v in assigned["cpu"].items()},
+               "positive_anchors": int(assigned["cpu"]["positive"].sum()),
+               "ignored_anchors": int(assigned["cpu"]["ignored"].sum()),
+               "val_f64_shared_loss_rel": _rel_losses(val64["cuda"], val64["cpu"]),
+               "train_f64_loss_rel": _rel_losses(card["train_f64"], cpu["train_f64"]),
+               "val_f32_loss_rel": _rel_losses(card["val"], cpu["val"]),
+               "train_f32_loss_rel": _rel_losses(card["train"], cpu["train"])}
+        print(f"EfficientDet-D0 card vs CPU, B=2, 512²: {json.dumps(out)}", flush=True)
+        if not (out["head_cls_max_rel_err"] <= 1e-4 and out["head_reg_max_rel_err"] <= 1e-4
+                and all(out["targets_f64_equal"].values()) and out["positive_anchors"] > 0
+                and max(out["val_f64_shared_loss_rel"].values()) <= 1e-4
+                and max(out["train_f64_loss_rel"].values()) <= 1e-4):
+            raise AssertionError(f"EfficientDet-D0 card vs CPU: {out}")
+        return out
+
+    return card_vs_cpu(trainer, batches, forward, check)
+
+
+def airdet_card_vs_cpu(trainer, batches) -> dict:
+    """AIRDet-s at 640², B = 2: eval-mode class probabilities and
+    regression logits within 1e-4 of their largest value (f32); on shared
+    inputs, float64 on both devices, SimOTA (soft-label costs) on the
+    CPU's train-mode outputs (``matched_gt`` equal) and the loss on the
+    CPU's eval-mode outputs (within 1e-4 relative); the train-mode losses
+    of the whole model in float64 within 1e-4.  The float32 assignment
+    and losses are reported (the 1e8 cost terms, as YOLOX's)."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.models.assigners.ota_assigner import simota_assign
+    from cvpytorch_tpu_torch.models.heads.gflv2_head import gflv2_decode, gflv2_loss
+
+    def forward(model, batch):
+        x, t = batch["image"], batch["target"]
+        t64 = {**t, "boxes": t["boxes"].double()}
+        with torch.no_grad():
+            cls, reg, priors = model.eval()._outs(x)
+            val = model.eval()(x, t, mode="val")[0]
+            train = model.train()(x, t, mode="train")[1]
+            train_cls, train_reg, _ = model._outs(x)
+            train_f64 = copy.deepcopy(model).double().train()(x.double(), t64, mode="train")[1]
+        return {"target": t, "cls": cls, "reg": reg, "priors": priors, "val": val,
+                "train": train, "train_cls": train_cls, "train_reg": train_reg,
+                "train_f64": train_f64}
+
+    def check(cpu, card):
+        model = trainer.model
+        matched, val64 = {}, {}
+        for device in ("cpu", "cuda"):
+            t = {k: v.to(device) for k, v in cpu["target"].items()}
+            for dtype in (torch.float32, torch.float64):
+                c, r = cpu["train_cls"].to(device, dtype), cpu["train_reg"].to(device, dtype)
+                priors = cpu["priors"].to(device, dtype)
+                matched[device, dtype] = simota_assign(
+                    c, torch.ones_like(c[..., 0]), priors, gflv2_decode(c, r, priors),
+                    t["boxes"].to(dtype), t["labels"], t["valid"], topk=10, center_radius=2.5,
+                    soft_label=True)["matched_gt"].cpu()
+            f64 = torch.float64
+            total, parts = gflv2_loss(cpu["cls"].to(device, f64), cpu["reg"].to(device, f64),
+                                      cpu["priors"].to(device, f64),
+                                      {**t, "boxes": t["boxes"].double()}, model.num_classes,
+                                      model.reg_max)
+            val64[device] = {**parts, "loss": total}
+        f64, f32 = torch.float64, torch.float32
+        out = {"head_cls_max_rel_err": max_rel_err(card["cls"], cpu["cls"]),
+               "head_reg_max_rel_err": max_rel_err(card["reg"], cpu["reg"]),
+               "simota_f64_matched_gt_equal": bool(torch.equal(matched["cpu", f64],
+                                                               matched["cuda", f64])),
+               "simota_f32_matched_gt_differing": int((matched["cpu", f32]
+                                                       != matched["cuda", f32]).sum()),
+               "simota_positives": int((matched["cpu", f64] >= 0).sum()),
+               "val_f64_shared_loss_rel": _rel_losses(val64["cuda"], val64["cpu"]),
+               "train_f64_loss_rel": _rel_losses(card["train_f64"], cpu["train_f64"]),
+               "val_f32_loss_rel": _rel_losses(card["val"], cpu["val"]),
+               "train_f32_loss_rel": _rel_losses(card["train"], cpu["train"])}
+        print(f"AIRDet-s card vs CPU, B=2, 640²: {json.dumps(out)}", flush=True)
+        if not (out["head_cls_max_rel_err"] <= 1e-4 and out["head_reg_max_rel_err"] <= 1e-4
+                and out["simota_f64_matched_gt_equal"] and out["simota_positives"] > 0
+                and max(out["val_f64_shared_loss_rel"].values()) <= 1e-4
+                and max(out["train_f64_loss_rel"].values()) <= 1e-4):
+            raise AssertionError(f"AIRDet-s card vs CPU: {out}")
+        return out
+
+    return card_vs_cpu(trainer, batches, forward, check)
+
+
+def necks_card_vs_cpu() -> dict:
+    """NAS-FPN (3 stacks, 64 channels) on seeded C3–C5 and RFP (2 steps,
+    ResNet-18 inside, 64 channels) on a seeded 256² image and a first
+    ResNet-18's C3–C5 of it, B = 2, TF32 off, train mode: one forward and
+    the backward of Σ outputs · w (w seeded) on the card and on the CPU
+    from the same seeded weights.  Gates: the f32 outputs within 1e-4 of
+    their largest value; in float64 the outputs and every parameter's
+    gradient within 1e-6 of max(its largest value, 1e-3 of the largest
+    gradient of the model).  The f32 gradients are reported: a BN
+    parameter whose gradient cancels to ~1e-5 of the others' sits at f32
+    rounding (1.4e-2 and 5.7e-2 of such leaves' own scale on an H100)."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.models.backbones.resnet import ResNet
+    from cvpytorch_tpu_torch.models.necks.nas_fpn import NASFPN
+    from cvpytorch_tpu_torch.models.necks.rfp import RFP
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the step makers turn it off")
+    g = torch.Generator().manual_seed(0)
+    hw = NECK_CHECK_HW
+    r18 = {"name": "ResNet", "subtype": "resnet18"}
+    torch.manual_seed(0)
+    img = torch.rand(2, 3, hw, hw, generator=g)
+    with torch.no_grad():
+        cs = ResNet("resnet18").eval()(img)
+    cases = {"nas_fpn": (NASFPN((128, 256, 512), 64, stack_times=3), tuple(cs)),
+             "rfp": (RFP((128, 256, 512), 2, r18, 16, out_channels=64), (img, *cs))}
+
+    def leaf_err(card, cpu):
+        scale = 1e-3 * max(float(v.abs().max()) for v in cpu.values())
+        return max(float((card[n] - v).abs().max()) / max(float(v.abs().max()), scale, 1e-30)
+                   for n, v in cpu.items())
+
+    out = {}
+    for name, (base, feats) in cases.items():
+        with torch.no_grad():  # every gate and hook away from its zero init
+            for p in base.parameters():
+                p.add_(torch.randn(p.shape, generator=g) * 0.05)
+        out[name] = {"params": sum(1 for _ in base.parameters())}
+        for dtype in (torch.float32, torch.float64):
+            seen = {}
+            for device in ("cpu", "cuda"):
+                model = copy.deepcopy(base).to(device, dtype).train()
+                outs = model(tuple(f.to(device, dtype) for f in feats))
+                ws = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i)).to(
+                    device, dtype) for i, o in enumerate(outs)]
+                sum((o * w).sum() for o, w in zip(outs, ws)).backward()
+                seen[device] = ([o.detach().cpu() for o in outs],
+                                {n: p.grad.cpu() for n, p in model.named_parameters()})
+            (o_cpu, g_cpu), (o_card, g_card) = seen["cpu"], seen["cuda"]
+            tag = "f32" if dtype == torch.float32 else "f64"
+            out[name]["levels"] = [list(o.shape[-2:]) for o in o_cpu]
+            out[name][f"{tag}_outputs_max_rel_err"] = max(max_rel_err(a, b)
+                                                          for a, b in zip(o_card, o_cpu))
+            out[name][f"{tag}_grad_leaf_max_err"] = leaf_err(g_card, g_cpu)
+    print(f"NAS-FPN and RFP card vs CPU, train mode, B=2: {json.dumps(out)}", flush=True)
+    if not all(v["f32_outputs_max_rel_err"] <= 1e-4 and v["f64_outputs_max_rel_err"] <= 1e-6
+               and v["f64_grad_leaf_max_err"] <= 1e-6 for v in out.values()):
+        raise AssertionError(f"NAS-FPN / RFP card vs CPU: {out}")
+    return out
+
+
+def slice14_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
+    """EfficientDet-D0 (2 epochs of 2 steps at bs32 on 512², 64 val, one
+    served batch, AMP and f32 steps, card vs CPU) and AIRDet-s (2 steps at
+    bs32 on 640², one val and one served batch, the AMP step, card vs
+    CPU), each ``nms_keep`` bit-exact on its (32, 1024) val input; then
+    one step and one val batch each of ``coco_giraffedet``,
+    ``coco_objectbox``, ``coco_yolop`` and ``coco_fastestdet`` (its NMS
+    input (64, 484)); then NAS-FPN and RFP card vs CPU.  Returns every
+    record, and the states and batches the profiles take at the end of
+    the run."""
+    import torch
+
+    out, later = {}, {}
+    for key, name, batch, steps, epochs, n_val, check in (
+            ("efficientdet_d0", "coco_efficientdet", EFFDET_BATCH, EFFDET_STEPS, EFFDET_EPOCHS,
+             EFFDET_VAL_IMAGES, effdet_card_vs_cpu),
+            ("airdet_s", "coco_airdet", AIRDET_BATCH, AIRDET_STEPS, 1, AIRDET_BATCH,
+             airdet_card_vs_cpu)):
+        torch.cuda.empty_cache()
+        run, trainer = det_phase(workdir / key, name, coco, batch, steps, epochs, n_val, True)
+        print(json.dumps({key: run, "card": card}), flush=True)
+        timed, states, batches = milestone_timing(trainer, batch, None, iters=3,
+                                                  ema_decay=0.9999, amp_only=key == "airdet_s")
+        print(json.dumps({f"{key}_timing": timed, "card": card}), flush=True)
+        nms, nms_input = val_nms_input(states["train"], batches["val"], key)
+        result = check(trainer, batches)
+        print(json.dumps({f"{key}_card_vs_cpu": result, "card": card}), flush=True)
+        out[key] = {"run": run, "timing": timed, "nms": nms, "card_vs_cpu": result}
+        later[key] = {"state": states["train"], "batch": batches["train"],
+                      "amp_ms": timed["amp_step_ms"], "nms_input": nms_input}
+        del trainer
+        mark(key)
+    out["one_step"] = {}
+    for name in SLICE14_ONE_STEP:
+        torch.cuda.empty_cache()
+        out["one_step"][name] = one_step_run(workdir / name, name, coco)
+        mark(name)
+    torch.cuda.empty_cache()
+    out["necks"] = necks_card_vs_cpu()
+    print(json.dumps({"nas_fpn_rfp_card_vs_cpu": out["necks"], "card": card}), flush=True)
+    mark("nas_fpn, rfp")
     return out, later
 
 
@@ -3755,7 +4025,7 @@ def main() -> int:
         cls, cls_trainer = cls_phase(Path(tmp) / "cls")
         print(json.dumps({"cls": cls, "card": card}), flush=True)
         cls_timed, cls_states, cls_batches = milestone_timing(
-            cls_trainer, CLS_BATCH, CLS_MILESTONE_BATCH, iters=10)
+            cls_trainer, CLS_BATCH, CLS_MILESTONE_BATCH, iters=5)
         print(json.dumps({"cls_timing": cls_timed, "card": card}), flush=True)
         print(json.dumps({"cls_host_timing": host_pipeline_timing(cls_trainer, n_items=16),
                           "card": card}), flush=True)
@@ -3763,12 +4033,13 @@ def main() -> int:
                           "card": card}), flush=True)
         print(json.dumps({"cls_jpeg_loader": cls_loader_check(Path(tmp)), "card": card}),
               flush=True)
+        del cls_trainer, cls_states, cls_batches  # timed, not profiled
         mark("cls")
         torch.cuda.empty_cache()
         nanodet, nd_trainer = nanodet_phase(Path(tmp) / "nanodet")
         print(json.dumps({"nanodet": nanodet, "card": card}), flush=True)
         nd_timed, nd_states, nd_batches = milestone_timing(
-            nd_trainer, NANODET_BATCH, NANODET_MILESTONE_BATCH, iters=5, ema_decay=0.9999)
+            nd_trainer, NANODET_BATCH, NANODET_MILESTONE_BATCH, iters=3, ema_decay=0.9999)
         nd_state = nd_states["train"]
         nd_timed["dsl_assign"] = dsl_timing(nd_state, nd_batches["train"])
         print(json.dumps({"nanodet_timing": nd_timed, "card": card}), flush=True)
@@ -3782,14 +4053,14 @@ def main() -> int:
         ndv1, ndv1_trainer = nanodet_v1_phase(Path(tmp) / "nanodet_v1", coco)
         print(json.dumps({"nanodet_v1": ndv1, "card": card}), flush=True)
         ndv1_timed, ndv1_states, ndv1_batches = milestone_timing(
-            ndv1_trainer, NANODET_V1_BATCH, None, iters=5, ema_decay=0.9999)
+            ndv1_trainer, NANODET_V1_BATCH, None, iters=3, ema_decay=0.9999)
         ndv1_timed["atss_assign"] = atss_timing(ndv1_states["train"], ndv1_batches["train"])
         print(json.dumps({"nanodet_v1_timing": ndv1_timed, "card": card}), flush=True)
         ndv1_nms, ndv1_input = val_nms_input(ndv1_states["train"], ndv1_batches["val"],
                                              "NanoDet v1")
         print(json.dumps({"nanodet_v1_card_vs_cpu": nanodet_v1_card_vs_cpu(
             ndv1_trainer, ndv1_batches), "card": card}), flush=True)
-        del ndv1_trainer
+        del ndv1_trainer, ndv1_states, ndv1_batches  # timed, not profiled
         mark("nanodet_v1")
         torch.cuda.empty_cache()
         v6, v6_trainer = yolov6_phase(Path(tmp) / "yolov6", coco)
@@ -3799,7 +4070,7 @@ def main() -> int:
         v6_nms, v6_input = val_nms_input(v6_states["train"], v6_batches["val"], "YOLOv6-s")
         print(json.dumps({"yolov6_s_card_vs_cpu": yolov6_card_vs_cpu(v6_trainer, v6_batches),
                           "card": card}), flush=True)
-        del v6_trainer
+        del v6_trainer, v6_states, v6_batches  # timed, not profiled
         mark("yolov6_s")
         one_step = {}
         for name in ONE_STEP_CONFIGS:
@@ -3808,6 +4079,8 @@ def main() -> int:
             mark(name)
         # slice 13: YOLOX-s, YOLOv7-l, FCOS-R50, then the slice's other configs
         s13, s13_later = slice13_phases(Path(tmp) / "slice13", coco, card)
+        # slice 14: EfficientDet-D0, AIRDet-s, the slice's other configs, NAS-FPN and RFP
+        s14, s14_later = slice14_phases(Path(tmp) / "slice14", coco, card)
         # the host-augmented YOLOv5 path after the other phases
         torch.cuda.empty_cache()
         host_aug, ha_trainer = host_aug_phase(Path(tmp) / "host_aug", coco)
@@ -3837,7 +4110,7 @@ def main() -> int:
                               "nanodet_v1_val_input": ndv1_input,
                               "yolov6_val_input": v6_input,
                               **{f"{key}_val_input": run["nms_input"]
-                                 for key, run in s13_later.items()}})
+                                 for key, run in {**s13_later, **s14_later}.items()}})
         mark("device_phase")
         train_step_fn, aug_fn = _profiled_train_state(trainer)
         print(json.dumps({"device_aug_profile": profile_device(aug_fn, steps=3, top=8),
@@ -3879,47 +4152,28 @@ def main() -> int:
             print(json.dumps({f"{name}_amp_train_step_profile": prof, "card": card}),
                   flush=True)
         mark("seg profiles")
-        # each config's batch (the bench milestones' batches are timed, not
-        # profiled: the run's time limit)
-        for key, states, batches, timed, ema in (
-                ("cls", cls_states, cls_batches, cls_timed, 0.0),
-                ("nanodet", nd_states, nd_batches, nd_timed, 0.9999)):
-            torch.cuda.empty_cache()
-            step = make_train_step(amp=True, ema_decay=ema)
-            prof = profile_device(lambda: step(states["train"], batches["train"]), steps=2,
-                                  top=15)
-            prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / timed[
-                "amp_step_ms"]
-            print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
-                  flush=True)
-        # NanoDet v1 and YOLOv6-s (TAL, then ATSS): the assigners' ranges
-        for key, state, batch, amp_ms, assign in (
-                ("nanodet_v1", ndv1_states["train"], ndv1_batches["train"],
-                 ndv1_timed["amp_step_ms"], "atss_assign"),
-                ("yolov6_s_tal", v6_states["train"], v6_batches["train"],
-                 v6_timed["amp_step_ms"], "tal_assign"),
-                ("yolov6_s_atss", v6_states["atss"], v6_batches["atss"],
-                 v6_timed["atss_epoch_3"]["amp_step_ms"], "atss_assign")):
-            torch.cuda.empty_cache()
-            step = make_train_step(amp=True, ema_decay=0.9999)
-            prof = profile_device(lambda: step(state, batch), steps=2, top=15)
-            prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / amp_ms
-            span = prof["annotated_ms"].get(assign)
-            prof[f"{assign}_share_of_busy"] = None if span is None else span / prof[
-                "device_busy_ms"]
-            print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
-                  flush=True)
-        # slice 13: the SimOTA, YOLOv7 OTA and FCOS target ranges' shares
-        for key, span in (("yolox_s", "simota_assign"), ("yolov7_l", "yolov7_ota"),
-                          ("fcos_r50", "fcos_targets")):
-            run = s13_later[key]
+        # NanoDet-Plus at its config's batch (the bench milestones' batches are
+        # timed, not profiled: the run's time limit)
+        torch.cuda.empty_cache()
+        nd_step = make_train_step(amp=True, ema_decay=0.9999)
+        prof = profile_device(lambda: nd_step(nd_states["train"], nd_batches["train"]), steps=2,
+                              top=15)
+        prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / nd_timed[
+            "amp_step_ms"]
+        print(json.dumps({"nanodet_amp_train_step_profile": prof, "card": card}), flush=True)
+        # the assigners' ranges: YOLOX-s's SimOTA (slice 13), EfficientDet-D0's
+        # target build and AIRDet-s's SimOTA (slice 14)
+        for phase, later, key, span in ((s13, s13_later, "yolox_s", "simota_assign"),
+                                        (s14, s14_later, "efficientdet_d0", "effdet_targets"),
+                                        (s14, s14_later, "airdet_s", "simota_assign")):
+            run = later[key]
             prof = assigner_range_profile(run["state"], run["batch"], run["amp_ms"], span)
             print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
                   flush=True)
-            s13[key]["profile"] = {k: prof[k] for k in (
+            phase[key]["profile"] = {k: prof[k] for k in (
                 "device_busy_ms", "device_idle_share", "device_idle_share_unprofiled",
                 f"{span}_share_of_busy")}
-    mark("cls, nanodet and slice 13 profiles")
+    mark("nanodet and assigner profiles")
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
     print(json.dumps({"nms_keep_B1_K1024": {**times["B1"], **split["B1"],
@@ -3933,8 +4187,9 @@ def main() -> int:
     nd_nms.update(split["nanodet_val_input"])
     for record, B, key in ((ndv1_nms, NANODET_V1_BATCH, "nanodet_v1_val_input"),
                            (v6_nms, YOLOV6_BATCH, "yolov6_val_input"),
-                           *((s13[k]["nms"], s13[k]["nms"]["shape"][0], f"{k}_val_input")
-                             for k in s13_later)):
+                           *((phase[k]["nms"], phase[k]["nms"]["shape"][0], f"{k}_val_input")
+                             for phase, later in ((s13, s13_later), (s14, s14_later))
+                             for k in later)):
         record["bound_ms"], _ = nms_bound_ms(B, 1024)
         record.update(split[key])
     # each path's main run: the count set to 0 just before and read just after
@@ -3958,7 +4213,11 @@ def main() -> int:
                **{f"{key}_served": s13[key]["run"]["served_launches"] for key in s13_later
                   if "served_launches" in s13[key]["run"]},
                **{f"{name}_train_and_val": run["launches"]
-                  for name, run in s13["one_step"].items()}}
+                  for name, run in s13["one_step"].items()},
+               **{f"{key}_train_and_val": s14[key]["run"]["launches"] for key in s14_later},
+               **{f"{key}_served": s14[key]["run"]["served_launches"] for key in s14_later},
+               **{f"{name}_train_and_val": run["launches"]
+                  for name, run in s14["one_step"].items()}}
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
         "route": "cuda",
@@ -3985,9 +4244,10 @@ def main() -> int:
         "nanodet_path_input": nd_nms,
         "nanodet_v1_path_input": ndv1_nms,
         "yolov6_s_path_input": v6_nms,
-        "one_step_val_inputs": {name: run["val_nms_input"]
-                                for name, run in {**one_step, **s13["one_step"]}.items()},
+        "one_step_val_inputs": {name: run["val_nms_input"] for name, run in {
+            **one_step, **s13["one_step"], **s14["one_step"]}.items()},
         **{f"{key}_path_input": s13[key]["nms"] for key in s13_later},
+        **{f"{key}_path_input": s14[key]["nms"] for key in s14_later},
         "dataset_layout_path_inputs": {name: run["nms_inputs"] for name, run in layouts.items()
                                        if run["nms_inputs"]},
     }]}))

@@ -68,9 +68,7 @@ def resolve_device(name: str) -> torch.device:
 
 
 # The JAX package's models the port lacks yet → their ROADMAP item
-NOT_PORTED = {"EfficientDet": "7.6", "ObjectBox": "7.6", "YOLOP": "7.6", "FastestDet": "7.6",
-              "AIRDet": "7.6", "GiraffeDet": "7.6", "LitePose": "9", "OpenPose": "9",
-              "SimplePose": "9"}
+NOT_PORTED = {"LitePose": "9", "OpenPose": "9", "SimplePose": "9"}
 
 
 def build_model(cfg, dictionary, dataset=None) -> torch.nn.Module:

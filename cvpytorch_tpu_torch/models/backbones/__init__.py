@@ -7,8 +7,8 @@ import inspect
 from ...registry import BACKBONES
 
 from . import (  # noqa: F401  (registers)
-    csp_darknet, custom_cspnet, efficientnet_lite, lfd_resnet, mobilenetv2, repvgg, resnet,
-    seg_light, seg_transformers, shufflenetv2)
+    csp_darknet, custom_cspnet, efficientnet, efficientnet_lite, lfd_resnet, mobilenetv2, repvgg,
+    resnet, seg_light, seg_transformers, shufflenetv2)
 
 
 def build_backbone(cfg):

@@ -11,8 +11,11 @@ does.
 
 Blocks are attributes ``layer{stage}_block{i}`` and their layers carry the
 Flax names (``conv1``, ``bn1``, …, ``ds_conv``, ``ds_bn``), so parameter
-names join to the JAX tree's paths.  The JAX ``rfp_feats`` hook (DetectoRS)
-comes with the RFP neck.
+names join to the JAX tree's paths.  ``rfp_in_channels`` ({stage: width})
+adds the DetectoRS hook the RFP neck (``necks/rfp.py``) drives: a 1×1
+``rfp_conv{stage}`` (kernel and bias zero at init, so the recursion starts
+as the identity) of the fed feature, added after each fed stage's first
+block when ``forward`` is given ``rfp_feats`` ({stage: NCHW feature}).
 """
 from __future__ import annotations
 
@@ -104,7 +107,7 @@ class ResNet(nn.Module):
     def __init__(self, subtype: str = "resnet50",
                  out_stages: Sequence[int] = (2, 3, 4),
                  classifier: bool = False, num_classes: int = 1000,
-                 output_stride: int = 32):
+                 output_stride: int = 32, rfp_in_channels: dict | None = None):
         super().__init__()
         self.out_stages = tuple(out_stages)
         self.classifier = classifier
@@ -157,8 +160,13 @@ class ResNet(nn.Module):
             planes *= 2
         if classifier:
             self.fc = nn.Linear(inplanes, num_classes)
+        for si, cin in (rfp_in_channels or {}).items():
+            conv = nn.Conv2d(cin, self.channels[si - 1], 1)
+            nn.init.zeros_(conv.weight)
+            nn.init.zeros_(conv.bias)
+            setattr(self, f"rfp_conv{si}", conv)
 
-    def forward(self, x):
+    def forward(self, x, rfp_feats=None):
         if self.deep_stem:
             for i in range(3):
                 x = F.relu(getattr(self, f"stem_bn{i}")(getattr(self, f"stem_conv{i}")(x)))
@@ -168,6 +176,8 @@ class ResNet(nn.Module):
         feats = []
         for i, (si, name) in enumerate(self.blocks):
             x = getattr(self, name)(x)
+            if rfp_feats is not None and si in rfp_feats and name.endswith("_block0"):
+                x = x + getattr(self, f"rfp_conv{si}")(rfp_feats[si])
             last_of_stage = i + 1 == len(self.blocks) or self.blocks[i + 1][0] != si
             if last_of_stage and si in self.out_stages and not self.classifier:
                 feats.append(x)

@@ -1,7 +1,7 @@
 """Shared model building blocks (counterpart of
 ``cvpytorch_tpu/models/bricks.py``): channel/depth rounding, the
 activation table, ``BatchNorm2d``, ``ConvBNAct``,
-``DepthwiseSeparableConv`` and ``DropPath``.
+``DepthwiseSeparableConv``, ``SqueezeExcite`` and ``DropPath``.
 
 ``nn.BatchNorm2d`` normalises with the biased batch variance and stores
 the unbiased one in ``running_var``, which is what the JAX package's
@@ -119,6 +119,25 @@ class DepthwiseSeparableConv(nn.Module):
 
     def forward(self, x):
         return self.pw(self.dw(x))
+
+
+class SqueezeExcite(nn.Module):
+    """SE attention: global mean → 1×1 ``fc1`` (``squeeze_ch``, else
+    max(C // ``reduce_ratio``, 8)) → ``act`` → 1×1 ``fc2`` (C) → ``gate``,
+    which scales the input.  Both convs carry a bias, as the JAX brick's
+    ``nn.Conv``s do."""
+
+    def __init__(self, channels: int, reduce_ratio: int = 4, gate: str = "hsigmoid",
+                 act: str = "relu", squeeze_ch: int = 0):
+        super().__init__()
+        sq = squeeze_ch or max(channels // reduce_ratio, 8)
+        self.fc1 = nn.Conv2d(channels, sq, 1)
+        self.fc2 = nn.Conv2d(sq, channels, 1)
+        self.act, self.gate = get_activation(act), get_activation(gate)
+
+    def forward(self, x):
+        s = self.act(self.fc1(x.mean((2, 3), keepdim=True)))
+        return x * self.gate(self.fc2(s))
 
 
 class DropPath(nn.Module):

@@ -1,2 +1,3 @@
 """Necks of the port.  Importing it registers them."""
-from . import asff, fcos_fpn, ghost_pan, pan, tan, yolov5_neck  # noqa: F401
+from . import (  # noqa: F401
+    asff, fcos_fpn, ghost_pan, giraffe_neck, nas_fpn, pan, rfp, tan, yolov5_neck)

@@ -31,7 +31,7 @@ _DEFAULT_BACKBONE = {"name": "ResNet", "subtype": "resnet50", "output_stride": 8
 
 
 def _not_ported(kind: str, name: str) -> KeyError:
-    return KeyError(f"{kind} {name!r} is not ported yet (ROADMAP, Queue 1 items 7 and 8)")
+    return KeyError(f"{kind} {name!r} is not ported yet (ROADMAP, Queue 1 item 8)")
 
 
 def feature_channels(backbone: nn.Module) -> list[int]:
@@ -48,7 +48,9 @@ def feature_channels(backbone: nn.Module) -> list[int]:
 
 def build_head(cfg, num_classes: int, in_channels: Sequence[int]) -> nn.Module:
     """The HEAD / AUX_HEAD block: keys the head's constructor does not
-    take are dropped, as the JAX factory drops what its dataclass lacks."""
+    take are dropped, as the JAX factory drops what its dataclass lacks;
+    ``in_channels`` is passed where the head takes it (a detection head
+    such as ``GFocalHeadV2`` declares its widths itself)."""
     kwargs = dict(cfg.items() if hasattr(cfg, "items") else cfg)
     name = kwargs.pop("name")
     if name not in HEADS:
@@ -57,7 +59,9 @@ def build_head(cfg, num_classes: int, in_channels: Sequence[int]) -> nn.Module:
     params = inspect.signature(cls).parameters
     kwargs = {k: tuple(v) if isinstance(v, list) else v
               for k, v in kwargs.items() if k in params}
-    return cls(in_channels=tuple(in_channels), num_classes=num_classes, **kwargs)
+    if "in_channels" in params:
+        kwargs["in_channels"] = tuple(in_channels)
+    return cls(num_classes=num_classes, **kwargs)
 
 
 @MODELS.register(name="EncoderDecoder", aliases=(

@@ -10,8 +10,8 @@ Targets arrive as the padded dict of the detection collate
 (``{'boxes': (B,M,4) xyxy network pixels, 'labels', 'valid', 'pads',
 'scales', …}``).  ``mode="train"`` returns ``(total, losses)`` and
 ``mode="val"`` ``(losses, predictions)``.  The loss runs in float32 on the
-raw maps cast up, outside any autocast region, so under bf16 autocast only
-the network runs in bf16.
+raw maps cast up (a float64 model's stay float64), outside any autocast
+region, so under bf16 autocast only the network runs in bf16.
 """
 from __future__ import annotations
 
@@ -84,8 +84,8 @@ class YOLOv5(nn.Module):
 
     def _loss(self, images, raw_outs, targets):
         with torch.autocast(images.device.type, enabled=False):
-            return self.loss([r.float() for r in raw_outs],
-                             self._normalized_targets(images, targets))
+            return self.loss([r.to(torch.promote_types(r.dtype, torch.float32))
+                              for r in raw_outs], self._normalized_targets(images, targets))
 
     def _predict(self, images, raw_outs, targets=None):
         decoded = decode_yolov5(raw_outs, DEFAULT_ANCHORS, STRIDES)

@@ -109,7 +109,9 @@ def yolo_non_max_suppression(
 
     pred (B, N, 5+C): xywh(center) + obj + cls-probs in network pixels.
     multi_label=True makes every (box, class) pair a candidate: a top-k
-    over the (N·C) score matrix, boxes gathered by idx // C.
+    over the (N·C) score matrix taken to float32 (``top_k`` ranks float32
+    bits; ``batched_nms`` takes the scores to float32 anyway), boxes
+    gathered by idx // C.
     """
     boxes = cxcywh_to_xyxy(pred[..., :4])
     obj = pred[..., 4:5]
@@ -117,7 +119,7 @@ def yolo_non_max_suppression(
     if multi_label:
         B, N, C = cls_scores.shape
         k = min(max_nms, N * C)
-        scores, top_idx = top_k(cls_scores.reshape(B, N * C), k)
+        scores, top_idx = top_k(cls_scores.reshape(B, N * C).float(), k)
         labels = top_idx % C
         box_idx = top_idx // C
         boxes = boxes.gather(1, box_idx[..., None].expand(B, k, 4))

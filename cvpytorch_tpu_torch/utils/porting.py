@@ -22,7 +22,10 @@ submodules carry the Flax names, so the key map is a join of the path:
   params/…/<name> (any other leaf) → ….<name>, where the port holds an
                                     ``nn.Parameter`` of that name (MSCAN's
                                     layer scales ``ls1``/``ls2``, TAN's
-                                    ``pos_embed``), as is
+                                    ``pos_embed``, BiFPN's fusion weights
+                                    ``p6_w1`` …), as is; a 0-d ``scale``
+                                    (GFLv2's ``ScaleLayer``) → the 0-d
+                                    ``weight``
 
 The kernel rule follows the type of the port module that owns the tensor
 (``MultiHeadDense``, ``nn.Linear``, a 1×1 ``nn.Conv2d`` given a Dense
@@ -137,7 +140,8 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
             target = state[name]
             arr = _convert(name, arr, target, owners.get(".".join(path[:-1])))
             with torch.no_grad():
-                target.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+                # a 0-d leaf (a scalar param) stays 0-d: ascontiguousarray makes it 1-d
+                target.copy_(torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape))
             seen.add(name)
     missing = sorted(set(state) - seen)
     if unmatched or missing:

@@ -40,10 +40,14 @@ DET_V1_V6 = (["coco_nanodet", "coco_nanodet_416", "coco_nanodet_t", "coco_nanode
 DET_OTA_FCOS = ["coco_yolox_s", "coco_yolox_n", "coco_pai_yolox", "coco_pai_yolox_s",
                 "coco_yolov7", "coco_yolov7x", "coco_fcos", "coco_lfd", "widerface_faceboxes",
                 "pennfudan_retinanet"]
+# EfficientDet, AIRDet, GiraffeDet, ObjectBox, YOLOP and FastestDet
+DET_REST = ["coco_efficientdet", "coco_airdet", "coco_giraffedet", "coco_objectbox",
+            "coco_yolop", "coco_fastestdet"]
 NOW_BUILD = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "visdrone_yolov5",
              "coco_nanodetplus_m", "coco_nanodetplus", "mini-imagenet", "cityscapes_unet",
              "coco_maskrcnn"] + [f"cityscapes_segformer_b{i}" for i in range(6)] + [
-             f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)] + SEG_ZOO + DET_V1_V6 + DET_OTA_FCOS
+             f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)] + SEG_ZOO + DET_V1_V6 + DET_OTA_FCOS \
+    + DET_REST
 
 
 # configs whose dataset class the port has: the COCO ones (CocoDetection,
@@ -55,7 +59,7 @@ WITH_DATASET = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "coco_nanodetpl
                 "pennfudan_maskrcnn", "pennfudan_fasterrcnn", "portrait", "portrait_unet",
                 "visdrone_yolov5", "voc_deeplabv3plus",
                 "cityscapes_segformer_b2", "cityscapes_sfnet_r18"] + SEG_ZOO + DET_V1_V6 \
-    + DET_OTA_FCOS
+    + DET_OTA_FCOS + DET_REST
 
 
 def build(path):

@@ -53,7 +53,12 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "'models.backbones.custom_cspnet', 'models.yolov6', 'models.necks.asff', "
         "'models.assigners.ota_assigner', 'models.yolox', 'models.losses.yolov7_loss', "
         "'models.yolov7', 'models.necks.fcos_fpn', 'models.heads.fcos_head', 'models.fcos', "
-        "'models.backbones.lfd_resnet', 'models.lfd', 'models.retinanet'):\n"
+        "'models.backbones.lfd_resnet', 'models.lfd', 'models.retinanet', "
+        "'models.backbones.efficientnet', 'models.efficientdet', 'models.objectbox', "
+        "'models.losses.objectbox_loss', 'models.yolop', 'models.necks.giraffe_neck', "
+        "'models.heads.gflv2_head', 'models.airdet', 'models.giraffedet', "
+        "'models.necks.nas_fpn', 'models.necks.rfp', 'models.anchors', "
+        "'models.anchors.prior_box'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )

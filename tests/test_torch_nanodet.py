@@ -322,8 +322,9 @@ def test_val_and_infer_predictions_match_jax(pair128):
 def test_unported_paths_raise_naming_the_roadmap():
     """NanoDet v1 and its PAN and TAN necks are ported (tests/
     test_torch_nanodet_v1.py, test_torch_tan.py): they build, as do YOLOX,
-    PAI-YOLOX, YOLOv7, FCOS, LFD and RetinaNet.  The detectors the port
-    still lacks raise naming their ROADMAP item."""
+    PAI-YOLOX, YOLOv7, FCOS, LFD, RetinaNet and, since ROADMAP item 7.6,
+    AIRDet, ObjectBox and the rest of item 7.  The keypoint models the
+    port still lacks raise naming their ROADMAP item."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
     from cvpytorch_tpu_torch.infer import build_model
 
@@ -333,13 +334,15 @@ def test_unported_paths_raise_naming_the_roadmap():
         assert type(NanoDetPlus(DICTIONARY, {"NECK": {"name": neck}}).neck).__name__ == neck
     for cls in ("src.models.yolox.YOLOX", "src.models.pai_yolox.PAI_YOLOX",
                 "src.models.yolov7.YOLOv7", "src.models.fcos.FCOS", "src.models.lfd.LFD",
-                "src.models.retinanet.RetinaNet"):
+                "src.models.retinanet.RetinaNet", "src.models.airdet.AIRDet",
+                "src.models.objectbox.ObjectBox", "src.models.efficientdet.EfficientDet",
+                "src.models.yolop.YOLOP", "src.models.fastestdet.FastestDet",
+                "src.models.giraffedet.GiraffeDet"):
         with torch.device("meta"):
             model = build_model(CommonConfiguration({"USE_MODEL": {"CLASS": cls}}), DICTIONARY)
         assert type(model).__name__ == cls.split(".")[-1].replace("PAI_", ""), cls
-    for cls, item in (("src.models.airdet.AIRDet", "7.6"), ("src.models.objectbox.ObjectBox",
-                                                           "7.6"),
-                      ("src.models.keypoint.LitePose", "9")):
+    for cls, item in (("src.models.keypoint.LitePose", "9"),
+                      ("src.models.keypoint.OpenPose", "9")):
         cfg = CommonConfiguration({"USE_MODEL": {"CLASS": cls}})
         with pytest.raises(KeyError, match=f"Queue 1 item {item}"):
             build_model(cfg, DICTIONARY)

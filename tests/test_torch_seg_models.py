@@ -286,13 +286,16 @@ def test_aliases_resolve_and_missing_parts_name_the_roadmap():
                   "src.models.segmentors.encoder_decoder.EncoderDecoder"):
         assert MODELS.get(alias) is EncoderDecoder
     # every seg config's backbone and head is ported: the backbone case
-    # takes ConvNeXt (Queue 1 item 8), the head case a detection head the
-    # port still lacks (GFLv2's, item 7.6)
-    for key, block in (("BACKBONE", {"name": "ConvNeXt"}),
-                       ("HEAD", {"name": "GFocalHeadV2"})):
-        with pytest.raises(KeyError, match="ROADMAP"):
-            EncoderDecoder(dictionary=DICTIONARY,
-                           model_cfg=CommonConfiguration({**DEEPLAB, key: block}))
+    # takes ConvNeXt (Queue 1 item 8); the head case, GFLv2's detection
+    # head, is registered since item 7.6 and builds (with its own widths,
+    # as the JAX factory builds it)
+    with pytest.raises(KeyError, match="ROADMAP, Queue 1 item 8"):
+        EncoderDecoder(dictionary=DICTIONARY,
+                       model_cfg=CommonConfiguration({**DEEPLAB, "BACKBONE": {"name": "ConvNeXt"}}))
+    model = EncoderDecoder(dictionary=DICTIONARY, model_cfg=CommonConfiguration(
+        {**DEEPLAB, "HEAD": {"name": "GFocalHeadV2"}}))
+    assert type(model.head).__name__ == "GFocalHeadV2"
+    assert model.head.num_classes == len(DICTIONARY)
 
 
 def test_unet_extra_loss_from_the_config():

@@ -45,7 +45,7 @@ from cvpytorch_tpu_torch.models.necks.asff import ASFF
 from cvpytorch_tpu_torch.registry import MODELS
 from cvpytorch_tpu_torch.train_state import make_predict_step
 from cvpytorch_tpu_torch.trainer import Trainer
-from cvpytorch_tpu_torch.utils.porting import _convert, _flatten, load_jax_variables
+from cvpytorch_tpu_torch.utils.porting import _convert, _flatten, load_jax_variables, port_name
 from tests.test_torch_nanodet_v1 import assert_close_to_scale
 from tests.test_torch_rcnn_ops import fill_tree, init_tree
 from tests.test_torch_tan import nchw
@@ -101,31 +101,36 @@ def jax_train(jm, variables, params, x, t):
     return total, parts
 
 
-def check_train_losses_and_grads(jm, variables, tm, x, t, names, grad_tol=1e-6):
+def check_train_losses_and_grads(jm, variables, tm, x, t, names, grad_tol=1e-6, grads=True):
     """Float64 on both sides: every loss term within 1e-9 relative, and per
     leaf max |Δg| ≤ ``grad_tol`` of max(leaf max |g|, 1e-3 · global max
-    |g|)."""
+    |g|).  ``grads`` False checks the loss terms alone (JAX compiles no
+    backward pass: XLA's compile of a detector's float64 backward takes
+    10–25 s on the CPU)."""
     v64 = as64(variables)
     t64 = {k: np.asarray(v, np.float64) if np.asarray(v).dtype.kind == "f" else v
            for k, v in t.items()}
     with jax.enable_x64(True):
-        (_, jparts), jgrads = jax.jit(jax.value_and_grad(
-            lambda p: jax_train(jm, v64, p, jnp.asarray(x, jnp.float64), t64), has_aux=True))(
-            v64["params"])
+        loss = lambda p: jax_train(jm, v64, p, jnp.asarray(x, jnp.float64), t64)  # noqa: E731
+        if grads:
+            (_, jparts), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(v64["params"])
+            jgrads = jax.tree_util.tree_map(np.asarray, jgrads)
+        else:
+            _, jparts = jax.jit(loss)(v64["params"])
         jparts = {k: float(v) for k, v in jparts.items()}
-        jgrads = jax.tree_util.tree_map(np.asarray, jgrads)
     tm = copy.deepcopy(tm).double().train()
     total, parts = tm(torch.from_numpy(x).double(), torch_targets(t64), mode="train")
     assert set(parts) == set(jparts) | {"loss"} == set(names) | {"loss"}
     for k in jparts:
         np.testing.assert_allclose(float(parts[k]), jparts[k], rtol=1e-9, err_msg=k)
+    if not grads:
+        return
     total.backward()
     owners = dict(tm.named_modules())
     grads = {n: p.grad.numpy() for n, p in tm.named_parameters()}
     pairs = []
     for path, g in _flatten(jgrads):
-        leaf = {"kernel": "weight", "scale": "weight", "bias": "bias"}[path[-1]]
-        name = ".".join(path[:-1] + (leaf,))
+        name = port_name("params", path, grads)
         pairs.append((name, _convert(name, g, tm.state_dict()[name],
                                      owners.get(".".join(path[:-1]))), grads[name]))
     assert len(pairs) == len(grads)
