@@ -136,8 +136,8 @@
    SyntheticClassification at 375×500: ``Trainer.run()`` for 4 steps,
    mAcc validation of 128 images, the checkpoint served through
    ``infer.main`` (class ids equal to the predict step's argmax), 0
-   ``nms_keep`` launches; the AMP and f32 train steps at batch 64 and at
-   bench.py's batch 256, the val and predict steps, peak memory; each
+   ``nms_keep`` launches; the AMP and f32 train steps at batch 64 and the
+   AMP step at bench.py's batch 256, the val and predict steps, peak memory; each
    host transform's time and the loader rate; MobileNetV2 at B = 2, f32,
    card vs CPU (logits within 1e-4 of their largest value, loss 1e-4);
    then ``MiniImageNetClassification`` over an ``INDICES`` file of the JPEG
@@ -150,8 +150,8 @@
    validation of 96 images (``nms_keep`` once per val batch), the
    checkpoint served through ``infer.main`` (once more per served batch;
    boxes equal to the predict step's un-letterboxed to the 427×640
-   frame); the AMP and f32 train steps at batch 96 and at bench.py's
-   batch 128, the DSL assigner alone (time and peak memory), the val and
+   frame); the AMP and f32 train steps at batch 96 and the AMP step at
+   bench.py's batch 128, the DSL assigner alone (time and peak memory), the val and
    predict steps; ``nms_keep`` bit-exact on the path's (96, 1024) val
    input and timed; host transforms and loader rate; card vs CPU at B = 2,
    f32 (head outputs within 1e-4 of their largest value, the DSL
@@ -232,6 +232,23 @@
    bit-exact on its val input; then NAS-FPN and RFP (ResNet-18 inside) at
    64 channels: one train-mode forward and backward on the card against
    the CPU (outputs and gradients 1e-4).
+8h. Slice 15 (``slice15_phases``), the keypoint task on a COCO
+   ``person_keypoints`` directory of JPEG fixture copies (64 train, 64
+   val images, 1–6 seeded skeletons each): ``conf/coco_openpose.yml`` as
+   written (VGG16-bn to conv4_3, 3 stages, 368², bs32, SGD, PolyLR,
+   warmup, AMP, EMA, clip 10) but ``EVALUATOR.NAME`` ``coco_keypoints``
+   through ``Trainer.run()`` for 2 epochs of 2 steps (targets rendered on
+   the card), a val epoch of 64 images (OKS stats; peaks, pair scores and
+   the greedy matching on the card), one served batch of people through
+   ``infer.main``; the AMP and f32 steps, the val step, bs1 p50 and bs32
+   predict, the decode's stages alone; card vs CPU at B = 2 (maps 1e-4,
+   float64 targets 1e-12, f64 losses 1e-4, each decode stage on shared
+   inputs).  ``conf/coco_litepose.yml`` as far as JAX runs it: 368² and
+   the collated keypoints refused as JAX fails on them, then at 384² AMP
+   and f32 steps on single-instance targets, a val decode, one served
+   batch, card vs CPU on the heatmaps.  SimplePose at 256² and the five
+   hand-written optimizers (float64, 7 updates) card vs CPU.  ``nms_keep``
+   launches 0 on every one.
 8b. YOLOv5 host-augmentation phase (``yolov5_host_aug``), after the
    other phases:
    ``conf/coco_yolov5_s.yml`` as written, its ``CocoDetection`` reading
@@ -263,17 +280,18 @@
    64-box tiles, and the device operations one call runs, counted from the
    launches the profiler recorded on the host and held to
    ``nms_kernel.DEVICE_KERNELS_PER_CALL``; then the
-   device busy and idle share and the top operations of the device
-   augmentation alone, of the YOLOv5 AMP train step with it, and of the
-   Mask R-CNN AMP train step with the share of the ROIAlign gathers and
-   of their backward, and of the SegNeXt-B (the NMF's float32 matmuls and
-   GELU kernels as named groups), STDC (the ``detail_target`` range's
-   share of the busy time) and NanoDet-Plus (at the config's batch) AMP
-   train steps, and of the YOLOX-s, EfficientDet-D0 and AIRDet-s AMP
-   steps with the share of the ``simota_assign`` and ``effdet_targets``
-   ranges (every path's val input among the NMS kernel inputs).  The
-   other paths' steps are timed, not profiled: a profiler session costs
-   ~6 s of the run's time limit.
+   device busy and idle share and the top operations of the YOLOv5 AMP
+   train step with the device augmentation, and of the Mask R-CNN AMP
+   train step with the share of the ROIAlign gathers and of their
+   backward, and of the SegNeXt-B AMP train step (the NMF's float32
+   matmuls and GELU kernels as named groups), and of the YOLOX-s,
+   EfficientDet-D0, AIRDet-s and OpenPose AMP steps with the share of the
+   ``simota_assign``, ``effdet_targets`` and ``openpose_targets`` ranges
+   (every path's val input among the NMS kernel inputs).  The other
+   paths' steps are timed, not profiled: a profiler session costs ~6 s of
+   the run's time limit (the device augmentation, STDC and NanoDet-Plus
+   are timed only, as are the AMP steps at the bench milestones'
+   batches).
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -340,6 +358,24 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def call_ms(fn, calls: int = 30, warmup: int = 5) -> list:
+    """Each of ``calls`` calls of ``fn`` after ``warmup``, timed alone by
+    CUDA events (the bs1 predict latencies)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
 
 
 def nms_bound_ms(B: int, K: int) -> tuple[float, str]:
@@ -844,17 +880,7 @@ def path_phase(workdir: Path) -> dict:
     # timings with CUDA events
     predict = make_predict_step(model)
     one = images[:1].contiguous()
-    bs1 = []
-    for _ in range(5):
-        predict(one)
-    for _ in range(30):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        predict(one)
-        end.record()
-        torch.cuda.synchronize()
-        bs1.append(start.elapsed_time(end))
+    bs1 = call_ms(lambda: predict(one))
     bs32_ms = cuda_time_ms(lambda: predict(images), iters=10)
     with torch.inference_mode():
         raw_ms = cuda_time_ms(lambda: model._raw(images), iters=10)
@@ -1094,8 +1120,8 @@ def train_step_check(trainer, batch) -> dict:
 
 def _profiled_train_state(trainer):
     """One AMP train step of a fresh YOLOv5-s, with the device augmentation
-    of a raw batch on the card inside it, and that augmentation alone, as
-    callables for the profiler."""
+    of a raw batch on the card inside it, as a callable for the
+    profiler."""
     import torch
 
     from cvpytorch_tpu_torch.infer import build_model
@@ -1110,8 +1136,7 @@ def _profiled_train_state(trainer):
     step = make_train_step(amp=True, ema_decay=0.9999,
                            preprocess=trainer._device_aug_preprocess())
     raw = raw_train_batch(trainer)
-    preprocess = trainer._device_aug_preprocess()
-    return lambda: step(state, raw), lambda: preprocess(raw)
+    return lambda: step(state, raw)
 
 
 HOST_AUG_STEPS = 4  # one epoch
@@ -1971,9 +1996,9 @@ PROFILE_GROUPS = {"segnext_b": {
     "nmf_f32_gemm": re.compile(r"^(?!.*(bf16|fp16|half)).*gemm", re.I),
     "gelu": re.compile(r"gelu", re.I)}}
 # the seg paths profiled at the end of the run: SegNeXt-B (its NMF and
-# depthwise convolutions) and STDC (its detail target); a profiler session
-# costs ~6 s, and the run keeps within its time limit
-SEG_PROFILED = ("segnext_b", "stdc")
+# depthwise convolutions); a profiler session costs ~6 s, and the run keeps
+# within its time limit (STDC is timed, not profiled)
+SEG_PROFILED = ("segnext_b",)
 
 
 def incepformer_logits_gb(model, images) -> float:
@@ -2608,7 +2633,7 @@ def milestone_timing(trainer, n: int, milestone: int | None, iters: int,
     if milestone:
         batches["milestone"] = loader_batch(trainer, "train", milestone)
         out[f"milestone_bs{milestone}"], states["milestone"] = train_step_timing(
-            trainer, batches["milestone"], milestone, iters, ema_decay)
+            trainer, batches["milestone"], milestone, iters, ema_decay, amp_only=True)
         torch.cuda.empty_cache()
     eval_step = make_eval_step()
     out["val_step_ms"] = cuda_time_ms(lambda: eval_step(amp_state, batches["val"]),
@@ -3888,6 +3913,518 @@ def slice14_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
     return out, later
 
 
+# -- slice 15: the keypoint task (OpenPose, LitePose, SimplePose) and the optimizer rules --------
+KEYPOINT_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_openpose.yml and coco_litepose.yml
+OPENPOSE_EPOCHS = 2
+OPENPOSE_STEPS = 2  # an epoch: 64 of the keypoint directory's train images
+KEYPOINT_TRAIN_IMAGES = KEYPOINT_BATCH * OPENPOSE_STEPS
+KEYPOINT_VAL_IMAGES = 64  # one val epoch of 2 batches, after epoch 2
+SIMPLEPOSE_CHECK_HW = 256  # SimplePose's card-vs-CPU input (ResNet-18)
+LITEPOSE_HW = 384  # 368 (the config's) rounded up to a multiple of 32, which LitePose needs
+# a COCO skeleton, 17 joints around its centre, at a height of 162 units
+SKELETON = np.array([
+    [0, -60], [-6, -66], [6, -66], [-14, -62], [14, -62], [-22, -40], [22, -40],
+    [-32, -10], [32, -10], [-36, 18], [36, 18], [-14, 20], [14, 20], [-16, 60],
+    [16, 60], [-18, 96], [18, 96]], np.float64)
+
+
+def write_keypoint_dir(root: Path) -> dict:
+    """A COCO ``person_keypoints`` directory of copies of the committed
+    JPEG fixtures (COCO's names): 1–6 seeded skeletons an image (17
+    keypoints, each labelled visible, occluded or not at all, COCO's
+    (0, 0, 0) for the last), their boxes over the labelled joints and
+    annotation areas.  → {split: (IMG_DIR, ANN_FILE)} for train
+    (``KEYPOINT_TRAIN_IMAGES``) and val (``KEYPOINT_VAL_IMAGES``), and
+    infer (the first ``KEYPOINT_BATCH`` val images)."""
+    import shutil
+
+    manifest = fixture_manifest()
+    names = sorted(manifest)
+    rng = np.random.RandomState(15)
+    out = {}
+    for split, n in (("train", KEYPOINT_TRAIN_IMAGES), ("val", KEYPOINT_VAL_IMAGES)):
+        img_dir = root / split
+        img_dir.mkdir(parents=True)
+        images, anns = [], []
+        for i in range(n):
+            src = names[(i + 3) % len(names)]
+            h, w = manifest[src]["cv2_imread_shape"][:2]
+            fname = f"{i + 1:012d}.jpg"
+            shutil.copyfile(FIXTURES / src, img_dir / fname)
+            images.append({"id": i + 1, "file_name": fname, "height": h, "width": w})
+            for _ in range(rng.randint(1, 7)):
+                scale = rng.uniform(0.2, 0.8) * h / 162
+                k = np.zeros((17, 3))
+                k[:, :2] = SKELETON * scale + [rng.uniform(0.15, 0.85) * w,
+                                              rng.uniform(0.3, 0.6) * h]
+                k[:, :2] += rng.uniform(-3, 3, (17, 2)) * scale
+                k[:, 2] = rng.choice([0, 1, 2], 17, p=[0.1, 0.2, 0.7])
+                k[k[:, 2] == 0] = 0
+                lab = k[k[:, 2] > 0, :2]
+                if not len(lab):
+                    continue
+                (x1, y1), (x2, y2) = lab.min(0) - 4, lab.max(0) + 4
+                anns.append({"id": len(anns) + 1, "image_id": i + 1, "category_id": 1,
+                             "bbox": [round(x1, 2), round(y1, 2), round(x2 - x1, 2),
+                                      round(y2 - y1, 2)],
+                             "area": round(0.55 * (x2 - x1) * (y2 - y1), 2), "iscrowd": 0,
+                             "num_keypoints": int((k[:, 2] > 0).sum()),
+                             "keypoints": k.reshape(-1).round(2).tolist()})
+        for stage, count in ((split, n),) + ((("infer", KEYPOINT_BATCH),) if split == "val"
+                                             else ()):
+            keep = {im["id"] for im in images[:count]}
+            ann_file = root / f"person_keypoints_{stage}.json"
+            ann_file.write_text(json.dumps({
+                "images": images[:count], "categories": [{"id": 1, "name": "person"}],
+                "annotations": [a for a in anns if a["image_id"] in keep]}))
+            out[stage] = (str(img_dir), str(ann_file))
+    return out
+
+
+def keypoint_config(workdir: Path, name: str, kdir: dict, epochs: int,
+                    size: int | None = None) -> Path:
+    """``conf/<name>.yml`` as written (its ``CocoKeypoint``, transforms,
+    model, recipe and batch), only ``IMG_DIR``/``ANN_FILE`` pointed at the
+    keypoint directory and ``EVALUATOR.NAME`` swapped to ``coco_keypoints``
+    (bbox and OKS keypoints: the configs' ``keypoint`` evaluator takes
+    neither model's val output, in JAX either); ``epochs`` epochs,
+    validated after the last; the INFER stage serves afterwards.  ``size``
+    replaces the transforms' 368 (LitePose fuses sides of multiples of 32
+    only)."""
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    cfg = CommonConfiguration.from_file(str(ROOT / "conf" / f"{name}.yml"))
+    data = cfg.DATASET
+    data.DICTIONARY = str(ROOT / data.DICTIONARY)
+    for stage in ("TRAIN", "VAL"):
+        img_dir, ann_file = kdir[stage.lower()]
+        data.get(stage).update({"IMG_DIR": img_dir, "ANN_FILE": ann_file})
+    for stage in (data.TRAIN, data.VAL):
+        for t in ("Resize", "RandomResizedCrop"):
+            if size and t in stage.TRANSFORMS:
+                stage.TRANSFORMS[t]["size"] = [size, size]
+    data.INFER = {**dict(data.VAL), "ANN_FILE": kdir["infer"][1]}
+    cfg.EVALUATOR.NAME = "coco_keypoints"
+    cfg.EVALUATOR.EVAL_INTERVALS = epochs
+    cfg.update({"N_MAX_EPOCHS": epochs, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
+                "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
+    path = workdir / f"{name}_{size or 'as_written'}.json"
+    path.write_text(json.dumps(cfg, default=lambda c: c.data))
+    return path
+
+
+def served_keypoints(workdir: Path, setting: Path, trainer, checkpoint: Path, label: str):
+    """``infer.main`` on ``checkpoint`` over the INFER stage (one batch):
+    ``nms_keep`` never launched; the served entries are what the predict
+    step of the same weights gives on the same images
+    (``infer.keypoint_results``: the flattened decode, or OpenPose's
+    people)."""
+    import torch
+
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+    from cvpytorch_tpu_torch.train_state import make_predict_step
+    from cvpytorch_tpu_torch.utils.checkpoints import Checkpoints
+
+    before = nms_keep.launches
+    t0 = time.perf_counter()
+    infer.main(["--setting", str(setting), "--checkpoint", str(checkpoint),
+                "--out", str(workdir / "served")])
+    cli_s = time.perf_counter() - t0
+    served_launches = nms_keep.launches - before
+    served = json.loads((workdir / "served" / "predictions.json").read_text())
+    model = infer.build_model(trainer.cfg, trainer.dictionary)
+    Checkpoints.load_weights_into(model, str(checkpoint))
+    model.to("cuda", memory_format=torch.channels_last)  # as infer.main places it
+    images, letterbox = infer_batch(trainer, KEYPOINT_BATCH)
+    want = infer.keypoint_results(make_predict_step(model)(images), images, letterbox)
+    if served_launches or len(served) != len(want):
+        raise AssertionError(f"{label}: {served_launches} nms_keep launches serving, "
+                             f"{len(served)} entries for {len(want)}")
+    if isinstance(want[0], dict):
+        for i, (g, w) in enumerate(zip(served, want)):
+            if len(g["scores"]) != len(w["scores"]) or not all(
+                    np.allclose(g[k], w[k], atol=1e-3) for k in w):
+                raise AssertionError(f"{label}: served image {i} differs from the predict step")
+        n_people = sum(len(w["scores"]) for w in want)
+        return {"served_launches": served_launches, "infer_cli_s": cli_s,
+                "served_images": len(want), "served_people": n_people}
+    if not np.allclose(served, want, atol=1e-4):
+        raise AssertionError(f"{label}: served decode differs from the predict step")
+    return {"served_launches": served_launches, "infer_cli_s": cli_s,
+            "served_values": len(want), "served_finite": bool(np.isfinite(served).all())}
+
+
+def openpose_phase(workdir: Path, kdir: dict) -> tuple[dict, object]:
+    """``conf/coco_openpose.yml`` (VGG16-bn to conv4_3, 3 stages, 368²,
+    bs32, SGD, PolyLR, warmup, AMP, EMA, clip 10) through ``Trainer.run()``:
+    2 epochs of 2 steps with the targets rendered on the card (the
+    ``openpose_targets`` range), one val epoch of 64 images (peaks, pair
+    scores and the ``limb_match`` greedy on the card, people and OKS on
+    the host), ``nms_keep`` never launched; then one served batch through
+    ``infer.main``."""
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    workdir.mkdir(parents=True)
+    setting = keypoint_config(workdir, "coco_openpose", kdir, OPENPOSE_EPOCHS)
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    run = run_instrumented(trainer, trainer_mod)  # the main path of this phase
+    state, metrics = run["state"], run["metrics"]
+    steps = OPENPOSE_EPOCHS * OPENPOSE_STEPS
+    losses = {k: [float(m[k]) for m in metrics] for k in metrics[0]}
+    (val,) = run["val"]
+    if (len(metrics) != steps or state.step != steps or run["launches"]
+            or set(losses) != {"heatmap_loss", "paf_loss", "loss"}
+            or not all(np.isfinite(v).all() for v in losses.values())
+            or not np.isfinite(val["keypoints_mAP"])):
+        raise AssertionError(f"openpose: {len(metrics)} steps, {run['launches']} nms_keep "
+                             f"launches, losses {losses}, val {val}")
+    served = served_keypoints(workdir, setting, trainer,
+                              Path(trainer.checkpoints.save_dir) / "last.pt", "openpose")
+    times = run["times"]
+    out = {"model": type(trainer.model).__name__,
+           "backbone": type(trainer.model.backbone).__name__, "stages": trainer.model.num_stages,
+           "epochs": OPENPOSE_EPOCHS, "steps": steps, "batch": KEYPOINT_BATCH,
+           "launches": run["launches"], "losses": losses,
+           "val_keypoints_mAP": float(val["keypoints_mAP"]), "val_bbox_mAP": float(val["mAP"]),
+           "run_s": run["run_s"], "train_epoch_s": times["train_epoch"],
+           "fed_images_per_s": KEYPOINT_BATCH * OPENPOSE_STEPS / times["train_epoch"][-1],
+           "val_epoch_s": times["val_epoch"][0],
+           "val_evaluator_share": times["evaluator"] / times["val_epoch"][0], **served}
+    return out, trainer
+
+
+def limb_match_timing(state, batch) -> tuple[dict, dict]:
+    """The val decode on the val batch's maps alone, by CUDA events: the
+    peaks, the pair scores and the greedy matching (``limb_match``: one
+    vectorised step of ~8 launches for each order position up to the last
+    finite score).  Returns the times and the maps."""
+    import torch
+
+    from cvpytorch_tpu_torch.ops import paf
+    from cvpytorch_tpu_torch.train_state import make_predict_step
+
+    maps = make_predict_step(state.model)(batch["image"])
+    hm = maps["heatmaps"][..., :paf.NUM_JOINTS]
+    xy, score, valid = paf.find_peaks(hm)
+    scores, ok = paf.score_limb_pairs(xy, valid, maps["pafs"])
+    positions = int(ok.reshape(*ok.shape[:2], -1).sum(-1).max())
+    return {"find_peaks_ms": cuda_time_ms(lambda: paf.find_peaks(hm), iters=5, warmup=1),
+            "score_limb_pairs_ms": cuda_time_ms(
+                lambda: paf.score_limb_pairs(xy, valid, maps["pafs"]), iters=5, warmup=1),
+            "limb_match_ms": cuda_time_ms(lambda: paf.greedy_limb_match(scores, ok),
+                                          iters=3, warmup=1),
+            "limb_match_positions": positions, "ok_pairs": int(ok.sum()),
+            "peaks": int(valid.sum())}, maps
+
+
+def openpose_card_vs_cpu(trainer, batches, maps) -> dict:
+    """OpenPose (VGG16-bn, 3 stages) at 368², B = 2, f32 with TF32 off,
+    the same seeded weights on both devices.  Gates: eval-mode heatmaps
+    and PAFs within 1e-4 of their largest value; the targets rendered in
+    float64 from the same keypoints within 1e-12 (a boundary test that
+    flipped would move a value by 1e-2 or more; the sums over persons
+    differ in the last bit), the gaussians' support equal; the train-mode
+    losses, each device's f32 stage outputs against the float64 targets in
+    float64, within 1e-4 relative.  The decode, stage by stage on shared
+    inputs, from ``maps`` (the trained model's val maps, which hold peaks
+    and pairs): the peaks' validity and scores equal, and in float64 their
+    sub-pixel positions within 1e-6 (in float32 they are reported: the
+    parabola divides by the second difference of the log intensities,
+    which on a flat peak magnifies the devices' last-bit ``log``
+    differences, up to 0.067 grid pixels on an H100); on the CPU's peaks the pairs' ``ok`` equal and scores
+    within 1e-5; on the CPU's pairs the greedy's matched slots equal and
+    their scores within 1e-5."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.ops import paf
+
+    if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the step makers turn it off")
+    two = _tree(batches["train"], lambda t: t[:2])
+    torch.manual_seed(0)
+    base = build_model(trainer.cfg, trainer.dictionary, trainer.datasets["train"])
+    kp, valid = two["target"]["keypoints"].double(), two["target"]["valid"].double()
+    hw = tuple(two["image"].shape[1:3])
+    seen = {}
+    for device in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(device, memory_format=torch.channels_last)
+        images = two["image"].to(device)
+        with torch.no_grad():
+            out_maps = model.eval()(images, mode="infer")
+            hms, pafs = model.train().stages(images)
+            t_hm, t_paf = paf.render_openpose_targets(kp.to(device), valid.to(device), hw)
+        seen[device] = {"maps": {k: v.cpu() for k, v in out_maps.items()},
+                        "stages": ([h.cpu() for h in hms], [p.cpu() for p in pafs]),
+                        "targets": (t_hm.cpu(), t_paf.cpu())}
+    cpu, card = seen["cpu"], seen["cuda"]
+    out = {"maps_max_rel_err": {k: max_rel_err(card["maps"][k], v)
+                                for k, v in cpu["maps"].items()}}
+    (hm_cpu, paf_cpu), (hm_card, paf_card) = cpu["targets"], card["targets"]
+    out["targets_f64_pafs_max_abs_err"] = float((paf_card - paf_cpu).abs().max())
+    out["targets_f64_heatmaps_max_abs_err"] = float((hm_card - hm_cpu).abs().max())
+    out["targets_f64_support_equal"] = bool(torch.equal(hm_card[..., :18] > 0,
+                                                        hm_cpu[..., :18] > 0))
+    out["targets_nonzero"] = {"heatmaps": int((hm_cpu[..., :18] > 0).sum()),
+                              "pafs": int((paf_cpu != 0).sum())}
+
+    def losses(stages):
+        hms, pafs = stages
+        nhwc = [[t.permute(0, 2, 3, 1).double() for t in ts] for ts in (hms, pafs)]
+        return {"heatmap_loss": float(sum(((h - hm_cpu) ** 2).mean() for h in nhwc[0])),
+                "paf_loss": float(sum(((p - paf_cpu) ** 2).mean() for p in nhwc[1]))}
+
+    lc, ld = losses(cpu["stages"]), losses(card["stages"])
+    out["train_losses_f64_rel_err"] = {k: abs(ld[k] - v) / abs(v) for k, v in lc.items()}
+    # the decode, stage by stage on shared inputs
+    shared = {k: v.detach().cpu() for k, v in maps.items()}
+    hm = shared["heatmaps"][..., :paf.NUM_JOINTS]
+    (xy, sc, ok_peak), (xy_d, sc_d, ok_peak_d) = (
+        [t.cpu() for t in paf.find_peaks(hm.to(d))] for d in ("cpu", "cuda"))
+    out["peaks"] = int(ok_peak.sum())
+    out["peaks_equal"] = bool(torch.equal(ok_peak, ok_peak_d) and torch.equal(sc, sc_d))
+    out["peaks_xy_f32_max_abs_err"] = float((xy - xy_d)[ok_peak].abs().max()) \
+        if ok_peak.any() else 0.0
+    (xy64, sc64, ok64), (xy64_d, sc64_d, ok64_d) = (
+        [t.cpu() for t in paf.find_peaks(hm.double().to(d))] for d in ("cpu", "cuda"))
+    out["peaks_f64_equal"] = bool(torch.equal(ok64, ok64_d) and torch.equal(sc64, sc64_d)
+                                  and torch.equal(ok64, ok_peak))
+    out["peaks_xy_f64_max_abs_err"] = float((xy64 - xy64_d)[ok64].abs().max()) \
+        if ok64.any() else 0.0
+    (s, ok), (s_d, ok_d) = ([t.cpu() for t in paf.score_limb_pairs(
+        xy.to(d), ok_peak.to(d), shared["pafs"].to(d))] for d in ("cpu", "cuda"))
+    out["pairs_ok"] = int(ok.sum())
+    out["pairs_ok_equal"] = bool(torch.equal(ok, ok_d))
+    out["pair_scores_max_abs_err"] = float((s - s_d)[ok].abs().max()) if ok.any() else 0.0
+    c, c_d = (paf.greedy_limb_match(s.to(d), ok.to(d)).cpu() for d in ("cpu", "cuda"))
+    out["conns"] = int((c[..., 0] >= 0).sum())
+    out["conn_slots_equal"] = bool(torch.equal(c[..., :2], c_d[..., :2]))
+    out["conn_scores_max_abs_err"] = float((c[..., 2] - c_d[..., 2]).abs().max())
+    print(f"OpenPose card vs CPU, f32, B=2, 368²: {json.dumps(out)}", flush=True)
+    if not (max(out["maps_max_rel_err"].values()) <= 1e-4
+            and out["targets_f64_pafs_max_abs_err"] <= 1e-12
+            and out["targets_f64_heatmaps_max_abs_err"] <= 1e-12
+            and out["targets_f64_support_equal"]
+            and max(out["train_losses_f64_rel_err"].values()) <= 1e-4 and out["peaks_equal"]
+            and out["peaks_f64_equal"] and out["peaks_xy_f64_max_abs_err"] <= 1e-6
+            and out["pairs_ok_equal"]
+            and out["pair_scores_max_abs_err"] <= 1e-5 and out["conn_slots_equal"]
+            and out["conn_scores_max_abs_err"] <= 1e-5):
+        raise AssertionError(f"OpenPose card vs CPU: {out}")
+    return out
+
+
+def single_instance(batch) -> dict:
+    """LitePose's JAX contract: (B, 17, 3) keypoints, each image's first
+    person of the collated (B, M, 17, 3)."""
+    return {"image": batch["image"], "target": {"keypoints": batch["target"]["keypoints"][:, 0]}}
+
+
+def litepose_phase(workdir: Path, kdir: dict, card: str) -> dict:
+    """``conf/coco_litepose.yml`` (MobileNetV2, fusion deconvs, bs32,
+    AdamW, cosine, warmup, AMP, EMA, clip 10) as far as JAX runs it.
+    The config's 368² fails at the first forward (not a multiple of 32:
+    the fusion does not broadcast, in JAX either), and through
+    ``Trainer.run()`` at ``LITEPOSE_HW`` the first loss fails (the
+    collated keypoints, as JAX's).  So at ``LITEPOSE_HW`` the AMP and f32 train
+    steps run on single-instance (B, 17, 3) targets of the loader's batch,
+    then one val step's decode, one served batch of the trained weights
+    through ``infer.main``, and the card against the CPU on the heatmaps;
+    ``nms_keep`` never launched."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+    from cvpytorch_tpu_torch.train_state import (make_eval_step, make_predict_step,
+                                                 make_train_step)
+
+    workdir.mkdir(parents=True)
+    refused = {}
+    nms_keep.launches = 0
+    setting = keypoint_config(workdir, "coco_litepose", kdir, 1, LITEPOSE_HW)
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    for hw, cause, fn in ((368, "multiple of 32", lambda: trainer.model.cuda()(
+            torch.zeros(2, 368, 368, 3).cuda(), mode="infer")),
+                          (LITEPOSE_HW, "single-instance keypoints", trainer.run)):
+        try:
+            fn()
+        except ValueError as e:
+            if cause not in str(e):
+                raise
+            refused[hw] = str(e)
+        else:
+            raise AssertionError(f"litepose at {hw}²: no refusal ({cause})")
+    batches = {s: single_instance(loader_batch(trainer, s, KEYPOINT_BATCH))
+               for s in ("train", "val")}
+    timed, state = train_step_timing(trainer, batches["train"], KEYPOINT_BATCH, iters=3,
+                                     ema_decay=0.9999)
+    step = make_train_step(amp=True, ema_decay=0.9999)
+    losses = [float(step(state, batches["train"])[1]["loss"]) for _ in range(2)]
+    val_losses, decoded = make_eval_step(use_ema=True)(state, batches["val"])
+    if not (np.isfinite(losses).all() and np.isfinite(float(val_losses["loss"]))
+            and decoded.shape == (KEYPOINT_BATCH, 17, 3) and torch.isfinite(decoded).all()):
+        raise AssertionError(f"litepose: losses {losses}, val {val_losses}, {decoded.shape}")
+    ckpt = workdir / "litepose_ema.pt"
+    torch.save(state.ema.state_dict(), ckpt)
+    served = served_keypoints(workdir, setting, trainer, ckpt, "litepose")
+    launches = nms_keep.launches
+    predict = make_predict_step(state.ema)
+    timed[f"bs{KEYPOINT_BATCH}_predict_ms"] = cuda_time_ms(
+        lambda: predict(batches["val"]["image"]), iters=5, warmup=1)
+    one = batches["val"]["image"][:1]
+    timed["bs1_predict_p50_ms"] = float(np.median(call_ms(lambda: predict(one))))
+
+    def heatmaps(model, batch):
+        with torch.no_grad():
+            return {f"scale{i}": h for i, h in enumerate(model.eval().heatmap_pyramid(
+                batch["image"]))}
+
+    check = card_vs_cpu(trainer, batches, heatmaps, lambda cpu, cuda: {
+        k: max_rel_err(cuda[k], v) for k, v in cpu.items()})
+    if max(check.values()) > 1e-4:
+        raise AssertionError(f"LitePose card vs CPU: {check}")
+    out = {"hw": LITEPOSE_HW, "refused": refused, "train_losses": losses,
+           "val_loss": float(val_losses["loss"]), "launches": launches, "timing": timed,
+           "heatmaps_card_vs_cpu_max_rel_err": check, **served}
+    print(json.dumps({"litepose": out, "card": card}), flush=True)
+    return out
+
+
+def simplepose_card_vs_cpu() -> dict:
+    """SimplePose (ResNet-18, three ``ConvTranspose4x2``) at 256², B = 2,
+    TF32 off: eval-mode heatmaps within 1e-4 of their largest value and
+    the train-mode loss on seeded targets within 1e-4 relative; the
+    card's decode equal over two calls (no atomics in the transposed
+    convolutions)."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.models.keypoint import SimplePose
+
+    g = torch.Generator().manual_seed(1)
+    images = torch.rand(2, SIMPLEPOSE_CHECK_HW, SIMPLEPOSE_CHECK_HW, 3, generator=g)
+    side = SIMPLEPOSE_CHECK_HW // 4
+    t = {"heatmaps": torch.rand(2, side, side, 17, generator=g),
+         "valid": torch.rand(2, 17, generator=g) < 0.8}
+    torch.manual_seed(0)
+    base = SimplePose()
+    seen = {}
+    for device in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(device, memory_format=torch.channels_last)
+        x, td = images.to(device), {k: v.to(device) for k, v in t.items()}
+        with torch.no_grad():
+            hm = model.eval().heatmaps(x)
+            dec = [model(x, mode="infer") for _ in range(2)]
+            loss = model.train()(x, td, mode="train")[0]
+        seen[device] = (hm.cpu(), [d.cpu() for d in dec], float(loss))
+    out = {"heatmaps_max_rel_err": max_rel_err(seen["cuda"][0], seen["cpu"][0]),
+           "train_loss_rel_err": abs(seen["cuda"][2] - seen["cpu"][2]) / abs(seen["cpu"][2]),
+           "card_decode_repeatable": bool(torch.equal(*seen["cuda"][1]))}
+    print(f"SimplePose card vs CPU, B=2, {SIMPLEPOSE_CHECK_HW}²: {json.dumps(out)}", flush=True)
+    if not (out["heatmaps_max_rel_err"] <= 1e-4 and out["train_loss_rel_err"] <= 1e-4
+            and out["card_decode_repeatable"]):
+        raise AssertionError(f"SimplePose card vs CPU: {out}")
+    return out
+
+
+OPTIMIZER_RULES = {  # each hand-written optax rule, in the port's groups
+    "Adadelta": {"WEIGHT_DECAY": 1e-3},
+    "RMSprop": {"MOMENTUM": 0.9, "WEIGHT_PARAMS": {"weight_decay": 5e-4}},
+    "RAdam": {"BETAS": [0.8, 0.99], "WEIGHT_DECAY": 1e-3},
+    "AdaBelief": {"BIAS_LR_MULTIPLIER": 2, "WEIGHT_DECAY": 1e-3},
+    "Ranger": {"WEIGHT_DECAY": 1e-3},
+}
+
+
+def optimizers_card_vs_cpu() -> dict:
+    """The five hand-written optimizers on a small conv-BN-linear model in
+    float64: 7 updates of the same seeded gradients (across the warmup and
+    RAdam's rectification at step 6) on the card and on the CPU, from the
+    same parameters; every parameter within 1e-12 of the CPU's after every
+    update."""
+    import copy
+
+    import torch
+    from torch import nn
+
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.optim.schedules import build_lr_scheduler
+
+    torch.manual_seed(0)
+    base = nn.Sequential(nn.Conv2d(3, 8, 3), nn.BatchNorm2d(8), nn.Flatten(),
+                         nn.Linear(8 * 6 * 6, 5)).double()
+    out = {}
+    for name, extra in OPTIMIZER_RULES.items():
+        body = {"INIT_LR": 0.01, "N_MAX_EPOCHS": 4, "LR_SCHEDULER": {"TYPE": "CosineAnnealingLR"},
+                "WARMUP": {"NAME": "linear", "ITERS": 2, "FACTOR": 0.1},
+                "GRAD_CLIP": {"TYPE": "norm", "VALUE": 3.0},
+                "OPTIMIZER": {"TYPE": name, **extra}}
+        cfg = CommonConfiguration(body)
+        models = {d: copy.deepcopy(base).to(d) for d in ("cpu", "cuda")}
+        opts = {d: build_optimizer(cfg, m, build_lr_scheduler(cfg, 2)) for d, m in models.items()}
+        g = torch.Generator().manual_seed(2)
+        err = 0.0
+        for _ in range(7):
+            grads = [torch.randn(p.shape, generator=g, dtype=torch.float64) * 2
+                     for p in base.parameters()]
+            for d, m in models.items():
+                for p, gr in zip(m.parameters(), grads):
+                    p.grad = gr.to(d)
+                opts[d].step()
+            err = max(err, max(float((pc - pd.cpu()).abs().max().detach()) for pc, pd in zip(
+                models["cpu"].parameters(), models["cuda"].parameters())))
+        out[name] = {"class": type(opts["cuda"]).__name__, "max_abs_err": err}
+    print(f"optimizer rules card vs CPU, float64, 7 updates: {json.dumps(out)}", flush=True)
+    if any(v["max_abs_err"] > 1e-12 or v["class"] != k for k, v in out.items()):
+        raise AssertionError(f"optimizers card vs CPU: {out}")
+    return out
+
+
+def slice15_phases(workdir: Path, card: str) -> tuple[dict, dict]:
+    """The keypoint task on a COCO ``person_keypoints`` directory of the
+    JPEG fixtures: ``coco_openpose`` at full width (2 epochs of 2 steps,
+    64 val, one served batch, AMP and f32 steps, bs1 p50 and bs32 predict,
+    the decode's stages alone, card vs CPU), ``coco_litepose`` as far as
+    JAX runs it, SimplePose and the five optimizer rules card vs CPU.
+    ``nms_keep`` is launched on none of them.  Returns every record, and
+    the state and batches the profiles take at the end of the run."""
+    import torch
+
+    from cvpytorch_tpu_torch.train_state import make_predict_step
+
+    kdir = write_keypoint_dir(workdir / "person_keypoints")
+    torch.cuda.empty_cache()
+    run, trainer = openpose_phase(workdir / "openpose", kdir)
+    print(json.dumps({"openpose": run, "card": card}), flush=True)
+    timed, states, batches = milestone_timing(trainer, KEYPOINT_BATCH, None, iters=3,
+                                              ema_decay=0.9999)
+    predict, one = make_predict_step(states["train"].model), batches["val"]["image"][:1]
+    timed["bs1_predict_p50_ms"] = float(np.median(call_ms(lambda: predict(one))))
+    timed["decode"], maps = limb_match_timing(states["train"], batches["val"])
+    timed["decode"]["limb_match_share_of_val_step"] = \
+        timed["decode"]["limb_match_ms"] / timed["val_step_ms"]
+    print(json.dumps({"openpose_timing": timed, "card": card}), flush=True)
+    check = openpose_card_vs_cpu(trainer, batches, maps)
+    out = {"openpose": {"run": run, "timing": timed, "card_vs_cpu": check}}
+    later = {"state": states["train"], "batch": batches["train"], "amp_ms": timed["amp_step_ms"]}
+    del trainer
+    mark("openpose")
+    torch.cuda.empty_cache()
+    out["litepose"] = litepose_phase(workdir / "litepose", kdir, card)
+    mark("litepose")
+    out["simplepose"] = simplepose_card_vs_cpu()
+    out["optimizers"] = optimizers_card_vs_cpu()
+    mark("simplepose, optimizers")
+    return out, later
+
+
 def letterbox_timing(n: int = 20) -> dict:
     """Host ms of one letterbox on one thread, the OpenCV-exact
     ``imgproc.resize_linear`` that the port's ``Resize`` runs against a
@@ -4048,6 +4585,7 @@ def main() -> int:
                           "card": card}), flush=True)
         print(json.dumps({"nanodet_card_vs_cpu": nanodet_card_vs_cpu(nd_trainer, nd_batches),
                           "card": card}), flush=True)
+        del nd_trainer, nd_state, nd_states, nd_batches  # timed, not profiled
         mark("nanodet")
         torch.cuda.empty_cache()
         ndv1, ndv1_trainer = nanodet_v1_phase(Path(tmp) / "nanodet_v1", coco)
@@ -4081,6 +4619,8 @@ def main() -> int:
         s13, s13_later = slice13_phases(Path(tmp) / "slice13", coco, card)
         # slice 14: EfficientDet-D0, AIRDet-s, the slice's other configs, NAS-FPN and RFP
         s14, s14_later = slice14_phases(Path(tmp) / "slice14", coco, card)
+        # slice 15: OpenPose, LitePose, SimplePose and the optimizer rules
+        s15, s15_later = slice15_phases(Path(tmp) / "slice15", card)
         # the host-augmented YOLOv5 path after the other phases
         torch.cuda.empty_cache()
         host_aug, ha_trainer = host_aug_phase(Path(tmp) / "host_aug", coco)
@@ -4112,9 +4652,7 @@ def main() -> int:
                               **{f"{key}_val_input": run["nms_input"]
                                  for key, run in {**s13_later, **s14_later}.items()}})
         mark("device_phase")
-        train_step_fn, aug_fn = _profiled_train_state(trainer)
-        print(json.dumps({"device_aug_profile": profile_device(aug_fn, steps=3, top=8),
-                          "card": card}), flush=True)
+        train_step_fn = _profiled_train_state(trainer)
         train_profile = profile_device(train_step_fn, steps=3, top=15)
         # the idle share against the step's wall without the profiler: the
         # AMP step and the device augmentation, each timed by CUDA events
@@ -4134,8 +4672,8 @@ def main() -> int:
         print(json.dumps({"maskrcnn_amp_train_step_profile": mrcnn_profile,
                           "nms_keep_device_ms": mrcnn_split, "card": card}), flush=True)
         mark("yolov5 and maskrcnn profiles")
-        # two profiled steps a seg and cls/NanoDet path: the profiler's own
-        # cost (~5 s a session of three) holds the run's time limit
+        # two profiled steps a seg path: the profiler's own cost (~5 s a
+        # session of three) holds the run's time limit
         for name, run in seg.items():
             if name not in SEG_PROFILED:
                 continue
@@ -4145,22 +4683,9 @@ def main() -> int:
                                   groups=PROFILE_GROUPS.get(name))
             prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / run[
                 "timing"]["amp_step_ms"]
-            if name == "stdc":  # the detail target's range against the busy time
-                detail = prof["annotated_ms"].get("detail_target")
-                prof["detail_target_share_of_busy"] = (
-                    None if detail is None else detail / prof["device_busy_ms"])
             print(json.dumps({f"{name}_amp_train_step_profile": prof, "card": card}),
                   flush=True)
         mark("seg profiles")
-        # NanoDet-Plus at its config's batch (the bench milestones' batches are
-        # timed, not profiled: the run's time limit)
-        torch.cuda.empty_cache()
-        nd_step = make_train_step(amp=True, ema_decay=0.9999)
-        prof = profile_device(lambda: nd_step(nd_states["train"], nd_batches["train"]), steps=2,
-                              top=15)
-        prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / nd_timed[
-            "amp_step_ms"]
-        print(json.dumps({"nanodet_amp_train_step_profile": prof, "card": card}), flush=True)
         # the assigners' ranges: YOLOX-s's SimOTA (slice 13), EfficientDet-D0's
         # target build and AIRDet-s's SimOTA (slice 14)
         for phase, later, key, span in ((s13, s13_later, "yolox_s", "simota_assign"),
@@ -4173,6 +4698,14 @@ def main() -> int:
             phase[key]["profile"] = {k: prof[k] for k in (
                 "device_busy_ms", "device_idle_share", "device_idle_share_unprofiled",
                 f"{span}_share_of_busy")}
+        # OpenPose: the target rendering's range in the AMP step (the greedy
+        # matching is timed alone by CUDA events, beside the val step)
+        prof = assigner_range_profile(s15_later["state"], s15_later["batch"],
+                                      s15_later["amp_ms"], "openpose_targets")
+        print(json.dumps({"openpose_amp_train_step_profile": prof, "card": card}), flush=True)
+        s15["openpose"]["profile"] = {k: prof[k] for k in (
+            "device_busy_ms", "device_idle_share", "device_idle_share_unprofiled",
+            "openpose_targets_share_of_busy")}
     mark("nanodet and assigner profiles")
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
@@ -4217,7 +4750,10 @@ def main() -> int:
                **{f"{key}_train_and_val": s14[key]["run"]["launches"] for key in s14_later},
                **{f"{key}_served": s14[key]["run"]["served_launches"] for key in s14_later},
                **{f"{name}_train_and_val": run["launches"]
-                  for name, run in s14["one_step"].items()}}
+                  for name, run in s14["one_step"].items()},
+               "openpose_train_and_val": s15["openpose"]["run"]["launches"],
+               "openpose_served": s15["openpose"]["run"]["served_launches"],
+               "litepose_steps_val_and_served": s15["litepose"]["launches"]}
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
         "route": "cuda",

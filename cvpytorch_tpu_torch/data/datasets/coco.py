@@ -21,7 +21,9 @@ equal to ``cv2.imread``), polygons rasterised by ``imgproc.fill_poly``
 * ``CocoSegmentation`` adds ``masks``: each instance's polygons or RLE
   rasterised on the image and resized (nearest) to ``MASK_SIZE``².
 
-``CocoKeypoint`` is not ported (ROADMAP, keypoints).
+* ``CocoKeypoint`` adds ``keypoints`` (N, 17, 3) (an annotation without
+  them gives zeros) and the annotation ``areas``, which the OKS protocol
+  normalises by (the box area where an annotation has no ``area``).
 """
 from __future__ import annotations
 
@@ -162,4 +164,21 @@ class CocoSegmentation(CocoDetection):
             sample["target"]["masks"] = (
                 np.stack(masks) if masks
                 else np.zeros((0, self.mask_size, self.mask_size), np.float32))
+        return sample
+
+
+@DATASETS.register(name="CocoKeypoint")
+class CocoKeypoint(CocoDetection):
+    """Person boxes with their 17 COCO keypoints and annotation areas."""
+
+    def _load_one(self, idx: int) -> dict:
+        sample = super()._load_one(idx)
+        anns = self.items[idx]["anns"]
+        if sample["target"] is not None:
+            kps = [np.asarray(a.get("keypoints", [0] * 51), np.float32).reshape(-1, 3)
+                   for a in anns]
+            sample["target"]["keypoints"] = (
+                np.stack(kps) if kps else np.zeros((0, 17, 3), np.float32))
+            sample["target"]["areas"] = np.asarray(
+                [a.get("area") or (a["bbox"][2] * a["bbox"][3]) for a in anns], np.float32)
         return sample

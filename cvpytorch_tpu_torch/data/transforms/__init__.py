@@ -3,8 +3,8 @@
 
 The task namespace is selected by the dictionary name
 (``DATASET.DICTIONARY_NAME``) and the pipeline is the *ordered*
-``TRANSFORMS:`` mapping of TransformName → kwargs.  The port has the
-classification, detection and segmentation namespaces so far.
+``TRANSFORMS:`` mapping of TransformName → kwargs: the classification,
+segmentation, detection (and instance) and keypoint namespaces.
 """
 from __future__ import annotations
 
@@ -38,6 +38,10 @@ def _get_namespace(task: str) -> dict:
         from .det_transforms import DET_TRANSFORMS
 
         return DET_TRANSFORMS
+    if task == "keypoint":
+        from .keypoint_transforms import KEYPOINT_TRANSFORMS
+
+        return KEYPOINT_TRANSFORMS
     raise KeyError(f"no transform namespace for task {task!r} in the port yet")
 
 

@@ -668,8 +668,8 @@ def make_det_collate(max_boxes: int = 64):
     """Padded fixed-shape detection batch: targets padded to ``max_boxes``
     with a validity mask, plus the letterbox ``pads``/``scales``, the image
     ``height``/``width``, ``image_id`` and, when the samples carry them,
-    the instance ``masks`` (B, max_boxes, Hm, Wm).  (The JAX collate also
-    pads keypoints and areas; they come with the keypoint family.)"""
+    the instance ``masks`` (B, max_boxes, Hm, Wm), the ``keypoints``
+    (B, max_boxes, K, 3) and the annotation ``areas`` (B, max_boxes)."""
 
     def det_collate(samples):
         images = np.stack([s["image"] for s in samples])
@@ -682,7 +682,7 @@ def make_det_collate(max_boxes: int = 64):
         heights = np.zeros((B,), np.int32)
         widths = np.zeros((B,), np.int32)
         img_ids = np.zeros((B,), np.int64)
-        masks = None
+        masks = kpts = areas = None
         for i, s in enumerate(samples):
             t = s.get("target")
             heights[i], widths[i] = s["image"].shape[:2]
@@ -698,6 +698,15 @@ def make_det_collate(max_boxes: int = 64):
                         mh = t["masks"].shape[-1]
                         masks = np.zeros((B, max_boxes, mh, mh), np.float32)
                     masks[i, :n] = t["masks"][:n]
+                if t.get("keypoints") is not None and len(t["keypoints"]):
+                    if kpts is None:
+                        kpts = np.zeros((B, max_boxes, t["keypoints"].shape[1], 3), np.float32)
+                    kpts[i, :n] = t["keypoints"][:n]
+                if t.get("areas") is not None and len(t["areas"]):
+                    # the OKS protocol normalises by annotation areas
+                    if areas is None:
+                        areas = np.zeros((B, max_boxes), np.float32)
+                    areas[i, :n] = t["areas"][:n]
             pads[i] = t.get("pads", (0, 0))
             scales[i] = t.get("scales", (1, 1))
             if "height" in t:
@@ -710,8 +719,9 @@ def make_det_collate(max_boxes: int = 64):
             "pads": pads, "scales": scales,
             "height": heights, "width": widths,
         }
-        if masks is not None:
-            target["masks"] = masks
+        for key, value in (("masks", masks), ("keypoints", kpts), ("areas", areas)):
+            if value is not None:
+                target[key] = value
         return {"image": images, "target": target, "image_id": img_ids}
 
     return det_collate

@@ -31,11 +31,12 @@ import numpy as np
 _COEF_SCALE = 2048  # OpenCV's INTER_RESIZE_COEF_SCALE (11 bits)
 
 
-def _linear_taps(n_in: int, n_out: int, clamp: bool):
+def _linear_taps(n_in: int, n_out: int, clamp: bool, factor: float | None = None):
     """Source index and 11-bit weights of each output position, as
     OpenCV's ``resize`` computes them; ``clamp`` is the horizontal rule
-    (an out-of-range source takes the edge pixel with weight 1)."""
-    scale = 1.0 / (n_out / n_in)
+    (an out-of-range source takes the edge pixel with weight 1).
+    ``factor``: the ``fx``/``fy`` OpenCV was given instead of a size."""
+    scale = 1.0 / (factor if factor is not None else n_out / n_in)
     f = ((np.arange(n_out, dtype=np.float64) + 0.5) * scale - 0.5).astype(np.float32)
     s = np.floor(f).astype(np.int64)
     f = f - s.astype(np.float32)
@@ -53,23 +54,26 @@ def _window(n: int, sel: slice | None) -> np.ndarray:
     return np.arange(n)[sel if sel is not None else slice(None)]
 
 
-def _is_exact_half(n_in: int, n_out: int) -> bool:
-    scale = 1.0 / (n_out / n_in)
+def _is_exact_half(n_in: int, n_out: int, factor: float | None = None) -> bool:
+    scale = 1.0 / (factor if factor is not None else n_out / n_in)
     return abs(scale - 2) < np.finfo(np.float64).eps
 
 
-def resize_linear(img: np.ndarray, size: tuple[int, int], rows: slice | None = None,
-                  cols: slice | None = None) -> np.ndarray:
+def resize_linear(img: np.ndarray, size: tuple[int, int] | None, rows: slice | None = None,
+                  cols: slice | None = None, fxy: float | None = None) -> np.ndarray:
     """uint8 (H, W) or (H, W, C) → (h, w[, C]) for ``size`` = (h, w), or
-    its ``rows`` × ``cols`` window."""
+    its ``rows`` × ``cols`` window.  ``fxy`` (``size`` None) is
+    ``cv2.resize(img, None, fx=fxy, fy=fxy)``: the size is the rounded
+    H·fxy × W·fxy and the source positions step by 1 / fxy, not by the
+    ratio of the sizes."""
     if img.dtype != np.uint8:
         raise TypeError(f"resize_linear takes uint8 images, not {img.dtype}")
     H, W = img.shape[:2]
-    oh, ow = size
+    oh, ow = size if size is not None else (int(np.rint(H * fxy)), int(np.rint(W * fxy)))
     ys, xs = _window(oh, rows), _window(ow, cols)
-    if (oh, ow) == (H, W):
+    if (oh, ow) == (H, W) and (fxy is None or fxy == 1.0):
         return np.ascontiguousarray(img[ys[:, None], xs[None, :]])
-    if _is_exact_half(H, oh) and _is_exact_half(W, ow):
+    if _is_exact_half(H, oh, fxy) and _is_exact_half(W, ow, fxy):
         # OpenCV's 2×2 area mean on the window's source block: row pairs,
         # then column pairs
         block = img[2 * ys[0]:2 * ys[-1] + 2, 2 * xs[0]:2 * xs[-1] + 2]
@@ -79,8 +83,8 @@ def resize_linear(img: np.ndarray, size: tuple[int, int], rows: slice | None = N
         out += 2
         out >>= 2
         return out.astype(np.uint8).reshape((len(ys), len(xs)) + img.shape[2:])
-    sx, a0, a1 = (t[xs] for t in _linear_taps(W, ow, clamp=True))
-    sy, b0, b1 = (t[ys] for t in _linear_taps(H, oh, clamp=False))
+    sx, a0, a1 = (t[xs] for t in _linear_taps(W, ow, clamp=True, factor=fxy))
+    sy, b0, b1 = (t[ys] for t in _linear_taps(H, oh, clamp=False, factor=fxy))
     sx1 = np.minimum(sx + 1, W - 1)
     r0, r1 = np.clip(sy, 0, H - 1), np.clip(sy + 1, 0, H - 1)
     need = np.unique(np.concatenate([r0, r1]))

@@ -1,10 +1,11 @@
-"""COCO-protocol box and mask evaluator (a copy of the bbox and segm paths
-of ``cvpytorch_tpu/evaluator/coco.py``, numpy only).
+"""COCO-protocol box, mask and keypoint evaluator (a copy of
+``cvpytorch_tpu/evaluator/coco.py``, numpy; OpenPose's people assembled by
+``ops/paf``'s host code).
 
 Protocol (pycocotools ``cocoeval.py`` semantics):
 * IoU thresholds 0.50:0.05:0.95, 101 recall points;
 * area ranges all/small/medium/large on GT (and unmatched-det) areas;
-* maxDets sweep [1, 10, 100];
+* maxDets sweep [1, 10, 100] (keypoints: [20], and no 'small' range);
 * crowd GT are ignore-matched with IoU = intersection/det_area and may
   match many detections;
 * greedy best-IoU matching in score order, non-ignored GT preferred;
@@ -12,10 +13,15 @@ Protocol (pycocotools ``cocoeval.py`` semantics):
   pixels: masks of 256² or more through the host C RLE codec (run-merge
   intersection, ``native.rle_iou``), smaller ones as one product of the
   flattened masks (``_mask_iou_dense``), as the JAX evaluator does;
+* keypoints: OKS (``_oks_iou``, pycocotools' ``computeOks``) normalised by
+  the annotation areas the dataset carries (box areas without them);
+  bottom-up predictions (OpenPose's peaks, scores and ``conns``) are
+  assembled into people on the host first (``ops/paf``);
 * the 12-metric summary (mAP, AP_50, AP_75, AP_small/medium/large,
-  Recall_1/10/100, Recall_small/medium/large) of each IoU type, prefixed
-  ``bbox_`` / ``segm_``, and ``performance`` = the ``eval_type`` metric
-  (``mAP`` is the bbox one).
+  Recall_1/10/100, Recall_small/medium/large; for keypoints the 8 of
+  its ranges and maxDets) of each IoU type, prefixed ``bbox_`` /
+  ``segm_`` / ``keypoints_``, and ``performance`` = the ``eval_type``
+  metric (``mAP`` is the bbox one).
 
 Matching runs in host C (``native.coco_match_areas``: every area range
 of one image and category in one call), as the JAX evaluator's does;
@@ -27,6 +33,7 @@ from __future__ import annotations
 import numpy as np
 
 from .. import native
+from ..ops import paf
 from ..registry import EVALUATORS
 from .base import BaseEvaluator
 
@@ -40,6 +47,13 @@ AREA_RNG = {
     "large": (96.0 ** 2, 1e10),
 }
 AREA_KEYS = ("all", "small", "medium", "large")
+# keypoint protocol (pycocotools' kpt Params): maxDets [20], no 'small'
+KPT_MAX_DETS = (20,)
+KPT_AREA_KEYS = ("all", "medium", "large")
+# per-keypoint OKS constants of the 17 COCO keypoints (cocoeval.py)
+COCO_SIGMAS = np.array([
+    .26, .25, .25, .35, .35, .79, .79, .72, .72, .62, .62,
+    1.07, 1.07, .87, .87, .89, .89]) / 10.0
 
 
 def _box_iou(dt, gt, crowd):
@@ -94,6 +108,36 @@ def _box_areas(b):
     return np.clip(b[:, 2] - b[:, 0], 0, None) * np.clip(b[:, 3] - b[:, 1], 0, None)
 
 
+def _oks_iou(dt_kpts, gt_kpts, gt_boxes, gt_areas, crowd):
+    """Object-keypoint-similarity matrix (D, G) (pycocotools'
+    ``computeOks``): keypoints with v > 0 count; a GT with none labelled
+    falls back to the distance outside its box widened by its size."""
+    D, G = len(dt_kpts), len(gt_kpts)
+    out = np.zeros((D, G))
+    if D == 0 or G == 0:
+        return out
+    K = gt_kpts.shape[1]
+    sigmas = COCO_SIGMAS if K == len(COCO_SIGMAS) else np.full(K, float(COCO_SIGMAS.mean()))
+    var2 = (sigmas * 2.0) ** 2
+    for j in range(G):
+        xg, yg, vg = gt_kpts[j, :, 0], gt_kpts[j, :, 1], gt_kpts[j, :, 2]
+        k1 = int((vg > 0).sum())
+        x1, y1, x2, y2 = gt_boxes[j]
+        w, h = x2 - x1, y2 - y1
+        for i in range(D):
+            xd, yd = dt_kpts[i, :, 0], dt_kpts[i, :, 1]
+            if k1 > 0:
+                dx, dy = xd - xg, yd - yg
+            else:
+                dx = np.maximum(0, (x1 - w) - xd) + np.maximum(0, xd - (x2 + w))
+                dy = np.maximum(0, (y1 - h) - yd) + np.maximum(0, yd - (y2 + h))
+            e = (dx ** 2 + dy ** 2) / var2 / (gt_areas[j] + np.spacing(1)) / 2.0
+            if k1 > 0:
+                e = e[vg > 0]
+            out[i, j] = np.exp(-e).sum() / e.shape[0]
+    return out
+
+
 def _evaluate_img(ious, gt_ignore_base, gt_crowd, gt_areas, dt_areas,
                   area_rng):
     """COCOeval's evaluateImg matching for one (img, cat, areaRng): the
@@ -134,26 +178,30 @@ def _evaluate_img(ious, gt_ignore_base, gt_crowd, gt_areas, dt_areas,
 
 
 class COCOEval:
-    """Accumulates per-image records of one IoU type ('bbox' or 'segm') and
-    produces the 12 COCO stats."""
+    """Accumulates per-image records of one IoU type ('bbox', 'segm' or
+    'keypoints') and produces its COCO stats."""
 
     def __init__(self, num_classes: int, iou_type: str = "bbox"):
-        if iou_type not in ("bbox", "segm"):
-            raise ValueError(f"iou_type {iou_type!r}: the port evaluates "
-                             "bbox and segm (keypoints: ROADMAP, Queue 1)")
+        if iou_type not in ("bbox", "segm", "keypoints"):
+            raise ValueError(f"iou_type {iou_type!r}: one of bbox, segm, keypoints")
         self.num_classes = num_classes
         self.iou_type = iou_type
+        kpt = iou_type == "keypoints"
+        self.max_dets = KPT_MAX_DETS if kpt else MAX_DETS
+        self.area_keys = KPT_AREA_KEYS if kpt else AREA_KEYS
         self.reset()
 
     def reset(self):
         # records[c][area] = list over images of
         #   (scores (D,), dtm (T,D), dtig (T,D), npig)
-        self.records = [{a: [] for a in AREA_KEYS} for _ in range(self.num_classes)]
+        self.records = [{a: [] for a in self.area_keys} for _ in range(self.num_classes)]
 
     def add_image(self, gt_boxes, gt_labels, det_boxes, det_scores,
-                  det_labels, gt_crowd=None, gt_masks=None, det_masks=None):
+                  det_labels, gt_crowd=None, gt_masks=None, det_masks=None,
+                  gt_kpts=None, det_kpts=None, gt_ann_areas=None):
         """All arrays unpadded, boxes xyxy original-image pixels; segm
-        takes the (n, Hm, Wm) masks too."""
+        takes the (n, Hm, Wm) masks too, keypoints the (n, K, 3) keypoints
+        and optionally the GT annotation areas."""
         gt_boxes = np.asarray(gt_boxes, np.float64).reshape(-1, 4)
         gt_labels = np.asarray(gt_labels).reshape(-1)
         det_boxes = np.asarray(det_boxes, np.float64).reshape(-1, 4)
@@ -169,20 +217,27 @@ class COCOEval:
                 continue
             gb, crowd = gt_boxes[g_sel], gt_crowd[g_sel]
             db, ds = det_boxes[d_sel], det_scores[d_sel]
-            order = np.argsort(-ds, kind="stable")[:MAX_DETS[-1]]
+            order = np.argsort(-ds, kind="stable")[:self.max_dets[-1]]
             db, ds = db[order], ds[order]
             if self.iou_type == "segm":
                 gm = np.asarray(gt_masks)[g_sel]
                 dm = np.asarray(det_masks)[d_sel][order]
                 ious = _mask_iou(dm, gm, crowd)
                 gt_areas, dt_areas = _mask_areas(gm), _mask_areas(dm)
+            elif self.iou_type == "keypoints":
+                gk = np.asarray(gt_kpts)[g_sel]
+                dk = np.asarray(det_kpts)[d_sel][order]
+                gt_areas = (np.asarray(gt_ann_areas, float)[g_sel]
+                            if gt_ann_areas is not None else _box_areas(gb))
+                dt_areas = _box_areas(db)
+                ious = _oks_iou(dk, gk, gb, gt_areas, crowd)
             else:
                 ious = _box_iou(db, gb, crowd)
                 gt_areas, dt_areas = _box_areas(gb), _box_areas(db)
             dtm, dtig, npig = native.coco_match_areas(
                 ious, IOU_THRS, crowd, crowd, gt_areas, dt_areas,
-                [AREA_RNG[a] for a in AREA_KEYS])
-            for i, a in enumerate(AREA_KEYS):
+                [AREA_RNG[a] for a in self.area_keys])
+            for i, a in enumerate(self.area_keys):
                 self.records[c][a].append((ds, dtm[i], dtig[i], int(npig[i])))
 
     def _pr_curves(self, c, area, max_det):
@@ -224,16 +279,16 @@ class COCOEval:
         C, T = self.num_classes, len(IOU_THRS)
         cells_ap = {}   # area -> (C, T) with nan
         cells_ar = {}   # (area, maxdet) -> (C, T)
-        for area in AREA_KEYS:
+        for area in self.area_keys:
             ap_mat = np.full((C, T), np.nan)
             for c in range(C):
-                ap, _ = self._pr_curves(c, area, MAX_DETS[-1])
+                ap, _ = self._pr_curves(c, area, self.max_dets[-1])
                 if ap is not None:
                     ap_mat[c] = ap
             cells_ap[area] = ap_mat
-        for area in AREA_KEYS:
-            for md in MAX_DETS:
-                if area != "all" and md != MAX_DETS[-1]:
+        for area in self.area_keys:
+            for md in self.max_dets:
+                if area != "all" and md != self.max_dets[-1]:
                     continue
                 ar_mat = np.full((C, T), np.nan)
                 for c in range(C):
@@ -251,12 +306,12 @@ class COCOEval:
             "AP_50": mean(cells_ap["all"][:, 0]),
             "AP_75": mean(cells_ap["all"][:, i75]),
         }
-        for area in AREA_KEYS[1:]:
+        for area in self.area_keys[1:]:
             stats[f"AP_{area}"] = mean(cells_ap[area])
-        for md in MAX_DETS:
+        for md in self.max_dets:
             stats[f"Recall_{md}"] = mean(cells_ar[("all", md)])
-        for area in AREA_KEYS[1:]:
-            stats[f"Recall_{area}"] = mean(cells_ar[(area, MAX_DETS[-1])])
+        for area in self.area_keys[1:]:
+            stats[f"Recall_{area}"] = mean(cells_ar[(area, self.max_dets[-1])])
         allc = cells_ap["all"]
         self._per_class_ap = np.where(
             np.isnan(allc).all(axis=1), np.nan,
@@ -288,7 +343,16 @@ class CocoEvaluator(BaseEvaluator):
         """targets: padded dict {'boxes','labels','valid','pads','scales'
         [,'crowd'][,'masks']} (GT in network pixels, un-letterboxed here);
         preds: the NMS output dict, already un-letterboxed by the model,
-        with 'masks' (B, K, Hm, Wm) pasted instance masks for segm."""
+        with 'masks' (B, K, Hm, Wm) pasted instance masks for segm and
+        'keypoints' (B, K, 17, 3) for keypoints (original pixels; GT
+        keypoints are un-letterboxed here).  A bottom-up model's decode
+        pieces ('peaks_xy', 'peaks_score', 'conns', 'stride') are
+        assembled into people here first."""
+        if "conns" in preds:
+            xy, sc, cn = (np.asarray(preds[k]) for k in ("peaks_xy", "peaks_score", "conns"))
+            decoded = [paf.assemble_instances(xy[b], sc[b], cn[b]) for b in range(len(xy))]
+            preds = paf.instances_to_eval(decoded, stride=float(np.asarray(preds["stride"])[0]),
+                                          targets=targets)
         t_boxes = np.asarray(targets["boxes"])
         t_labels = np.asarray(targets["labels"])
         t_valid = np.asarray(targets["valid"])
@@ -313,6 +377,14 @@ class CocoEvaluator(BaseEvaluator):
                 if t == "segm":
                     kw = dict(gt_masks=np.asarray(targets["masks"])[i][gv],
                               det_masks=np.asarray(preds["masks"])[i][pv])
+                elif t == "keypoints":
+                    gk = np.asarray(targets["keypoints"])[i][gv].copy()
+                    if len(gk):
+                        gk[..., 0] = (gk[..., 0] - pads[i, 0]) / scales[i, 0]
+                        gk[..., 1] = (gk[..., 1] - pads[i, 1]) / scales[i, 1]
+                    kw = dict(gt_kpts=gk, det_kpts=np.asarray(preds["keypoints"])[i][pv])
+                    if "areas" in targets:
+                        kw["gt_ann_areas"] = np.asarray(targets["areas"])[i][gv]
                 ev.add_image(gb, t_labels[i][gv], p_boxes[i][pv],
                              p_scores[i][pv], p_labels[i][pv],
                              gt_crowd=t_crowd[i][gv], **kw)

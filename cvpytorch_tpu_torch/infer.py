@@ -10,7 +10,12 @@ runs the predict step over the loader and writes ``out_dir/predictions.json``
 ids, one an image, as the JAX CLI writes them — or for segmentation
 (``SEG_CLASSES``) one 8-bit palette PNG a prediction,
 ``out_dir/{index:06d}.png`` with ``CITYSCAPES_PALETTE``, written by
-``data/png.py``.
+``data/png.py``.  Keypoints (``KEYPOINT_CLASSES``): a heatmap model's
+decoded (B, K, 3) flattened into one list, as the JAX CLI writes it; a
+bottom-up model's maps (OpenPose) decoded into people
+(``ops/paf.openpose_decode``, ``instances_to_eval``), one
+``{'keypoints', 'boxes', 'scores'}`` an image in original pixels (the JAX
+CLI cannot write that dict).
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA that
 raises.  Serving is float32: making the predict step turns both TF32
@@ -35,13 +40,14 @@ from .config import CommonConfiguration, load_dictionary
 from .data.loader import DataLoader
 from .data.png import write_palette_png
 from .data.transforms import build_transforms
+from .ops import paf
 from .registry import DATASETS, MODELS
 from .train_state import make_predict_step
 from .utils.checkpoints import Checkpoints
 
 logger = logging.getLogger("cvpytorch_tpu_torch")
 
-TASKS = ("CLS_CLASSES", "DET_CLASSES", "INS_CLASSES", "SEG_CLASSES")
+TASKS = ("CLS_CLASSES", "DET_CLASSES", "INS_CLASSES", "SEG_CLASSES", "KEYPOINT_CLASSES")
 LETTERBOX_KEYS = ("pads", "scales")  # infer-stage batch keys the model takes
 
 # Cityscapes palette, one RGB triple per train id
@@ -67,8 +73,8 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-# The JAX package's models the port lacks yet → their ROADMAP item
-NOT_PORTED = {"LitePose": "9", "OpenPose": "9", "SimplePose": "9"}
+# The JAX package's models the port lacks yet → their ROADMAP item (none)
+NOT_PORTED: dict[str, str] = {}
 
 
 def build_model(cfg, dictionary, dataset=None) -> torch.nn.Module:
@@ -95,6 +101,20 @@ def build_model(cfg, dictionary, dataset=None) -> torch.nn.Module:
                      **extra)
 
 
+def keypoint_results(preds, images, targets) -> list:
+    """A keypoint batch's entries of ``predictions.json``: the flattened
+    (B, K, 3) decode, or one dict of people an image for a bottom-up
+    model's maps."""
+    if not isinstance(preds, dict):
+        return preds.cpu().numpy().reshape(-1).tolist()
+    stride = images.shape[1] // preds["heatmaps"].shape[1]
+    people = paf.instances_to_eval(paf.openpose_decode(preds["heatmaps"], preds["pafs"]),
+                                   stride, {k: v.cpu().numpy() for k, v in targets.items()})
+    return [{key: people[key][i][people["valid"][i]].tolist()
+             for key in ("keypoints", "boxes", "scores")}
+            for i in range(len(people["valid"]))]
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser("cvpytorch_tpu_torch infer")
     parser.add_argument("--setting", required=True)
@@ -112,8 +132,8 @@ def main(argv=None):
     dictionary_name = cfg.DATASET.DICTIONARY_NAME or "CLS_CLASSES"
     if dictionary_name not in TASKS:
         raise NotImplementedError(
-            f"the port serves classification, detection and segmentation only "
-            f"so far, not {dictionary_name} (ROADMAP, Queue 1)")
+            f"the port serves classification, detection, segmentation and keypoints, "
+            f"not {dictionary_name}")
 
     from .data import datasets as _d  # noqa: F401 (registers)
 
@@ -146,6 +166,9 @@ def main(argv=None):
             continue
         targets = {k: torch.from_numpy(np.stack(batch[k])).to(device)
                    for k in LETTERBOX_KEYS if k in batch}
+        if dictionary_name == "KEYPOINT_CLASSES":
+            results.extend(keypoint_results(predict(images, targets), images, targets))
+            continue
         preds = {k: v.cpu().numpy() for k, v in predict(images, targets).items()}
         for i in range(len(batch["image"])):
             v = preds["valid"][i]

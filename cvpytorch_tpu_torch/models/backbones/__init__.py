@@ -8,7 +8,7 @@ from ...registry import BACKBONES
 
 from . import (  # noqa: F401  (registers)
     csp_darknet, custom_cspnet, efficientnet, efficientnet_lite, lfd_resnet, mobilenetv2, repvgg,
-    resnet, seg_light, seg_transformers, shufflenetv2)
+    resnet, seg_light, seg_transformers, shufflenetv2, vgg)
 
 
 def build_backbone(cfg):

@@ -38,7 +38,7 @@ def resize_bilinear(x, size):
 
 @functools.lru_cache(maxsize=64)
 def _linear_weights(n_in: int, n_out: int) -> torch.Tensor:
-    """(n_in, n_out) float32 weights of ``jax.image.resize``'s "linear"
+    """(n_in, n_out) float64 weights of ``jax.image.resize``'s "linear"
     kernel along one axis (``jax._src.image.scale.compute_weight_mat``): a
     triangle widened by the downscale factor, each column renormalised,
     columns whose sample lies off the input zeroed."""
@@ -50,13 +50,14 @@ def _linear_weights(n_in: int, n_out: int) -> torch.Tensor:
     w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
                  w / np.where(total != 0, total, 1), 0.0)
     w = np.where(((sample >= -0.5) & (sample <= n_in - 0.5))[None, :], w, 0.0)
-    return torch.from_numpy(w.astype(np.float32))
+    return torch.from_numpy(w)
 
 
 def resize_linear(x, size):
     """NCHW ``jax.image.resize(..., "linear")``: bilinear with half-pixel
     centres, antialiased when it downsamples, as two matmuls with the JAX
-    weights in float32 (float64 for a float64 ``x``), returned in ``x``'s
+    weights in float32 (float64 for a float64 ``x``: the weights are
+    rounded to float32 only for a float32 product), returned in ``x``'s
     dtype.  ``F.interpolate(..., antialias=True)`` computes the same but
     takes no bfloat16 on the CPU, and on the card refuses a large
     downscale (64×128 → 1×1: too much shared memory)."""

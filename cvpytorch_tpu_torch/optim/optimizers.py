@@ -27,15 +27,28 @@ chain on the parameters' ``.grad``:
 * ``ACCUMULATE_STEPS`` k averages k gradients with optax's running mean
   and applies once; only applied updates advance ``count``.
 
-SGD, Adam and AdamW are ported; the other names raise.
+SGD, Adam and AdamW run on ``torch.optim``'s; Adadelta, RMSprop, RAdam,
+AdaBelief and Ranger are written here as optax 0.2.6 computes them
+(``torch.optim``'s differ: RMSprop's eps outside the root, RAdam's
+threshold, no belief ``eps_root``, Ranger's lookahead):
+
+* ``Adadelta``: ``scale_by_adadelta(rho=0.9, eps=1e-6)``;
+* ``RMSprop``: ``scale_by_rms(decay=0.9, eps)`` (eps inside the root),
+  then the rate, then ``trace(momentum)`` (a trace of the scaled updates,
+  kept at momentum 0 too);
+* ``RAdam``: ``scale_by_radam(b1, b2, eps, eps_root=0, threshold=5)``;
+* ``AdaBelief``: ``scale_by_belief(b1, b2, eps=1e-16, eps_root=1e-16)``;
+* ``Ranger``: RAdam (betas 0.95, 0.999, eps 1e-5), the rate, then
+  ``ema(0.8, debias=False)`` of the updates (not a lookahead), as the JAX
+  package chains them.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from ..registry import OPTIMIZERS
-
-NOT_PORTED = ("Adadelta", "RMSprop", "RAdam", "AdaBelief", "Ranger")
 
 
 def leaf_label(name: str, p: torch.Tensor) -> str:
@@ -143,6 +156,132 @@ class AdamW(_Chain, torch.optim.AdamW):
     pass
 
 
+class _OptaxRule(torch.optim.Optimizer):
+    """An optax ``scale_by_*`` rule and ``scale_by_learning_rate`` on each
+    parameter of a group, after the coupled decay of the group's
+    ``weight_decay`` (``add_decayed_weights``); ``_update`` returns the
+    update that is added to the parameter.  Moments follow optax's
+    operation order, ``(1 − d)·g^k + d·m``."""
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, **defaults):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, **defaults))
+
+    @staticmethod
+    def moment(state, key, g, decay: float, order: int):
+        m = state.get(key)
+        new = (1 - decay) * g ** order + (decay * m if m is not None else 0.0)
+        state[key] = new
+        return new
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            for p in group["params"]:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                if group["weight_decay"]:
+                    g = g + group["weight_decay"] * p
+                state = self.state[p]
+                state["count"] = state.get("count", 0) + 1
+                p.add_(self._update(g, state, group))
+
+
+def _radam(g, state, b1: float, b2: float, eps: float, threshold: float = 5.0):
+    """``scale_by_radam`` (eps_root 0): the rectified Adam direction once
+    the variance's degrees of freedom reach ``threshold``, else the
+    bias-corrected first moment."""
+    mu = _OptaxRule.moment(state, "mu", g, b1, 1)
+    nu = _OptaxRule.moment(state, "nu", g, b2, 2)
+    t = state["count"]
+    ro_inf = 2.0 / (1.0 - b2) - 1.0
+    b2t = b2 ** t
+    ro = ro_inf - 2 * t * b2t / (1 - b2t)
+    mu_hat = mu / (1 - b1 ** t)
+    if ro < threshold:
+        return mu_hat
+    r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+    return r * mu_hat / (torch.sqrt(nu / (1 - b2t)) + eps)
+
+
+class _AdadeltaRule(_OptaxRule):
+    def _update(self, g, state, group):
+        rho, eps = group["rho"], group["eps"]
+        e_g = self.moment(state, "e_g", g, rho, 2)
+        prev = state.get("e_x", torch.zeros_like(g))
+        u = torch.sqrt(prev + eps) / torch.sqrt(e_g + eps) * g
+        self.moment(state, "e_x", u, rho, 2)
+        return u * -group["lr"]
+
+
+class _RMSpropRule(_OptaxRule):
+    def _update(self, g, state, group):
+        nu = self.moment(state, "nu", g, 0.9, 2)
+        u = torch.rsqrt(nu + group["eps"]) * g * -group["lr"]
+        trace = state.get("trace")
+        trace = u if trace is None else u + group["momentum"] * trace
+        state["trace"] = trace
+        return trace
+
+
+class _RAdamRule(_OptaxRule):
+    def _update(self, g, state, group):
+        b1, b2 = group["betas"]
+        return _radam(g, state, b1, b2, group["eps"]) * -group["lr"]
+
+
+class _AdaBeliefRule(_OptaxRule):
+    def _update(self, g, state, group):
+        b1, b2 = group["betas"]
+        mu = self.moment(state, "mu", g, b1, 1)
+        nu = self.moment(state, "nu", g - mu, b2, 2) + group["eps_root"]
+        state["nu"] = nu
+        t = state["count"]
+        u = (mu / (1 - b1 ** t)) / (torch.sqrt(nu / (1 - b2 ** t)) + group["eps"])
+        return u * -group["lr"]
+
+
+class _RangerRule(_OptaxRule):
+    def _update(self, g, state, group):
+        b1, b2 = group["betas"]
+        u = _radam(g, state, b1, b2, group["eps"]) * -group["lr"]
+        return self.moment(state, "ema", u, 0.8, 1)
+
+
+@OPTIMIZERS.register(name="Adadelta")
+class Adadelta(_Chain, _AdadeltaRule):
+    pass
+
+
+@OPTIMIZERS.register(name="RMSprop")
+class RMSprop(_Chain, _RMSpropRule):
+    pass
+
+
+@OPTIMIZERS.register(name="RAdam")
+class RAdam(_Chain, _RAdamRule):
+    pass
+
+
+@OPTIMIZERS.register(name="AdaBelief")
+class AdaBelief(_Chain, _AdaBeliefRule):
+    pass
+
+
+@OPTIMIZERS.register(name="Ranger")
+class Ranger(_Chain, _RangerRule):
+    pass
+
+
+# the JAX constructors' defaults of the hand-written rules (the configs
+# set momentum and betas only)
+_RULE_DEFAULTS = {
+    "Adadelta": {"rho": 0.9, "eps": 1e-6},
+    "RMSprop": {"momentum": 0.0, "eps": 1e-8},
+    "RAdam": {"betas": (0.9, 0.999), "eps": 1e-8},
+    "AdaBelief": {"betas": (0.9, 0.999), "eps": 1e-16, "eps_root": 1e-16},
+    "Ranger": {"betas": (0.95, 0.999), "eps": 1e-5},
+}
+
+
 def build_optimizer(cfg, model: torch.nn.Module, lr_schedule):
     """The optimizer for ``model`` from a trainer config.
 
@@ -153,10 +292,6 @@ def build_optimizer(cfg, model: torch.nn.Module, lr_schedule):
     opt_cfg = cfg.OPTIMIZER or {}
     get = opt_cfg.get
     opt_type = get("TYPE", "SGD") or "SGD"
-    if opt_type in NOT_PORTED:
-        raise NotImplementedError(
-            f"optimizer {opt_type!r} is not ported yet (ROADMAP, Queue 1): "
-            "the port has SGD, Adam and AdamW")
 
     kwargs = {}
     if get("MOMENTUM") is not None:
@@ -188,6 +323,10 @@ def build_optimizer(cfg, model: torch.nn.Module, lr_schedule):
             return {"momentum": momentum,
                     "nesterov": bool(kw.get("nesterov", False)) and momentum > 0,
                     "weight_decay": decay}
+        if opt_type in _RULE_DEFAULTS:
+            rule = dict(_RULE_DEFAULTS[opt_type])
+            rule.update({k: kw[k] for k in ("momentum", "betas") if k in kw and k in rule})
+            return {**rule, "weight_decay": decay}
         return {"betas": kw.get("betas", (0.9, 0.999)), "eps": 1e-8,
                 "weight_decay": decay}
 

@@ -15,7 +15,9 @@ normalise run on the device inside the train step, from a generator
 seeded by (SEED + 7919, step).  Classification (``CLS_CLASSES``) and
 segmentation (``SEG_CLASSES``) batches stack the images and the labels
 (class ids, or (H, W) label maps), and the evaluator gets the host labels
-and the argmax as uint8.  Single device: the JAX
+and the argmax as uint8; detection, instance and keypoint
+(``KEYPOINT_CLASSES``) batches are the padded detection collate's, with
+the keypoints and annotation areas when the dataset has them.  Single device: the JAX
 package's mesh (``PARALLEL``), ``PROFILER`` hook and ``AMP_BN_BF16_STATS``
 (bfloat16 BN moments) are not ported yet: each raises.
 """
@@ -81,8 +83,8 @@ class Trainer:
                                 if self.cfg.DATASET else None) or "CLS_CLASSES"
         if self.dictionary_name not in TASKS:
             raise NotImplementedError(
-                f"the port trains classification, detection and segmentation only "
-                f"so far, not {self.dictionary_name} (ROADMAP, Queue 1)")
+                f"the port trains classification, detection, segmentation and keypoints, "
+                f"not {self.dictionary_name}")
 
     def _parser_datasets(self):
         ds_cls = DATASETS.get(self.cfg.DATASET.CLASS)
@@ -262,11 +264,13 @@ class Trainer:
         return state
 
     def _host_predictions(self, preds):
-        """Detection dicts to numpy; an argmax (class ids, or (B, H, W)
-        maps) as uint8 (int32 past 256 classes), a quarter of its int64
-        copy."""
+        """Detection dicts and float predictions (decoded keypoints) to
+        numpy; an argmax (class ids, or (B, H, W) maps) as uint8 (int32
+        past 256 classes), a quarter of its int64 copy."""
         if isinstance(preds, dict):
             return {k: v.cpu().numpy() for k, v in preds.items()}
+        if preds.is_floating_point():
+            return preds.cpu().numpy()
         dtype = torch.uint8 if len(self.dictionary) <= 256 else torch.int32
         return preds.to(dtype).cpu().numpy()
 

@@ -43,15 +43,17 @@ DET_OTA_FCOS = ["coco_yolox_s", "coco_yolox_n", "coco_pai_yolox", "coco_pai_yolo
 # EfficientDet, AIRDet, GiraffeDet, ObjectBox, YOLOP and FastestDet
 DET_REST = ["coco_efficientdet", "coco_airdet", "coco_giraffedet", "coco_objectbox",
             "coco_yolop", "coco_fastestdet"]
+# the keypoint configs: OpenPose (VGG16-bn) and LitePose (MobileNetV2)
+KEYPOINT = ["coco_openpose", "coco_litepose"]
 NOW_BUILD = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "visdrone_yolov5",
              "coco_nanodetplus_m", "coco_nanodetplus", "mini-imagenet", "cityscapes_unet",
              "coco_maskrcnn"] + [f"cityscapes_segformer_b{i}" for i in range(6)] + [
              f"cityscapes_sfnet_r{d}" for d in (18, 50, 101)] + SEG_ZOO + DET_V1_V6 + DET_OTA_FCOS \
-    + DET_REST
+    + DET_REST + KEYPOINT
 
 
 # configs whose dataset class the port has: the COCO ones (CocoDetection,
-# CocoSegmentation), the JPEG classification folders, VOC and the
+# CocoSegmentation, CocoKeypoint), the JPEG classification folders, VOC and the
 # remaining datasets
 WITH_DATASET = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "coco_nanodetplus",
                 "coco_nanodetplus_m", "coco_maskrcnn", "mini-imagenet", "imagenet", "flower",
@@ -59,7 +61,7 @@ WITH_DATASET = ["coco_yolov5_s", "coco_yolov5", "coco_yolov5_m", "coco_nanodetpl
                 "pennfudan_maskrcnn", "pennfudan_fasterrcnn", "portrait", "portrait_unet",
                 "visdrone_yolov5", "voc_deeplabv3plus",
                 "cityscapes_segformer_b2", "cityscapes_sfnet_r18"] + SEG_ZOO + DET_V1_V6 \
-    + DET_OTA_FCOS + DET_REST
+    + DET_OTA_FCOS + DET_REST + KEYPOINT
 
 
 def build(path):
@@ -115,3 +117,14 @@ def main():
 
 if __name__ == "__main__":
     sys.exit(main())
+
+
+
+def test_census_reads_every_config():
+    """Every ``conf/*.yml`` builds its transforms and model in the port and
+    has its dataset class: 89 of 89 since ROADMAP item 9 (the keypoint
+    configs)."""
+    assert len(CONFIGS) == 89
+    failing = {os.path.basename(p): err for p in CONFIGS
+               if (err := build(p)) is not None or not has_dataset(p)}
+    assert not failing, failing

@@ -58,7 +58,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "'models.losses.objectbox_loss', 'models.yolop', 'models.necks.giraffe_neck', "
         "'models.heads.gflv2_head', 'models.airdet', 'models.giraffedet', "
         "'models.necks.nas_fpn', 'models.necks.rfp', 'models.anchors', "
-        "'models.anchors.prior_box'):\n"
+        "'models.anchors.prior_box', 'models.backbones.vgg', 'ops.paf', 'models.keypoint', "
+        "'data.transforms.keypoint_transforms', 'evaluator.keypoint'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )

@@ -323,8 +323,9 @@ def test_unported_paths_raise_naming_the_roadmap():
     """NanoDet v1 and its PAN and TAN necks are ported (tests/
     test_torch_nanodet_v1.py, test_torch_tan.py): they build, as do YOLOX,
     PAI-YOLOX, YOLOv7, FCOS, LFD, RetinaNet and, since ROADMAP item 7.6,
-    AIRDet, ObjectBox and the rest of item 7.  The keypoint models the
-    port still lacks raise naming their ROADMAP item."""
+    AIRDet, ObjectBox and the rest of item 7, and since item 9 the
+    keypoint models under the configs' names; no JAX model is left in
+    ``NOT_PORTED``, and a name no registry holds raises."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
     from cvpytorch_tpu_torch.infer import build_model
 
@@ -341,8 +342,14 @@ def test_unported_paths_raise_naming_the_roadmap():
         with torch.device("meta"):
             model = build_model(CommonConfiguration({"USE_MODEL": {"CLASS": cls}}), DICTIONARY)
         assert type(model).__name__ == cls.split(".")[-1].replace("PAI_", ""), cls
-    for cls, item in (("src.models.keypoint.LitePose", "9"),
-                      ("src.models.keypoint.OpenPose", "9")):
-        cfg = CommonConfiguration({"USE_MODEL": {"CLASS": cls}})
-        with pytest.raises(KeyError, match=f"Queue 1 item {item}"):
-            build_model(cfg, DICTIONARY)
+    from cvpytorch_tpu_torch.infer import NOT_PORTED
+
+    assert NOT_PORTED == {}
+    for cls in ("src.models.litepose.LitePose", "src.models.openpose.OpenPose",
+                "src.models.keypoint.SimplePose"):
+        with torch.device("meta"):
+            model = build_model(CommonConfiguration({"USE_MODEL": {"CLASS": cls}}), DICTIONARY)
+        assert type(model).__name__ == cls.split(".")[-1], cls
+    with pytest.raises(KeyError, match="unknown name"):
+        build_model(CommonConfiguration({"USE_MODEL": {"CLASS": "src.models.x.NoSuchModel"}}),
+                    DICTIONARY)

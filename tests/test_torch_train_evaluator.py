@@ -66,5 +66,12 @@ def test_build_evaluator_names():
     assert isinstance(seg, SegmentationEvaluator) and seg.num_classes == 3
     voc = build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "voc_detection"}}), DS())
     assert isinstance(voc, VOCEvaluator) and voc.num_classes == 3
+    from cvpytorch_tpu_torch.evaluator.keypoint import KeypointEvaluator
+
+    kpt = build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "keypoint",
+                                                             "EVAL_TYPE": "OKS"}}), DS())
+    assert isinstance(kpt, KeypointEvaluator) and kpt.eval_type == "OKS"
+    oks = build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "coco_keypoints"}}), DS())
+    assert isinstance(oks, CocoEvaluator) and oks.iou_types == ("bbox", "keypoints")
     with pytest.raises(KeyError, match="ROADMAP"):
-        build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "keypoint"}}), DS())
+        build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "pck_top_down"}}), DS())

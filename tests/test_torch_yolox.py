@@ -127,7 +127,10 @@ def check_train_losses_and_grads(jm, variables, tm, x, t, names, grad_tol=1e-6, 
         return
     total.backward()
     owners = dict(tm.named_modules())
-    grads = {n: p.grad.numpy() for n, p in tm.named_parameters()}
+    # a leaf the loss does not reach (a backbone stage after the last
+    # feature) has no gradient in torch and a zero one in JAX
+    grads = {n: p.grad.numpy() if p.grad is not None else np.zeros(tuple(p.shape))
+             for n, p in tm.named_parameters()}
     pairs = []
     for path, g in _flatten(jgrads):
         name = port_name("params", path, grads)
