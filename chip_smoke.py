@@ -68,7 +68,7 @@
    SGD 0.9 with weight decay 1e-4, PolyLR, warmup, batch 8, 512×1024
    crops with flip and photometric distortion) on SyntheticSegmentation
    at the 1024×2048 Cityscapes frame: trained through ``Trainer.run()``
-   (2 steps each), validated on 16 images (mIoU), the checkpoint served
+   (one step each), validated on 16 images (mIoU), the checkpoint served
    through ``infer.main`` as palette PNGs checked against the predict
    step's argmax; ``nms_keep`` is not launched on these paths.  Times the
    AMP and f32 train steps at batch 8 (CUDA events, peak memory), the
@@ -164,7 +164,7 @@
    ``Trainer.run()`` for 2 steps, bbox validation of 160 images
    (``nms_keep`` once, at (160, 1024)), one served batch through
    ``infer.main`` (once more; boxes the predict step's un-letterboxed); the
-   AMP and f32 steps at batch 160 (peak memory), the ATSS assignment alone,
+   AMP step at batch 160 (peak memory), the ATSS assignment alone,
    the val and predict steps; ``nms_keep`` bit-exact on the path's val
    input and timed; card vs CPU at B = 2, f32 (head outputs within 1e-4 of
    their largest value, ATSS ``matched_gt`` equal, losses 1e-4).
@@ -192,8 +192,8 @@
    directory's JPEG files: ``conf/coco_yolox_s.yml`` (Focus CSPDarknet,
    PAFPN, the decoupled head, SimOTA; mosaic + affine at 640², SGD,
    cosine, AMP, EMA; class and objectness biases at 0 so that the batches
-   hold detections) through ``Trainer.run()`` for 2 epochs of 2 steps at
-   bs32, bbox validation of 64 images after epoch 2 (``nms_keep`` once a
+   hold detections) through ``Trainer.run()`` for one epoch of 2 steps at
+   bs32, bbox validation of 64 images after it (``nms_keep`` once a
    batch), one served batch (once more); the AMP and f32 steps at bs32,
    the val and predict steps; ``nms_keep`` bit-exact on its (32, 1024) val
    input and timed; card vs CPU at B = 2 (head outputs 1e-4, SimOTA
@@ -213,9 +213,9 @@
 8g. Slice 14 (``slice14_phases``), each config as written on the COCO
    directory's JPEG files: ``conf/coco_efficientdet.yml`` (EfficientDet-D0:
    EfficientNet-B0, 3 BiFPN cells of 64 channels, the shared heads over
-   49,104 anchors at 512²) through ``Trainer.run()`` for 2 epochs of 2
-   steps at bs32, bbox validation of 64 images after epoch 2 (``nms_keep``
-   once a batch), one served batch (once more); the AMP and f32 steps, the
+   49,104 anchors at 512²) through ``Trainer.run()`` for one epoch of 2
+   steps at bs32, bbox validation of 64 images after it (``nms_keep``
+   once a batch), one served batch (once more); the AMP step, the
    val and predict steps; ``nms_keep`` bit-exact on its (32, 1024) val
    input and timed; card vs CPU at B = 2 (head outputs 1e-4, the loss's
    positive, negative and ignored anchors and best gts equal in f64 on
@@ -244,8 +244,8 @@
    predict, the decode's stages alone; card vs CPU at B = 2 (maps 1e-4,
    float64 targets 1e-12, f64 losses 1e-4, each decode stage on shared
    inputs).  ``conf/coco_litepose.yml`` as far as JAX runs it: 368² and
-   the collated keypoints refused as JAX fails on them, then at 384² AMP
-   and f32 steps on single-instance targets, a val decode, one served
+   the collated keypoints refused as JAX fails on them, then at 384² the
+   AMP step on single-instance targets, a val decode, one served
    batch, card vs CPU on the heatmaps.  SimplePose at 256² and the five
    hand-written optimizers (float64, 7 updates) card vs CPU.  ``nms_keep``
    launches 0 on every one.
@@ -256,7 +256,7 @@
    host pipeline included (mosaic + affine on LOAD_NUM = 4 groups, flip,
    ColorHSV, Gaussian and median blur, grayscale, ToCXCYWH, ToTensor,
    Normalize on ``imgproc``, no OpenCV), only ``IMG_DIR``/``ANN_FILE``
-   changed: ``Trainer.run()`` for one epoch of 4 steps at batch 32 with no
+   changed: ``Trainer.run()`` for one epoch of 2 steps at batch 32 with no
    ``DEVICE_AUG``, bbox validation of 64 images (``nms_keep`` once per val
    batch), the checkpoint served through ``infer.main`` on 32 images (once
    more); prints the train epoch wall and fed rate beside the
@@ -265,6 +265,26 @@
    three rare ones also forced on), the AMP step on a host batch, and
    holds ``nms_keep`` to ``nms_keep_plain`` bit for bit on the path's val
    input.
+8c. Slice 16 (``slice16_phases``), after the host-augmentation phase:
+   full-width YOLOv5-s at 640² trained through ``Trainer.run()`` for one
+   epoch of 3 steps at bs32 (``DEVICE_AUG``, AMP, EMA) with
+   ``AMP_BN_BF16_STATS`` and ``PROFILER`` on step 1, whose Chrome trace
+   must hold that step's CUDA kernels; the AMP step with the BN moments in
+   bfloat16 and in float32; the checkpoint through ``exports.main``
+   without and with ``--fuse`` at bs32 and bs1, each ``.pt2`` loaded back
+   with one ``cvt.nms_keep`` node and served a letterboxed batch
+   (``nms_keep`` counted around the four calls: ``yolov5_exported_served``;
+   the unfused programs' detections equal the predict step's, the fused
+   raw maps within 1e-3 of scale, the differing detections counted);
+   the ``cvt::nms_keep`` op, the programs' route, bit-exact against
+   ``nms_keep_plain`` on the path's NMS input and timed beside the direct
+   call; bs32 ms and bs1 p50 of each program beside the eager predict step;
+   PTQ (round-tripped weights equal, calibrated scales 1e-4, the
+   fake-quantized maps 1e-4 in float64) and ``precise_bn`` (float64, 1e-6)
+   card vs CPU; ``model_summary``.  Then the
+   seven backbones under ``Classification`` at 224² (one AMP step at
+   bs64, eval logits card vs CPU at B = 2, 1e-4), the attention blocks
+   card vs CPU (1e-5) and the seg ``RandAugment``'s host ms at 512×1024.
 9. Kernel checks, after every host-clock timing: ``nms_keep`` against
    ``nms_keep_plain`` on the card, bit-exact, over B in {1, 3, 32} x K in
    {1, 63, 64, 65, 300, 1000, 1024} x every threshold the detectors use,
@@ -288,8 +308,8 @@
    EfficientDet-D0, AIRDet-s and OpenPose AMP steps with the share of the
    ``simota_assign``, ``effdet_targets`` and ``openpose_targets`` ranges
    (every path's val input among the NMS kernel inputs).  The other
-   paths' steps are timed, not profiled: a profiler session costs ~6 s of
-   the run's time limit (the device augmentation, STDC and NanoDet-Plus
+   paths' steps are timed, not profiled: a profiler session of one step
+   costs seconds of the run's time limit (the device augmentation, STDC and NanoDet-Plus
    are timed only, as are the AMP steps at the bench milestones'
    batches).
 
@@ -738,10 +758,12 @@ def check_predictions(path: Path, n_images: int, num_classes: int,
     return total
 
 
-def profile_device(fn, steps: int = 3, top: int = 12, groups=None) -> dict:
-    """torch.profiler over ``steps`` calls of ``fn``: device time per call by
-    kernel (the ``top`` largest) and the device's busy share of the wall;
-    with ``groups`` ({name: regex}), the device time per call of the
+def profile_device(fn, top: int = 12, groups=None) -> dict:
+    """torch.profiler over one call of ``fn`` after a warm-up call (reading a
+    session's trace back costs seconds per profiled train step, and the
+    run's time limit holds them): device time by kernel (the ``top``
+    largest) and the device's busy share of the wall;
+    with ``groups`` ({name: regex}), the device time of the
     kernels whose names match each regex and its share of the busy time.
     Ranges that code marks with ``record_function`` (``Optimizer.step``)
     come back as device events too; they span kernels counted already, so
@@ -754,32 +776,28 @@ def profile_device(fn, steps: int = 3, top: int = 12, groups=None) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            fn()
+        fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        wall_ms = (time.perf_counter() - t0) * 1e3
     on_device = [e for e in prof.key_averages()
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     annotated = [e for e in on_device if getattr(e, "is_user_annotation", False)]
     kernels = [e for e in on_device if e not in annotated]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     grouped = {}
     for name, pattern in (groups or {}).items():
-        ms = sum(e.self_device_time_total for e in kernels
-                 if pattern.search(e.key)) / 1e3 / steps
+        ms = sum(e.self_device_time_total for e in kernels if pattern.search(e.key)) / 1e3
         grouped[name] = {"ms": ms, "share_of_busy": ms / busy_ms}
     return {
         **({"groups": grouped} if groups else {}),
         "wall_ms": wall_ms,
         "device_busy_ms": busy_ms,
         "device_idle_share": 1 - busy_ms / wall_ms,
-        "device_ops_per_call": sum(e.count for e in kernels) / steps,
-        "annotated_ms": {e.key: e.self_device_time_total / 1e3 / steps
-                         for e in annotated},
-        "top": [{"kernel": e.key[:90],
-                 "ms": e.self_device_time_total / 1e3 / steps,
-                 "calls": e.count / steps} for e in kernels[:top]],
+        "device_ops_per_call": sum(e.count for e in kernels),
+        "annotated_ms": {e.key: e.self_device_time_total / 1e3 for e in annotated},
+        "top": [{"kernel": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                 "calls": e.count} for e in kernels[:top]],
     }
 
 
@@ -1139,7 +1157,7 @@ def _profiled_train_state(trainer):
     return lambda: step(state, raw)
 
 
-HOST_AUG_STEPS = 4  # one epoch
+HOST_AUG_STEPS = 2  # one epoch
 HOST_AUG_VAL_IMAGES = 64  # one val epoch of 2 batches
 
 
@@ -1149,7 +1167,7 @@ def host_aug_config(workdir: Path, coco: dict) -> Path:
     rare blurs and grayscale, ToCXCYWH, ToTensor, Normalize; MAX_BOXES
     128, AMP, EMA, SGD, warmup, grad clip, batch 32, bbox evaluation) with
     only ``IMG_DIR``/``ANN_FILE`` pointed at the COCO directory of JPEG
-    files (``write_coco_dir``); cut to one epoch of 4 steps validated on 64
+    files (``write_coco_dir``); cut to one epoch of 2 steps validated on 64
     images.  The INFER stage (one batch of 32) serves the checkpoint
     afterwards."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
@@ -1245,8 +1263,9 @@ def host_aug_timing(trainer) -> dict:
     epoch (its worker threads), and on one thread per item over 8 items
     the load of a LOAD_NUM = 4 group split into its 4 JPEG decodes and the
     rest, then each transform of the train pipeline, with the three rare
-    transforms also forced on (p = 1); then the AMP and f32 train steps at batch 32 on a host
-    batch already on the card (``train_step_timing``), and ``nms_keep``
+    transforms also forced on (p = 1); then the AMP train step at batch 32 on a host
+    batch already on the card (``train_step_timing``; the f32 step is the
+    device-augmented path's, ``train_timing``), and ``nms_keep``
     against ``nms_keep_plain`` on the path's own val input
     (``val_nms_input``)."""
     import torch
@@ -1300,7 +1319,8 @@ def host_aug_timing(trainer) -> dict:
     out["host_train_item_ms_one_thread"] = ms
 
     batch = loader_batch(trainer, "train", BATCH)
-    steps, state = train_step_timing(trainer, batch, BATCH, iters=10, ema_decay=0.9999)
+    steps, state = train_step_timing(trainer, batch, BATCH, iters=5, ema_decay=0.9999,
+                                     amp_only=True)
     out.update(steps)
     out["kept_boxes_per_image"] = float(batch["target"]["valid"].sum()) / BATCH
     out["nms_keep_on_val_input"], _ = val_nms_input(
@@ -1672,8 +1692,9 @@ def run_instrumented(trainer, trainer_mod) -> dict:
 
     trainer.train_epoch = timed(trainer.train_epoch, "train_epoch")
     trainer.val_epoch = timed(trainer.val_epoch, "val_epoch")
-    trainer.evaluator.update = timed(trainer.evaluator.update, "evaluator")
-    trainer.evaluator.evaluate = timed(trainer.evaluator.evaluate, "evaluator")
+    if trainer.evaluator is not None:  # a run without validation has none
+        trainer.evaluator.update = timed(trainer.evaluator.update, "evaluator")
+        trainer.evaluator.evaluate = timed(trainer.evaluator.evaluate, "evaluator")
     trainer_mod.make_train_step = recording_make_train_step
     try:
         nms_keep.launches = 0
@@ -1768,7 +1789,7 @@ def train_step_timing(trainer, batch, n: int, iters: int,
                       ema_decay: float = 0.0, amp_only: bool = False) -> tuple[dict, object]:
     """The AMP and f32 train steps on ``batch`` (``n`` images, already on
     the card) from the same seeded weights, by CUDA events over ``iters``
-    steps after 2 warm-up steps, and the peak memory of each; an f32 step
+    steps after 1 warm-up step, and the peak memory of each; an f32 step
     that does not fit is reported and skipped, an AMP step that does not
     fit fails.  ``ema_decay`` > 0 keeps an EMA copy, as the recipe does;
     ``amp_only`` leaves the f32 step out.  Returns the numbers and the AMP
@@ -1795,7 +1816,7 @@ def train_step_timing(trainer, batch, n: int, iters: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         try:
-            ms = cuda_time_ms(lambda: step(state, batch), iters=iters, warmup=2)
+            ms = cuda_time_ms(lambda: step(state, batch), iters=iters, warmup=1)
         except torch.OutOfMemoryError:
             out[f"{name}_step_ms"] = None
             out[f"{name}_out_of_memory_at_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1816,7 +1837,7 @@ def train_step_timing(trainer, batch, n: int, iters: int,
 
 def maskrcnn_timing(trainer, batches) -> tuple[dict, dict]:
     """The AMP train step at batch 16 on one batch already on the card, by
-    CUDA events over 5 steps after 2 warm-up steps, and its peak memory;
+    CUDA events over 3 steps after 1 warm-up step, and its peak memory;
     the same for an f32 step where batch 16 fits; the f32 val step and the
     serving predict step at batch 16; ``nms_keep`` against
     ``nms_keep_plain`` on the path's own inputs, the RPN's (16, 1000)
@@ -1829,7 +1850,7 @@ def maskrcnn_timing(trainer, batches) -> tuple[dict, dict]:
         make_eval_step, make_predict_step, make_train_step)
 
     train_b, val_b = batches["train"], batches["val"]
-    out, amp_state = train_step_timing(trainer, train_b, MASKRCNN_BATCH, iters=5)
+    out, amp_state = train_step_timing(trainer, train_b, MASKRCNN_BATCH, iters=3)
 
     # the path's own NMS inputs: the RPN's of a train step, the detections'
     # of a val step
@@ -1969,14 +1990,12 @@ SEG_FRAME = [1024, 2048]  # a Cityscapes frame: RandomScaleCrop and Resize work 
 SEG_VAL_IMAGES = 16  # one val epoch of 2 batches (1 at a batch of 16)
 SEG_VAL = {"lednet": 8}  # one val batch of the one-step paths; else SEG_VAL_IMAGES
 SEG_SERVED = {"stdc": 8}  # images served through infer.main; else one batch
-SEG_STEPS = {"deeplabv3plus": 2, "unet": 2, "segformer_b2": 2, "sfnet_r18": 2,  # one epoch
-             "segnext_b": 2, "incepformer_t": 2, "topformer_b": 2, "regseg": 2,  # each
-             "stdc": 2, "ppliteseg": 2, "sgcpnet": 2, "enet": 2, "segnet": 2,
-             "icnet": 1, "lednet": 1, "lspnet": 1}
+SEG_STEPS = 1  # one epoch of each config
 # the paths that run once on the card and are not timed or profiled, and
-# those whose f32 step is not timed
+# those whose f32 step is not timed (since PR 16 all but DeepLabV3+'s)
 SEG_UNTIMED = ("icnet", "lednet", "lspnet")
-SEG_AMP_ONLY = ("topformer_b", "regseg", "ppliteseg", "sgcpnet", "enet", "segnet")
+SEG_AMP_ONLY = ("unet", "segformer_b2", "sfnet_r18", "segnext_b", "incepformer_t",
+                "topformer_b", "regseg", "stdc", "ppliteseg", "sgcpnet", "enet", "segnet")
 # achieved TFLOP/s (counted by torch.utils.flop_counter, a few seconds a
 # path of the run's time limit): STDC
 SEG_COUNT_FLOPS = ("stdc",)
@@ -1996,8 +2015,8 @@ PROFILE_GROUPS = {"segnext_b": {
     "nmf_f32_gemm": re.compile(r"^(?!.*(bf16|fp16|half)).*gemm", re.I),
     "gelu": re.compile(r"gelu", re.I)}}
 # the seg paths profiled at the end of the run: SegNeXt-B (its NMF and
-# depthwise convolutions); a profiler session costs ~6 s, and the run keeps
-# within its time limit (STDC is timed, not profiled)
+# depthwise convolutions); a profiler session costs seconds, and the run
+# keeps within its time limit (STDC is timed, not profiled)
 SEG_PROFILED = ("segnext_b",)
 
 
@@ -2019,7 +2038,7 @@ def seg_config(workdir: Path, name: str) -> Path:
     photometric distortion, Resize, ToTensor and Normalize, mIoU
     evaluation; SegFormer and SFNet also EMA and grad clip 10) with the
     dataset swapped for SyntheticSegmentation at the 1024×2048 Cityscapes
-    frame; cut to one epoch of ``SEG_STEPS[name]`` steps validated on 16
+    frame; cut to one epoch of ``SEG_STEPS`` steps validated on 16
     images.  The INFER stage (one batch) serves the checkpoint
     afterwards."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
@@ -2031,7 +2050,7 @@ def seg_config(workdir: Path, name: str) -> Path:
     synthetic = {"SIZE": SEG_FRAME, "SEED": 0}
     if data.TRAIN.BATCH_SIZE != SEG_BATCH[name] or data.VAL.BATCH_SIZE != SEG_BATCH[name]:
         raise AssertionError(f"cityscapes_{name}: BATCH_SIZE {data.TRAIN.BATCH_SIZE}")
-    data.TRAIN.update({**synthetic, "LENGTH": SEG_BATCH[name] * SEG_STEPS[name]})
+    data.TRAIN.update({**synthetic, "LENGTH": SEG_BATCH[name] * SEG_STEPS})
     data.VAL.update({**synthetic, "LENGTH": SEG_VAL.get(name, SEG_VAL_IMAGES)})
     data.INFER = {**dict(data.VAL), "LENGTH": SEG_SERVED.get(name, SEG_BATCH[name])}
     cfg.EVALUATOR.EVAL_INTERVALS = 1
@@ -2056,7 +2075,7 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
     from cvpytorch_tpu_torch.registry import DATASETS
     from cvpytorch_tpu_torch.train_state import make_predict_step
 
-    steps, batch = SEG_STEPS[name], SEG_BATCH[name]
+    steps, batch = SEG_STEPS, SEG_BATCH[name]
     n_served = SEG_SERVED.get(name, batch)
     workdir.mkdir()
     setting = seg_config(workdir, name)
@@ -2637,10 +2656,10 @@ def milestone_timing(trainer, n: int, milestone: int | None, iters: int,
         torch.cuda.empty_cache()
     eval_step = make_eval_step()
     out["val_step_ms"] = cuda_time_ms(lambda: eval_step(amp_state, batches["val"]),
-                                      iters=5, warmup=1)
+                                      iters=2, warmup=1)
     predict = make_predict_step(amp_state.model)
     out[f"bs{n}_predict_ms"] = cuda_time_ms(lambda: predict(batches["val"]["image"]),
-                                            iters=5, warmup=1)
+                                            iters=2, warmup=1)
     out[f"bs{n}_predict_images_per_s"] = n / out[f"bs{n}_predict_ms"] * 1e3
     return out, states, batches
 
@@ -3352,7 +3371,7 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
 
 # -- slice 13: YOLOX, PAI-YOLOX, YOLOv7, FCOS, LFD, RetinaNet -------------------------
 YOLOX_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_yolox_s.yml
-YOLOX_EPOCHS = 2
+YOLOX_EPOCHS = 1
 YOLOX_STEPS = 2  # an epoch: 64 of the COCO directory's train images
 YOLOX_VAL_IMAGES = 64  # one val epoch of 2 batches, after epoch 2
 YOLOV7_BATCH = 16  # TRAIN and VAL BATCH_SIZE of conf/coco_yolov7.yml
@@ -3381,8 +3400,8 @@ LOSS_NAMES = {"NanoDetPlus": ("qfl_loss", "bbox_loss", "dfl_loss", "loss"),
 
 def zero_class_biases(model) -> None:
     """The class and objectness biases at 0 instead of their priors
-    (YOLOX's and GFLv2's −log 99; the YOLOv5 detect layer's of ObjectBox
-    and YOLOP), so that a few steps' random-weight model scores above the
+    (YOLOX's and GFLv2's −log 99; the YOLOv5 detect layer's of YOLOv5,
+    ObjectBox and YOLOP), so that a few steps' random-weight model scores above the
     threshold and the val and served batches hold detections (as the
     YOLOv6 phase).  Other models are left as built."""
     import torch
@@ -3396,7 +3415,7 @@ def zero_class_biases(model) -> None:
         elif kind in ("AIRDet", "GiraffeDet"):
             for i in range(model.head.n_levels):
                 getattr(model.head, f"gfl_cls{i}").bias.zero_()
-        elif kind in ("ObjectBox", "YOLOP"):
+        elif kind in ("ObjectBox", "YOLOP", "YOLOv5"):
             for i in range(model.detect.n_levels):
                 getattr(model.detect, f"m{i}").bias.view(model.detect.num_anchors, -1)[
                     :, 4:].zero_()
@@ -3467,7 +3486,7 @@ def det_phase(workdir: Path, name: str, coco: dict, batch: int, steps: int, epoc
 
 
 def assigner_range_profile(state, batch, amp_ms: float, span: str) -> dict:
-    """Two profiled AMP steps (EMA on, as the recipe): the busy and idle
+    """One profiled AMP step (EMA on, as the recipe): the busy and idle
     share and the ``span`` range's share of the busy time."""
     import torch
 
@@ -3475,7 +3494,7 @@ def assigner_range_profile(state, batch, amp_ms: float, span: str) -> dict:
 
     torch.cuda.empty_cache()
     step = make_train_step(amp=True, ema_decay=0.9999)
-    prof = profile_device(lambda: step(state, batch), steps=2, top=15)
+    prof = profile_device(lambda: step(state, batch), top=15)
     prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / amp_ms
     ms = prof["annotated_ms"].get(span)
     prof[f"{span}_share_of_busy"] = None if ms is None else ms / prof["device_busy_ms"]
@@ -3616,7 +3635,7 @@ def yolov7_card_vs_cpu(trainer, batches) -> dict:
 
 
 def slice13_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
-    """YOLOX-s (2 epochs of 2 steps at bs32, 64 val, one served batch, AMP
+    """YOLOX-s (one epoch of 2 steps at bs32, 64 val, one served batch, AMP
     and f32 steps, card vs CPU), YOLOv7-l (2 steps at bs16, one val and one
     served batch, the AMP step, card vs CPU) and FCOS-R50 800² (2 steps at
     bs16, one val batch, the AMP step), each ``nms_keep`` bit-exact on its
@@ -3661,7 +3680,7 @@ def slice13_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
 
 # -- slice 14: EfficientDet, AIRDet, GiraffeDet, ObjectBox, YOLOP, FastestDet, NAS-FPN, RFP --
 EFFDET_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_efficientdet.yml (512²)
-EFFDET_EPOCHS = 2
+EFFDET_EPOCHS = 1
 EFFDET_STEPS = 2  # an epoch: 64 of the COCO directory's train images
 EFFDET_VAL_IMAGES = 64  # one val epoch of 2 batches, after epoch 2
 AIRDET_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_airdet.yml (640²)
@@ -3870,8 +3889,8 @@ def necks_card_vs_cpu() -> dict:
 
 
 def slice14_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
-    """EfficientDet-D0 (2 epochs of 2 steps at bs32 on 512², 64 val, one
-    served batch, AMP and f32 steps, card vs CPU) and AIRDet-s (2 steps at
+    """EfficientDet-D0 (one epoch of 2 steps at bs32 on 512², 64 val, one
+    served batch, the AMP step, card vs CPU) and AIRDet-s (2 steps at
     bs32 on 640², one val and one served batch, the AMP step, card vs
     CPU), each ``nms_keep`` bit-exact on its (32, 1024) val input; then
     one step and one val batch each of ``coco_giraffedet``,
@@ -3891,7 +3910,7 @@ def slice14_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
         run, trainer = det_phase(workdir / key, name, coco, batch, steps, epochs, n_val, True)
         print(json.dumps({key: run, "card": card}), flush=True)
         timed, states, batches = milestone_timing(trainer, batch, None, iters=3,
-                                                  ema_decay=0.9999, amp_only=key == "airdet_s")
+                                                  ema_decay=0.9999, amp_only=True)
         print(json.dumps({f"{key}_timing": timed, "card": card}), flush=True)
         nms, nms_input = val_nms_input(states["train"], batches["val"], key)
         result = check(trainer, batches)
@@ -4230,8 +4249,8 @@ def litepose_phase(workdir: Path, kdir: dict, card: str) -> dict:
     The config's 368² fails at the first forward (not a multiple of 32:
     the fusion does not broadcast, in JAX either), and through
     ``Trainer.run()`` at ``LITEPOSE_HW`` the first loss fails (the
-    collated keypoints, as JAX's).  So at ``LITEPOSE_HW`` the AMP and f32 train
-    steps run on single-instance (B, 17, 3) targets of the loader's batch,
+    collated keypoints, as JAX's).  So at ``LITEPOSE_HW`` the AMP train
+    step runs on single-instance (B, 17, 3) targets of the loader's batch,
     then one val step's decode, one served batch of the trained weights
     through ``infer.main``, and the card against the CPU on the heatmaps;
     ``nms_keep`` never launched."""
@@ -4262,7 +4281,7 @@ def litepose_phase(workdir: Path, kdir: dict, card: str) -> dict:
     batches = {s: single_instance(loader_batch(trainer, s, KEYPOINT_BATCH))
                for s in ("train", "val")}
     timed, state = train_step_timing(trainer, batches["train"], KEYPOINT_BATCH, iters=3,
-                                     ema_decay=0.9999)
+                                     ema_decay=0.9999, amp_only=True)
     step = make_train_step(amp=True, ema_decay=0.9999)
     losses = [float(step(state, batches["train"])[1]["loss"]) for _ in range(2)]
     val_losses, decoded = make_eval_step(use_ema=True)(state, batches["val"])
@@ -4425,6 +4444,435 @@ def slice15_phases(workdir: Path, card: str) -> tuple[dict, dict]:
     return out, later
 
 
+# -- slice 16: YOLOv5-s export and serving, the trainer's profiler and bf16 BN moments, PTQ, ----
+# -- precise BN, the summary, the seven backbones, the attentions and RandAugment ----------------
+SLICE16_STEPS = 3  # one epoch
+SLICE16_EXPORTS = ((BATCH, False), (BATCH, True), (1, False), (1, True))  # (batch, --fuse)
+SLICE16_BACKBONES = ("ConvNeXt", "RegNet", "MobileNetV3", "TinyNet", "SqueezeNet", "DenseNet",
+                     "ViT")  # each at its default subtype
+BACKBONE_BATCH = 64
+BACKBONE_HW = 224
+RANDAUG_FRAME = (512, 1024)
+
+
+def slice16_config(workdir: Path) -> Path:
+    """``train_config``'s recipe (conf/coco_yolov5_s.yml with the device
+    augmentation, AMP, EMA) cut to one epoch of 3 steps and no validation,
+    with ``AMP_BN_BF16_STATS: true`` and ``PROFILER`` tracing step 1."""
+    path = train_config(workdir)
+    cfg = json.loads(path.read_text())
+    cfg["EXPERIMENT_NAME"] = "chip_smoke_slice16"
+    cfg["DATASET"]["TRAIN"]["LENGTH"] = BATCH * SLICE16_STEPS
+    del cfg["DATASET"]["VAL"], cfg["EVALUATOR"]
+    cfg.update(N_MAX_EPOCHS=1, AMP=True, AMP_BN_BF16_STATS=True,
+               PROFILER={"DIR": str(workdir / "traces"), "START_STEP": 1, "NUM_STEPS": 1})
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def trace_kernels(path: str) -> dict:
+    """The Chrome trace's profiled step ranges and its CUDA kernel events."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    steps = sorted({e["name"] for e in events if str(e.get("name", "")).startswith("train_step_")})
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return {"file": Path(path).name, "steps": steps, "kernel_events": len(kernels),
+            "kernel_ms": sum(e.get("dur", 0) for e in kernels) / 1e3,
+            "bytes": Path(path).stat().st_size}
+
+
+def bn_stats_timing(trainer, batch) -> dict:
+    """The AMP train step on one augmented batch with the BN moments in
+    bfloat16 and in float32, the same seeded weights, by CUDA events over
+    5 steps after 1 warm-up step."""
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.models.bricks import set_bn_bf16_stats
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.train_state import create_train_state, make_train_step
+
+    out = {}
+    for name, on in (("amp_step_ms_bn_bf16_stats", True), ("amp_step_ms_bn_f32_stats", False)):
+        torch.manual_seed(0)
+        model = build_model(trainer.cfg, trainer.dictionary).to(
+            "cuda", memory_format=torch.channels_last)
+        set_bn_bf16_stats(model, on)
+        state = create_train_state(model, build_optimizer(trainer.cfg, model,
+                                                          trainer.lr_schedule), use_ema=True)
+        step = make_train_step(amp=True, ema_decay=0.9999)
+        out[name] = cuda_time_ms(lambda: step(state, batch), iters=5, warmup=1)
+        del state, step, model
+    return out
+
+
+def exported_serving(workdir: Path, setting: Path, ckpt: Path, trainer, state) -> dict:
+    """``exports.main`` without and with ``--fuse`` at bs32 and bs1 on the
+    trained checkpoint, the programs loaded back and served a letterboxed
+    batch on the card (the main path: ``nms_keep``'s count set to 0 just
+    before the four serving calls and read just after).  The unfused
+    program's detections equal the predict step's on the EMA model; the
+    fused model's raw maps are within 1e-3 of their largest value of the
+    unfused one's, and the detections that differ are counted.  Then the
+    bs32 ms and bs1 p50 of each program beside the eager predict step."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch import exports
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+    from cvpytorch_tpu_torch.train_state import make_predict_step
+    from cvpytorch_tpu_torch.utils.model_utils import fuse_model_conv_bn
+
+    out, programs = {"exports": {}}, {}
+    for batch, fuse in SLICE16_EXPORTS:
+        name = f"bs{batch}{'_fused' if fuse else ''}"
+        t0 = time.perf_counter()
+        path = exports.main(["--setting", str(setting), "--checkpoint", str(ckpt),
+                             "--out", str(workdir / f"yolov5_s_{name}"),
+                             "--batch", str(batch)] + (["--fuse"] if fuse else []))
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        program = torch.export.load(path)  # what exports.load_exported does
+        programs[name] = program.module()
+        nodes = [n for n in program.graph.nodes if "cvt.nms_keep" in str(n.target)]
+        if len(nodes) != 1:
+            raise AssertionError(f"the {name} program calls cvt.nms_keep {len(nodes)} times")
+        out["exports"][name] = {"export_s": export_s, "load_s": time.perf_counter() - t0,
+                                "pt2_mb": Path(path).stat().st_size / 1e6}
+    images, _ = infer_batch(trainer, BATCH)  # letterboxed 640², as infer.main reads them
+    one = images[:1].contiguous()
+    eager = copy.deepcopy(state.ema).to("cuda", memory_format=torch.channels_last).eval()
+    predict = make_predict_step(eager)  # TF32 off for the process
+    want, want1 = predict(images), predict(one)
+    # the main path: the exported programs serve, counts read just around it
+    nms_keep.launches = 0
+    big = f"bs{BATCH}"
+    with torch.inference_mode():
+        got = {name: programs[name](images if name.startswith(big) else one)
+               for name in programs}
+    torch.cuda.synchronize()
+    launches = nms_keep.launches
+    if launches != len(programs):
+        raise AssertionError(f"the exported programs launched nms_keep {launches} times for "
+                             f"{len(programs)} calls")
+    for name, ref in ((big, want), ("bs1", want1)):
+        for key in ("boxes", "scores", "labels", "valid", "num"):
+            if not torch.equal(got[name][key], ref[key]):
+                raise AssertionError(f"the {name} program's {key} differ from the predict step's")
+    if int(want["num"].sum()) == 0:
+        raise AssertionError("the served batch holds no detections")
+    fused = fuse_model_conv_bn(copy.deepcopy(eager))
+    with torch.inference_mode():
+        raw, raw_fused = eager._raw(images), fused._raw(images)
+    raw_err = max(max_rel_err(b, a) for a, b in zip(raw, raw_fused))
+    if not raw_err <= 1e-3:
+        raise AssertionError(f"fused raw maps differ by {raw_err} of their scale")
+    differing = {}
+    for name, ref in ((f"{big}_fused", want), ("bs1_fused", want1)):
+        g = got[name]
+        same = (g["labels"] == ref["labels"]) & ((g["boxes"] - ref["boxes"]).abs().amax(-1) < 1e-2)
+        differing[name] = int((~same & (g["valid"] | ref["valid"])).sum())
+    out.update(launches=launches, detections=int(want["num"].sum()),
+               fused_raw_maps_max_rel_err=raw_err, fused_detections_differing=differing)
+    print(f"exported YOLOv5-s served on the card: nms_keep launches {launches} for "
+          f"{len(programs)} calls, unfused == predict step ({out['detections']} detections), "
+          f"fused raw maps within {raw_err:.3g} of scale, differing detections {differing}",
+          flush=True)
+    # the path's own NMS input through the eager model, and the timings
+    seen, restore = capture_nms_inputs()
+    try:
+        predict(images)
+    finally:
+        restore()
+    (boxes, thr), = seen
+    # the exported programs' route, the cvt::nms_keep op, against the plain
+    # version on that input: bit-exact
+    got, plain = torch.ops.cvt.nms_keep(boxes, thr), nms_keep_plain(boxes, thr)
+    torch.cuda.synchronize()
+    if not torch.equal(got, plain):
+        raise AssertionError(f"cvt::nms_keep != nms_keep_plain on the exported path's input: "
+                             f"{int((got != plain).sum())} flags differ")
+    out["nms_keep_op_on_path_input"] = {"kept": int(got.sum()), "bit_exact": True}
+    out["nms_keep_plain_on_path_input_ms"] = cuda_time_ms(lambda: nms_keep_plain(boxes, thr),
+                                                          iters=3, warmup=1)
+    # the op's dispatcher (the exported programs' route) against the eager
+    # wrapper (straight to the kernels), 200 calls back to back each, in
+    # turns: op, direct, direct, op
+    turns = [cuda_time_ms((lambda: nms_keep(boxes, thr)) if kind == "direct" else
+                          (lambda: torch.ops.cvt.nms_keep(boxes, thr)), iters=200)
+             for kind in ("op", "direct", "direct", "op")]
+    out["nms_keep_direct_vs_op_ms"] = {"op": [turns[0], turns[3]], "direct": turns[1:3]}
+    out["nms_keep_op_on_path_input_ms"] = float(np.mean(out["nms_keep_direct_vs_op_ms"]["op"]))
+    out["nms_keep_direct_on_path_input_ms"] = float(np.mean(
+        out["nms_keep_direct_vs_op_ms"]["direct"]))
+    nms_keep.launches = launches
+    with torch.inference_mode():
+        for name, fn in (("eager", predict), *programs.items()):
+            if name == "eager" or name.startswith(big):
+                out[f"{name}_{big}_ms"] = cuda_time_ms(lambda: fn(images), iters=10, warmup=2)
+            if name == "eager" or name.startswith("bs1"):
+                out[f"{name}_bs1_ms_p50"] = float(np.median(call_ms(lambda: fn(one))))
+    nms_keep.launches = launches  # timing launches do not count
+    return out, (boxes, thr)
+
+
+def ptq_card_vs_cpu(state, images) -> dict:
+    """``ptq_roundtrip``, ``calibrate_activations`` and ``quantized_apply`` on
+    the trained EMA weights, on the card and on the CPU at B = 2 (TF32
+    off): the round-tripped weights equal and the calibrated scales within
+    1e-4 relative (float32); ``quantized_apply``'s raw maps with the CPU's
+    scales within 1e-4 of their largest value in float64.  In float32 a
+    fake-quantized value moves by a whole int8 step wherever a 1e-6
+    difference between the devices crosses a rounding boundary, and ~200
+    sites carry such flips on: the float32 card-vs-CPU difference is
+    printed beside the int8 drift from float, not gated."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.utils import quantize
+
+    class Raw(torch.nn.Module):  # the raw maps, the float outputs to compare
+        def __init__(self, model):
+            super().__init__()
+            self.model = model
+
+        def forward(self, x):
+            return self.model._raw(x)
+
+    x = images[:2]
+    seen, models = {}, {}
+    for device in ("cpu", "cuda"):
+        model = copy.deepcopy(state.ema).float().to(device).eval()
+        with torch.no_grad():
+            float_raw = [t.cpu() for t in Raw(model)(x.to(device))]
+            quantize.ptq_roundtrip(model)
+            scales = quantize.calibrate_activations(Raw(model), [x.to(device)])
+        models[device] = model
+        seen[device] = {"weights": {k: v.cpu() for k, v in model.state_dict().items()},
+                        "scales": scales, "float": float_raw}
+    cpu, card = seen["cpu"], seen["cuda"]
+    for device in ("cpu", "cuda"):
+        for dtype in (torch.float32, torch.float64):
+            with torch.no_grad():
+                seen[device][dtype] = [t.cpu() for t in quantize.quantized_apply(
+                    Raw(models[device].to(dtype)), x.to(device, dtype),
+                    act_scales=cpu["scales"])]
+    weights_equal = all(torch.equal(cpu["weights"][k], card["weights"][k]) for k in cpu["weights"])
+    scale_err = max(abs(card["scales"][k] - v) / v for k, v in cpu["scales"].items())
+
+    def mean_abs(a, b):
+        return float(sum((u.double() - v.double()).abs().sum() for u, v in zip(a, b))
+                     / sum(u.numel() for u in a))
+
+    f32, f64 = torch.float32, torch.float64
+    out = {"weights_equal": weights_equal, "sites": len(cpu["scales"]),
+           "scales_max_rel_err": scale_err,
+           "quantized_raw_maps_f64_card_vs_cpu_max_rel_err": max(
+               max_rel_err(a, b) for a, b in zip(card[f64], cpu[f64])),
+           "quantized_raw_maps_f32_card_vs_cpu_mean_abs": mean_abs(card[f32], cpu[f32]),
+           "int8_drift_from_float_mean_abs": mean_abs(cpu[f32], cpu["float"]),
+           "int8_drift_from_float_max_rel": max(
+               max_rel_err(a, b) for a, b in zip(cpu[f32], cpu["float"])),
+           "float_raw_maps_card_vs_cpu_max_rel_err": max(
+               max_rel_err(a, b) for a, b in zip(card["float"], cpu["float"]))}
+    print(f"PTQ on the trained YOLOv5-s, card vs CPU, B=2: {json.dumps(out)}", flush=True)
+    if not (weights_equal and set(card["scales"]) == set(cpu["scales"]) and scale_err <= 1e-4
+            and out["quantized_raw_maps_f64_card_vs_cpu_max_rel_err"] <= 1e-4):
+        raise AssertionError(f"PTQ card vs CPU: {out}")
+    return out
+
+
+def precise_bn_card_vs_cpu(state, batch) -> dict:
+    """``precise_bn`` over two augmented batches of 2 images on the card and
+    on the CPU, float64 (in float32 the train-mode forward through 57 BNs
+    puts the devices' statistics ~2e-4 of their scale apart): every BN's
+    population mean and var within 1e-6 of their largest value."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.utils.model_utils import precise_bn
+
+    n = min(2, len(batch["image"]) // 2)
+    parts = [_tree(batch, lambda t, i=i: t[n * i:n * i + n]) for i in range(2)]
+    stats = {}
+    for device in ("cpu", "cuda"):
+        model = copy.deepcopy(state.model).to(device, torch.float64)
+        precise_bn(model, [_tree(p, lambda t: t.to(device, torch.float64)
+                                 if t.is_floating_point() else t.to(device)) for p in parts])
+        stats[device] = {k: v.cpu() for k, v in model.state_dict().items()
+                         if k.endswith(("running_mean", "running_var"))}
+    err = max(max_rel_err(stats["cuda"][k], v) for k, v in stats["cpu"].items())
+    out = {"bn_layers": len(stats["cpu"]) // 2, "max_rel_err_float64": err}
+    print(f"precise_bn card vs CPU: {json.dumps(out)}", flush=True)
+    if not err <= 1e-6:
+        raise AssertionError(f"precise_bn card vs CPU: {out}")
+    return out
+
+
+def backbones_phase() -> dict:
+    """The seven backbones under ``Classification`` at their default
+    subtypes, 1000 classes, 224²: one AMP train step at bs64 timed by CUDA
+    events (2 steps after 1), and the eval logits on the card against the
+    CPU at B = 2, f32, TF32 off, within 1e-4 of their largest value."""
+    import copy
+    import inspect
+
+    import torch
+
+    from cvpytorch_tpu_torch.models.classification import Classification
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.train_state import create_train_state, make_train_step
+
+    dictionary = tuple({f"class{i}": 1.0} for i in range(1000))
+    cfg = CommonConfiguration({"INIT_LR": 0.01, "OPTIMIZER": {"TYPE": "SGD", "MOMENTUM": 0.9}})
+    g = torch.Generator().manual_seed(0)
+    images = torch.rand(BACKBONE_BATCH, BACKBONE_HW, BACKBONE_HW, 3, generator=g).cuda()
+    labels = torch.randint(0, 1000, (BACKBONE_BATCH,), generator=g).cuda()
+    out = {}
+    for name in SLICE16_BACKBONES:
+        torch.cuda.empty_cache()
+        torch.manual_seed(0)
+        base = Classification(dictionary=dictionary, model_cfg={"BACKBONE": {"name": name}})
+        model = copy.deepcopy(base).to("cuda", memory_format=torch.channels_last)
+        state = create_train_state(model, build_optimizer(cfg, model, lambda s: 0.01))
+        step = make_train_step(amp=True)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(lambda: step(state, {"image": images, "target": labels}),
+                          iters=2, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state, step, model
+        x = images[:2]
+        logits = {}
+        for device in ("cpu", "cuda"):
+            m = copy.deepcopy(base).to(device).eval()
+            with torch.no_grad():
+                logits[device] = m.backbone(x.to(device).permute(0, 3, 1, 2)).cpu()
+        err = max_rel_err(logits["cuda"], logits["cpu"])
+        out[name] = {"subtype": inspect.signature(type(base.backbone)).parameters[
+                         "subtype"].default,
+                     "params_m": sum(p.numel() for p in base.parameters()) / 1e6,
+                     "amp_step_ms_bs64": ms, "amp_images_per_s": BACKBONE_BATCH / ms * 1e3,
+                     "amp_max_memory_allocated_gb": peak, "eval_logits_card_vs_cpu": err}
+        print(f"{name} under Classification at {BACKBONE_HW}²: {json.dumps(out[name])}",
+              flush=True)
+        if not err <= 1e-4:
+            raise AssertionError(f"{name} eval logits card vs CPU: {err}")
+    return out
+
+
+def attentions_card_vs_cpu() -> dict:
+    """Each attention block at (2, 64, 32, 32) on the card and on the CPU
+    (f32, one seeded set of weights): outputs within 1e-5 of their largest
+    value."""
+    import copy
+
+    import torch
+
+    from cvpytorch_tpu_torch.models import attentions as att
+
+    blocks = {"SEAttention": att.SEAttention(64), "cSEBlock": att.cSEBlock(64),
+              "sSEBlock": att.sSEBlock(64), "scSEBlock": att.scSEBlock(64),
+              "SimAM": att.SimAM(), "ChannelAttentionModule": att.ChannelAttentionModule(64),
+              "SpatialAttentionModule": att.SpatialAttentionModule(), "CBAM": att.CBAM(64),
+              "ECAAttention": att.ECAAttention()}
+    x = torch.randn(2, 64, 32, 32, generator=torch.Generator().manual_seed(0))
+    out = {}
+    for name, block in blocks.items():
+        with torch.no_grad():
+            cpu = block(x)
+            card = copy.deepcopy(block).cuda()(x.cuda()).cpu()
+        out[name] = max_rel_err(card, cpu)
+    print(f"attentions card vs CPU: {json.dumps(out)}", flush=True)
+    if not max(out.values()) <= 1e-5:
+        raise AssertionError(f"attentions card vs CPU: {out}")
+    return out
+
+
+def randaugment_timing(items: int = 8) -> dict:
+    """The seg ``RandAugment`` (all fourteen operations, 2 a sample,
+    magnitude 0.5) on one host thread at 512×1024, ms per item."""
+    import random
+
+    from cvpytorch_tpu_torch.data.transforms import seg_transforms as seg
+
+    rng = np.random.RandomState(0)
+    h, w = RANDAUG_FRAME
+    img = rng.randint(0, 256, (h, w, 3)).astype(np.uint8)
+    mask = rng.randint(0, 19, (h, w)).astype(np.uint8)
+    transform = seg.RandAugment(ops="full", n_ops=2, magnitude=0.5)
+    random.seed(0)
+    t0 = time.perf_counter()
+    for _ in range(items):
+        transform({"image": img, "target": mask})
+    out = {"frame": [h, w], "item_ms": (time.perf_counter() - t0) * 1e3 / items}
+    print(f"RandAugment host ms, one thread: {json.dumps(out)}", flush=True)
+    return out
+
+
+def slice16_phases(workdir: Path, card: str) -> tuple[dict, tuple]:
+    """Full-width YOLOv5-s at 640²: ``Trainer.run()`` of one epoch of 3
+    steps at bs32 with AMP, ``AMP_BN_BF16_STATS`` and ``PROFILER`` on step
+    1 (its Chrome trace must hold CUDA kernel events of that step); the
+    AMP step with the BN moments in bfloat16 and in float32; the
+    checkpoint exported without and with ``--fuse`` at bs32 and bs1 and
+    served from the loaded programs (``exported_serving``); PTQ and
+    ``precise_bn`` card vs CPU; ``model_summary``.  Then the seven
+    backbones, the attentions and RandAugment's host ms.  Returns every
+    record and the exported path's NMS input."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.utils.summary import format_summary, model_summary
+
+    workdir.mkdir(parents=True)
+    setting = slice16_config(workdir)
+    torch.cuda.empty_cache()
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
+    if not all(m.bf16_stats for m in trainer.model.modules() if hasattr(m, "bf16_stats")):
+        raise AssertionError("AMP_BN_BF16_STATS left a BN in float32")
+    zero_class_biases(trainer.model)  # so that the served batch holds detections
+    run = run_instrumented(trainer, trainer_mod)
+    state = run["state"]
+    losses = [float(m["loss"]) for m in run["metrics"]]
+    if len(losses) != SLICE16_STEPS or state.step != SLICE16_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"slice16 Trainer.run(): losses {losses}, step {state.step}")
+    trace = trace_kernels(trainer.trace_path)
+    if trace["steps"] != ["train_step_1"] or trace["kernel_events"] == 0:
+        raise AssertionError(f"the PROFILER trace holds {trace}")
+    out = {"run": {"steps": SLICE16_STEPS, "losses": losses, "run_s": run["run_s"],
+                   "launches": run["launches"], "trace": trace}}
+    print(f"YOLOv5-s Trainer.run() with AMP_BN_BF16_STATS and PROFILER: {json.dumps(out['run'])}",
+          flush=True)
+    batch = trainer._device_aug_preprocess()(raw_train_batch(trainer))
+    out["bn_stats_timing"] = bn_stats_timing(trainer, batch)
+    print(json.dumps({"slice16_bn_stats_timing": out["bn_stats_timing"], "card": card}),
+          flush=True)
+    mark("slice16 train")
+    ckpt = Path(trainer.checkpoints.save_dir) / "last.pt"
+    out["exported"], nms_input = exported_serving(workdir, setting, ckpt, trainer, state)
+    print(json.dumps({"slice16_exported": out["exported"], "card": card}), flush=True)
+    mark("slice16 exports")
+    images, _ = infer_batch(trainer, 2)
+    out["ptq"] = ptq_card_vs_cpu(state, images)
+    out["precise_bn"] = precise_bn_card_vs_cpu(state, batch)
+    summary = model_summary(state.ema, (1, 640, 640, 3))
+    print(format_summary(summary, "YOLOv5-s (EMA)"), flush=True)
+    out["summary"] = {k: summary[k] for k in ("total_params", "params_by_module", "flops",
+                                              "flops_basis")}
+    del trainer, state
+    mark("slice16 ptq, precise_bn, summary")
+    out["backbones"] = backbones_phase()
+    mark("slice16 backbones")
+    out["attentions"] = attentions_card_vs_cpu()
+    out["randaugment"] = randaugment_timing()
+    mark("slice16 attentions, randaugment")
+    return out, nms_input
+
+
 def letterbox_timing(n: int = 20) -> dict:
     """Host ms of one letterbox on one thread, the OpenCV-exact
     ``imgproc.resize_linear`` that the port's ``Resize`` runs against a
@@ -4522,7 +4970,7 @@ def main() -> int:
         print(json.dumps({"maskrcnn_coco_segm_val": coco_segm, "card": card}), flush=True)
         mark("maskrcnn")
         seg = {}
-        for name in SEG_STEPS:
+        for name in SEG_BATCH:
             torch.cuda.empty_cache()
             result, seg_trainer = seg_phase(Path(tmp) / f"seg_{name}", name)
             print(json.dumps({name: result, "card": card}), flush=True)
@@ -4591,7 +5039,7 @@ def main() -> int:
         ndv1, ndv1_trainer = nanodet_v1_phase(Path(tmp) / "nanodet_v1", coco)
         print(json.dumps({"nanodet_v1": ndv1, "card": card}), flush=True)
         ndv1_timed, ndv1_states, ndv1_batches = milestone_timing(
-            ndv1_trainer, NANODET_V1_BATCH, None, iters=3, ema_decay=0.9999)
+            ndv1_trainer, NANODET_V1_BATCH, None, iters=3, ema_decay=0.9999, amp_only=True)
         ndv1_timed["atss_assign"] = atss_timing(ndv1_states["train"], ndv1_batches["train"])
         print(json.dumps({"nanodet_v1_timing": ndv1_timed, "card": card}), flush=True)
         ndv1_nms, ndv1_input = val_nms_input(ndv1_states["train"], ndv1_batches["val"],
@@ -4642,6 +5090,10 @@ def main() -> int:
         del ha_trainer
         torch.cuda.empty_cache()
         mark("yolov5_host_aug")
+        # slice 16: YOLOv5-s exported and served, PTQ, precise BN, the summary,
+        # the seven backbones, the attentions and RandAugment
+        s16, s16_input = slice16_phases(Path(tmp) / "slice16", card)
+        torch.cuda.empty_cache()
         checks = kernel_checks()
         mark("kernel_checks")
         # the profiler last: its sessions slow the host's launches afterwards
@@ -4650,10 +5102,11 @@ def main() -> int:
                               "nanodet_v1_val_input": ndv1_input,
                               "yolov6_val_input": v6_input,
                               **{f"{key}_val_input": run["nms_input"]
-                                 for key, run in {**s13_later, **s14_later}.items()}})
+                                 for key, run in {**s13_later, **s14_later}.items()},
+                              "yolov5_exported_input": s16_input})
         mark("device_phase")
         train_step_fn = _profiled_train_state(trainer)
-        train_profile = profile_device(train_step_fn, steps=3, top=15)
+        train_profile = profile_device(train_step_fn, top=15)
         # the idle share against the step's wall without the profiler: the
         # AMP step and the device augmentation, each timed by CUDA events
         # before any profiler session
@@ -4666,20 +5119,20 @@ def main() -> int:
         mrcnn_step = make_train_step(amp=True)
         mrcnn_profile = profile_device(
             lambda: mrcnn_step(mrcnn_extra["state"], mrcnn_batches["train"]),
-            steps=3, top=15, groups=ROI_GROUPS)
+            top=15, groups=ROI_GROUPS)
         mrcnn_profile["device_idle_share_unprofiled"] = 1 - mrcnn_profile[
             "device_busy_ms"] / mrcnn_timing["amp_step_ms"]
         print(json.dumps({"maskrcnn_amp_train_step_profile": mrcnn_profile,
                           "nms_keep_device_ms": mrcnn_split, "card": card}), flush=True)
         mark("yolov5 and maskrcnn profiles")
-        # two profiled steps a seg path: the profiler's own cost (~5 s a
-        # session of three) holds the run's time limit
+        # one profiled step a seg path: the profiler's own cost holds the
+        # run's time limit
         for name, run in seg.items():
             if name not in SEG_PROFILED:
                 continue
             torch.cuda.empty_cache()
             seg_step = make_train_step(amp=True, ema_decay=SEG_EMA.get(name, 0.0))
-            prof = profile_device(lambda: seg_step(run["state"], run["batch"]), steps=2, top=15,
+            prof = profile_device(lambda: seg_step(run["state"], run["batch"]), top=15,
                                   groups=PROFILE_GROUPS.get(name))
             prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / run[
                 "timing"]["amp_step_ms"]
@@ -4725,6 +5178,15 @@ def main() -> int:
                              for k in later)):
         record["bound_ms"], _ = nms_bound_ms(B, 1024)
         record.update(split[key])
+    exported = s16["exported"]
+    exported_nms = {"shape": list(s16_input[0].shape), "thr": s16_input[1],
+                    **exported["nms_keep_op_on_path_input"],
+                    "route": "torch.ops.cvt.nms_keep",
+                    "ms": exported["nms_keep_op_on_path_input_ms"],
+                    "ms_direct_call": exported["nms_keep_direct_on_path_input_ms"],
+                    "plain_ms": exported["nms_keep_plain_on_path_input_ms"],
+                    "bound_ms": nms_bound_ms(*s16_input[0].shape[:2])[0],
+                    **split["yolov5_exported_input"]}
     # each path's main run: the count set to 0 just before and read just after
     by_path = {"infer": path["launches"], "train": train["launches"],
                "yolov5_host_aug_train_and_val": host_aug["launches"],
@@ -4753,7 +5215,9 @@ def main() -> int:
                   for name, run in s14["one_step"].items()},
                "openpose_train_and_val": s15["openpose"]["run"]["launches"],
                "openpose_served": s15["openpose"]["run"]["served_launches"],
-               "litepose_steps_val_and_served": s15["litepose"]["launches"]}
+               "litepose_steps_val_and_served": s15["litepose"]["launches"],
+               "slice16_train": s16["run"]["launches"],
+               "yolov5_exported_served": s16["exported"]["launches"]}
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
         "route": "cuda",
@@ -4786,6 +5250,7 @@ def main() -> int:
         **{f"{key}_path_input": s14[key]["nms"] for key in s14_later},
         "dataset_layout_path_inputs": {name: run["nms_inputs"] for name, run in layouts.items()
                                        if run["nms_inputs"]},
+        "yolov5_exported_path_input": exported_nms,
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

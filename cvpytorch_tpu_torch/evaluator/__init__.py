@@ -22,7 +22,7 @@ def build_evaluator(cfg, dataset=None):
         name = "coco_detection"
         kwargs.setdefault("iou_types", ("bbox", "keypoints"))
     if name not in EVALUATORS:
-        raise KeyError(f"evaluator {name!r} is not ported yet (ROADMAP, "
-                       "Queue 1); the port has classification, coco_detection, "
-                       "coco_keypoints, voc_detection, segmentation and keypoint")
+        raise KeyError(f"no evaluator {name!r}: the port has classification, "
+                       "coco_detection (coco), coco_keypoints, voc_detection, "
+                       "segmentation and keypoint, as the JAX package has")
     return EVALUATORS.get(name)(dataset=dataset, **kwargs)

@@ -7,8 +7,9 @@ import inspect
 from ...registry import BACKBONES
 
 from . import (  # noqa: F401  (registers)
-    csp_darknet, custom_cspnet, efficientnet, efficientnet_lite, lfd_resnet, mobilenetv2, repvgg,
-    resnet, seg_light, seg_transformers, shufflenetv2, vgg)
+    convnext, csp_darknet, custom_cspnet, efficientnet, efficientnet_lite, lfd_resnet,
+    misc_backbones, mobilenetv2, mobilenetv3, regnet, repvgg, resnet, seg_light,
+    seg_transformers, shufflenetv2, tinynet, vgg)
 
 
 def build_backbone(cfg):

@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ...registry import BACKBONES
+from ..bricks import BatchNorm2d
 
 _SPECS = {
     "resnet18": ("basic", (2, 2, 2, 2)),
@@ -41,7 +42,7 @@ _SPECS = {
 
 
 def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 def _conv(cin, cout, k, stride=1, dilation=1, groups=1):

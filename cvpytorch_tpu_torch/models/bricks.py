@@ -60,14 +60,38 @@ def get_activation(name: str | None) -> Callable:
     return ACTIVATIONS[name.lower()]
 
 
+def bf16_batch_moments(x: torch.Tensor):
+    """Per-channel (mean, biased var) of an NCHW map in bfloat16, as XLA
+    computes the JAX BatchNorm's moments of a bfloat16 input without the
+    float32 promotion: each mean is a float32 sum divided by n in float32
+    and rounded to bfloat16, the square x·x is rounded to bfloat16 before
+    its mean, and var = max(E[x²] − mean², 0) in bfloat16."""
+    xb = x.to(torch.bfloat16)
+    dims = [d for d in range(x.dim()) if d != 1]
+    mean = torch.mean(xb, dims, dtype=torch.float32).to(torch.bfloat16)
+    mean2 = torch.mean(xb * xb, dims, dtype=torch.float32).to(torch.bfloat16)
+    return mean, torch.clamp_min(mean2 - mean * mean, 0)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` that also trains on one value per channel (the
     global-pool branch of a segmentation head at batch 1), as the JAX
     BatchNorm does: the output is the bias, the running variance decays
     towards 0 (Bessel's factor n / max(n − 1, 1) is 1).  torch's raises
-    there."""
+    there.
+
+    ``bf16_stats`` (off by default; ``set_bn_bf16_stats`` sets it on a
+    model, the trainer's ``AMP_BN_BF16_STATS``): in train mode under
+    autocast the batch moments are taken in bfloat16
+    (``bf16_batch_moments``); the normalisation and the running statistics
+    stay float32, from those moments."""
+
+    bf16_stats = False
 
     def forward(self, x):
+        if (self.bf16_stats and self.training and x.numel() != x.shape[1]
+                and torch.is_autocast_enabled(x.device.type)):
+            return self._bf16_stats_forward(x)
         if not (self.training and x.numel() == x.shape[1]):
             return super().forward(x)
         with torch.no_grad():
@@ -79,6 +103,32 @@ class BatchNorm2d(nn.BatchNorm2d):
         shape = (1, -1, 1, 1)
         return ((x - x.mean((0, 2, 3), keepdim=True)) * self.weight.reshape(shape)
                 + self.bias.reshape(shape))
+
+    def _bf16_stats_forward(self, x):
+        mean, var = (m.float() for m in bf16_batch_moments(x))
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach(), self.momentum)
+            self.running_var.lerp_(var.detach() * (n / max(n - 1, 1)), self.momentum)
+            self.num_batches_tracked += 1
+        # one float32 pass: x·a + (bias − mean·a), a = weight / √(var + eps)
+        a = torch.rsqrt(var + self.eps) * self.weight
+        b = self.bias - mean * a
+        shape = (1, -1, 1, 1)
+        return torch.addcmul(b.reshape(shape), x, a.reshape(shape)).to(x.dtype)
+
+
+def set_bn_bf16_stats(model: nn.Module, enabled: bool) -> nn.Module:
+    """Sets ``bf16_stats`` on every BN of ``model`` (on this instance only);
+    turning it on raises for a BN of another class, which has no such
+    switch."""
+    for name, m in model.named_modules():
+        if isinstance(m, BatchNorm2d):
+            m.bf16_stats = bool(enabled)
+        elif isinstance(m, nn.modules.batchnorm._BatchNorm) and enabled:
+            raise TypeError(f"{name} is a {type(m).__name__}: bfloat16 BN moments "
+                            "need the bricks' BatchNorm2d")
+    return model
 
 
 class ConvBNAct(nn.Module):

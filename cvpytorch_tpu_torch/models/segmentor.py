@@ -31,7 +31,8 @@ _DEFAULT_BACKBONE = {"name": "ResNet", "subtype": "resnet50", "output_stride": 8
 
 
 def _not_ported(kind: str, name: str) -> KeyError:
-    return KeyError(f"{kind} {name!r} is not ported yet (ROADMAP, Queue 1 item 8)")
+    return KeyError(f"{kind} {name!r} is not one the segmentor can use: "
+                    "no such head, or a backbone without per-stage channels")
 
 
 def feature_channels(backbone: nn.Module) -> list[int]:

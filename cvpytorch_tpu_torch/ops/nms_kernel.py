@@ -5,7 +5,10 @@ Counterpart of the TPU kernel ``pallas_nms_keep``
 of score-sorted, class-offset boxes and returns which survive greedy
 suppression.  A CPU tensor goes to ``nms_keep_plain``; a CUDA tensor goes
 to the kernels in ``csrc/nms_kernel.cu`` (a tiled IoU-bitmask kernel, then
-a blocked scan: two device launches per call), which are built with
+a blocked scan: two device launches per call).  Traced and exported code
+reaches both through the ``torch.library`` op ``cvt::nms_keep``, so that
+``torch.export`` keeps the call as one node of the exported program.  The
+kernels are built with
 ``nvcc`` for ``sm_90a`` into ``build/`` at first use (keyed by a hash of
 every source in ``csrc/`` and the flags) and loaded with ``ctypes``.  A
 failed build or launch raises.
@@ -24,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from .boxes import box_iou_matrix
 
@@ -144,25 +148,21 @@ def nms_keep_plain(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
     return keep
 
 
-def nms_keep(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
-    """Greedy NMS keep mask: boxes (B, K, 4) f32 xyxy, score-sorted
-    descending with class offsets applied → (B, K) bool.
-
-    CPU tensors take ``nms_keep_plain``; CUDA tensors launch the kernels,
-    two device kernels counted as one call in ``nms_keep.launches``.
-    Raises for K > 1024, and for a CUDA input that is not f32 and
-    contiguous."""
+def _check(boxes: torch.Tensor) -> None:
     if boxes.dim() != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
-    B, K, _ = boxes.shape
-    if K > MAX_K:
-        raise ValueError(f"nms_keep takes K <= {MAX_K}, got {K}")
-    if boxes.device.type == "cpu":
-        return nms_keep_plain(boxes, iou_threshold)
-    if boxes.device.type != "cuda":
+    if boxes.shape[1] > MAX_K:
+        raise ValueError(f"nms_keep takes K <= {MAX_K}, got {boxes.shape[1]}")
+    if boxes.device.type not in ("cpu", "cuda"):
         raise ValueError(f"nms_keep runs on cpu or cuda, got {boxes.device}")
+
+
+def _launch(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The CUDA kernels on a CUDA tensor: two device launches, counted as
+    one call in ``nms_keep.launches``."""
     if boxes.dtype != torch.float32 or not boxes.is_contiguous():
         raise ValueError("nms_keep needs a contiguous float32 tensor")
+    B, K, _ = boxes.shape
     keep = torch.empty((B, K), dtype=torch.uint8, device=boxes.device)
     if B == 0 or K == 0:
         return keep.bool()
@@ -180,6 +180,45 @@ def nms_keep(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
                            f"{lib.cvt_cuda_error_string(rc).decode()}")
     nms_keep.launches += 1
     return keep.view(torch.bool)
+
+
+def _nms_keep(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    _check(boxes)
+    if boxes.device.type == "cpu":
+        return nms_keep_plain(boxes, iou_threshold)
+    return _launch(boxes, iou_threshold)
+
+
+@torch.library.custom_op("cvt::nms_keep", mutates_args=())
+def nms_keep_op(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """``cvt::nms_keep``: one node in a traced or exported graph, which
+    ``torch.export`` saves by name; the program that loads it imports this
+    module to find it again.  CPU tensors take ``nms_keep_plain``, CUDA
+    tensors the kernels."""
+    return _nms_keep(boxes, iou_threshold)
+
+
+@nms_keep_op.register_fake
+def _(boxes, iou_threshold):
+    return boxes.new_empty(boxes.shape[:2], dtype=torch.bool)
+
+
+def nms_keep(boxes: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """Greedy NMS keep mask: boxes (B, K, 4) f32 xyxy, score-sorted
+    descending with class offsets applied → (B, K) bool.
+
+    CPU tensors take ``nms_keep_plain``; CUDA tensors launch the kernels,
+    two device kernels counted as one call in ``nms_keep.launches``.
+    Raises for K > 1024, for a device other than the CPU or CUDA, and for
+    a CUDA input that is not f32 and contiguous.  Traced or exported code
+    (``torch.compile``, ``torch.export``) calls the ``cvt::nms_keep`` op;
+    eager code calls its implementation directly, which saves the
+    dispatcher's Python path (~12 µs a call on an H100's host: 0.046
+    against 0.058 ms a call at (32, 1024), ``chip_smoke.py``)."""
+    if torch.compiler.is_compiling() or isinstance(boxes, FakeTensor):
+        _check(boxes)
+        return torch.ops.cvt.nms_keep(boxes, iou_threshold)
+    return _nms_keep(boxes, iou_threshold)
 
 
 nms_keep.launches = 0

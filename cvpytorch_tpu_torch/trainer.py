@@ -17,14 +17,20 @@ segmentation (``SEG_CLASSES``) batches stack the images and the labels
 (class ids, or (H, W) label maps), and the evaluator gets the host labels
 and the argmax as uint8; detection, instance and keypoint
 (``KEYPOINT_CLASSES``) batches are the padded detection collate's, with
-the keypoints and annotation areas when the dataset has them.  Single device: the JAX
-package's mesh (``PARALLEL``), ``PROFILER`` hook and ``AMP_BN_BF16_STATS``
-(bfloat16 BN moments) are not ported yet: each raises.
+the keypoints and annotation areas when the dataset has them.
+
+``PROFILER: {DIR, START_STEP, NUM_STEPS}`` traces NUM_STEPS train steps
+with ``torch.profiler`` into a Chrome trace under DIR.
+``AMP_BN_BF16_STATS: true`` takes the train-mode BN batch moments in
+bfloat16 under AMP (``models/bricks.BatchNorm2d``), on this trainer's model
+only.  Single device: the JAX package's mesh (``PARALLEL``) is not ported
+yet and raises.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
 
 import torch
 
@@ -34,6 +40,7 @@ from .data.transforms import build_transforms
 from .data.transforms.det_transforms import make_det_collate, make_device_aug_collate
 from .evaluator import build_evaluator
 from .infer import TASKS, build_model, resolve_device
+from .models.bricks import set_bn_bf16_stats
 from .ops.augment import fused_det_augment, step_generator
 from .optim.optimizers import build_optimizer
 from .optim.schedules import build_lr_scheduler
@@ -61,12 +68,9 @@ class Trainer:
         self.start_epoch = -1
         self.n_epochs = int(cfg.N_MAX_EPOCHS or 1)
         if cfg.PARALLEL:
-            raise NotImplementedError("PARALLEL is not ported yet (ROADMAP, "
-                                      "Queue 1): the port trains on one device")
-        for key in ("PROFILER", "AMP_BN_BF16_STATS"):
-            if cfg.get(key):
-                raise NotImplementedError(f"{key} is not ported yet (ROADMAP, Queue 1 "
-                                          "item 10): remove it from the config")
+            raise NotImplementedError("PARALLEL is not ported yet (ROADMAP, Queue 1 "
+                                      "item 11): the port trains on one device")
+        self._profiler = None
         self.logger.info("device: %s", self.device)
         self._device_aug_size = None
         self._parser_dict()
@@ -130,6 +134,8 @@ class Trainer:
         one."""
         self.model = build_model(self.cfg, self.dictionary,
                                  self.datasets.get("train") or self.datasets.get("val"))
+        # this model's own setting: a later Trainer's model starts from off
+        set_bn_bf16_stats(self.model, bool(self.cfg.AMP_BN_BF16_STATS))
 
     # ------------------------------------------------------------------
     def _build_train_state(self):
@@ -199,6 +205,7 @@ class Trainer:
                 ckpts.autosave_checkpoint(state, epoch, is_best=False)
         writer.close()
         ckpts.wait()
+        self._stop_profiler()
         self.checkpoints = ckpts
         self.state = state
         return state
@@ -228,6 +235,44 @@ class Trainer:
 
         return preprocess
 
+    def _profiler_hook(self, step: int):
+        """``PROFILER: {DIR: traces, START_STEP: 10, NUM_STEPS: 5}``:
+        ``torch.profiler`` (CPU, and CUDA on a CUDA device) from global
+        step START_STEP for NUM_STEPS steps, written as a Chrome trace
+        ``DIR/trace_steps_<first>-<last>.json``; each profiled step is a
+        ``train_step_<n>`` range."""
+        prof = self.cfg.PROFILER
+        if not prof or not hasattr(prof, "get"):
+            return
+        start = prof.get("START_STEP")
+        start = 10 if start is None else int(start)
+        num = prof.get("NUM_STEPS")
+        num = 5 if num is None else int(num)
+        if step == start and self._profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=activities)
+            self._profiler.__enter__()
+            self._profile_range = (start, start + num - 1)
+            self.logger.info("profiler trace started @ step %d", step)
+        elif step == start + num:
+            self._stop_profiler()
+
+    def _stop_profiler(self):
+        if self._profiler is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._profiler.__exit__(None, None, None)
+        out_dir = str(self.cfg.PROFILER.get("DIR", "traces"))
+        os.makedirs(out_dir, exist_ok=True)
+        first, last = self._profile_range
+        self.trace_path = os.path.join(out_dir, f"trace_steps_{first}-{last}.json")
+        self._profiler.export_chrome_trace(self.trace_path)
+        self._profiler = None
+        self.logger.info("profiler trace written to %s", self.trace_path)
+
     def train_epoch(self, epoch, state, train_step, loader, writer, display):
         loss_logger = LossLogger()
         timer = Timer()
@@ -245,7 +290,13 @@ class Trainer:
                 yield {**batch, "target": {**batch["target"], **extra}}
 
         for it, batch in enumerate(DevicePrefetcher(prepared(), self.device)):
-            state, metrics = train_step(state, batch)
+            gstep = epoch * len(loader) + it
+            self._profiler_hook(gstep)
+            if self._profiler is not None:
+                with torch.profiler.record_function(f"train_step_{gstep}"):
+                    state, metrics = train_step(state, batch)
+            else:
+                state, metrics = train_step(state, batch)
             if pending is not None and (pending[1] + 1) % display == 0:
                 loss_logger.update({k: float(v) for k, v in pending[0].items()})
                 timer.toc(display)

@@ -214,11 +214,28 @@ def test_cityscapes_deeplabv3_pipeline_builds():
 
 
 def test_unported_transforms_name_the_roadmap():
-    """``RandAugment`` (PIL's operations) is the one seg transform not
-    ported; ``RandomRotate`` is (``test_transform_equals_jax_under_the_same_seed``)."""
-    with pytest.raises(KeyError, match="ROADMAP"):
-        build_transforms("SEG_CLASSES", {"RandAugment": {}}, "train")
+    """No seg transform is left unported: ``RandAugment`` (PIL's operations
+    in the JAX package, numpy in the port) builds from the config's name
+    and gives JAX's image and mask under one ``random`` seed, all fourteen
+    operations drawn; ``RandomRotate`` builds too
+    (``test_transform_equals_jax_under_the_same_seed``).  An unknown name
+    raises."""
+    rng = np.random.RandomState(4)
+    kwargs = {"p": 0.9, "n_ops": 3, "magnitude": 0.7, "ops": "full", "fill": [5, 6, 7]}
+    for seed in range(6):
+        sample = {"image": rng.randint(0, 256, (40, 56, 3)).astype(np.uint8),
+                  "target": rng.randint(0, 19, (40, 56)).astype(np.uint8)}
+        random.seed(seed)
+        want = jax_build_transforms("SEG_CLASSES", {"RandAugment": kwargs}, "train")(
+            copy.deepcopy(sample))
+        random.seed(seed)
+        got = build_transforms("SEG_CLASSES", {"RandAugment": kwargs}, "train")(
+            copy.deepcopy(sample))
+        np.testing.assert_array_equal(got["image"], want["image"])
+        np.testing.assert_array_equal(got["target"], want["target"])
     assert build_transforms("SEG_CLASSES", {"RandomRotate": {}}, "train").transforms
+    with pytest.raises(KeyError, match="no segmentation transform"):
+        build_transforms("SEG_CLASSES", {"NoSuchTransform": {}}, "train")
 
 
 # -- datasets ---------------------------------------------------------------------

@@ -285,13 +285,18 @@ def test_aliases_resolve_and_missing_parts_name_the_roadmap():
     for alias in ("Deeplabv3Plus", "Deeplabv3", "PSPNet", "UPerNet", "SegFormer",
                   "src.models.segmentors.encoder_decoder.EncoderDecoder"):
         assert MODELS.get(alias) is EncoderDecoder
-    # every seg config's backbone and head is ported: the backbone case
-    # takes ConvNeXt (Queue 1 item 8); the head case, GFLv2's detection
-    # head, is registered since item 7.6 and builds (with its own widths,
-    # as the JAX factory builds it)
-    with pytest.raises(KeyError, match="ROADMAP, Queue 1 item 8"):
+    # every seg config's backbone and head is ported (the registry census,
+    # tests/test_torch_registry_census.py, finds none left): ConvNeXt, the
+    # last backbone, serves its stages 2-4; GFLv2's detection head builds
+    # (with its own widths, as the JAX factory builds it); an unknown name
+    # raises
+    model = EncoderDecoder(dictionary=DICTIONARY, model_cfg=CommonConfiguration(
+        {**DEEPLAB, "BACKBONE": {"name": "ConvNeXt", "out_stages": [1, 4]}}))
+    assert type(model.backbone).__name__ == "ConvNeXt"
+    assert model.backbone.channels == (96, 192, 384, 768)
+    with pytest.raises(KeyError, match="NoSuchNet"):
         EncoderDecoder(dictionary=DICTIONARY,
-                       model_cfg=CommonConfiguration({**DEEPLAB, "BACKBONE": {"name": "ConvNeXt"}}))
+                       model_cfg=CommonConfiguration({**DEEPLAB, "BACKBONE": {"name": "NoSuchNet"}}))
     model = EncoderDecoder(dictionary=DICTIONARY, model_cfg=CommonConfiguration(
         {**DEEPLAB, "HEAD": {"name": "GFocalHeadV2"}}))
     assert type(model.head).__name__ == "GFocalHeadV2"

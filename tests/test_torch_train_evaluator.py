@@ -73,5 +73,5 @@ def test_build_evaluator_names():
     assert isinstance(kpt, KeypointEvaluator) and kpt.eval_type == "OKS"
     oks = build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "coco_keypoints"}}), DS())
     assert isinstance(oks, CocoEvaluator) and oks.iou_types == ("bbox", "keypoints")
-    with pytest.raises(KeyError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="no evaluator 'pck_top_down'"):
         build_evaluator(CommonConfiguration({"EVALUATOR": {"NAME": "pck_top_down"}}), DS())

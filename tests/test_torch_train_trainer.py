@@ -105,10 +105,33 @@ def test_detection_learns(tmp_path):
     ("PROFILER", {"DIR": "traces", "START_STEP": 2, "NUM_STEPS": 1}),
     ("AMP_BN_BF16_STATS", True)])
 def test_trainer_refuses_the_keys_it_does_not_port(tmp_path, key, value):
-    """A config that sets the JAX mesh, the profiler hook or the bfloat16
-    BN moments raises, naming the ROADMAP, rather than training without
-    them; unset (or an empty mapping) they are not read."""
-    with pytest.raises(NotImplementedError, match=f"{key} .*ROADMAP"):
-        Trainer(CommonConfiguration({key: value}), device="cpu")
+    """The JAX mesh (``PARALLEL``) is the one key the port still refuses,
+    naming its ROADMAP item.  ``PROFILER`` traces exactly steps
+    START_STEP … START_STEP + NUM_STEPS − 1 into a Chrome trace under DIR;
+    ``AMP_BN_BF16_STATS`` switches this trainer's model's BNs to bfloat16
+    moments and a later trainer's model starts from off.  Unset (or an
+    empty mapping) no key is read."""
+    if key == "PARALLEL":
+        with pytest.raises(NotImplementedError, match="PARALLEL .*ROADMAP, Queue 1 item 11"):
+            Trainer(CommonConfiguration({key: value}), device="cpu")
+    elif key == "PROFILER":
+        train = {**VAL_64, "LENGTH": 24, "SHUFFLE": True}
+        trainer = Trainer(CommonConfiguration.from_file(write_config(
+            tmp_path, train, dict(VAL_64), N_MAX_EPOCHS=1,
+            PROFILER={**value, "DIR": str(tmp_path / "traces")})), device="cpu")
+        trainer.run()
+        assert trainer.trace_path == str(tmp_path / "traces" / "trace_steps_2-2.json")
+        events = json.loads(open(trainer.trace_path).read())["traceEvents"]
+        steps = {e["name"] for e in events if e.get("name", "").startswith("train_step_")}
+        assert steps == {"train_step_2"}
+    else:
+        bns = lambda t: [m for m in t.model.modules() if hasattr(m, "bf16_stats")]
+        on = Trainer(CommonConfiguration.from_file(write_config(
+            tmp_path, dict(VAL_64), dict(VAL_64), AMP=True, **{key: value})), device="cpu")
+        assert bns(on) and all(m.bf16_stats for m in bns(on))
+        off = Trainer(CommonConfiguration.from_file(write_config(
+            tmp_path, dict(VAL_64), dict(VAL_64), AMP=True)), device="cpu")
+        assert not any(m.bf16_stats for m in bns(off))
+        assert all(m.bf16_stats for m in bns(on))
     cfg = write_config(tmp_path, dict(VAL_64), dict(VAL_64), **{key: {}})
     assert Trainer(CommonConfiguration.from_file(cfg), device="cpu").cfg.get(key) == {}
