@@ -45,7 +45,7 @@
 5. Mask R-CNN phase: ``conf/coco_maskrcnn.yml`` (R50-FPN, 80 classes,
    AMP, SGD 0.9, MultiStepLR, warmup, bbox + segm evaluation) on
    SyntheticInstanceSegmentation at 800² (MASK_SIZE 112), trained through
-   ``Trainer.run()`` for 2 steps at batch 16 and validated on 32 images;
+   ``Trainer.run()`` for 2 steps at batch 16 and validated on 16 images;
    checks that the five losses are finite and that ``nms_keep`` ran once
    per step (the RPN's proposals) and twice per val batch (proposals and
    detections); serves the checkpoint through ``infer.main``.  Times the
@@ -68,13 +68,13 @@
    SGD 0.9 with weight decay 1e-4, PolyLR, warmup, batch 8, 512×1024
    crops with flip and photometric distortion) on SyntheticSegmentation
    at the 1024×2048 Cityscapes frame: trained through ``Trainer.run()``
-   (one step each), validated on 16 images (mIoU), the checkpoint served
-   through ``infer.main`` as palette PNGs checked against the predict
+   (one step each), validated on one batch (mIoU), the checkpoint served
+   through ``infer.main`` as 4 palette PNGs checked against the predict
    step's argmax; ``nms_keep`` is not launched on these paths.  Times the
    AMP and f32 train steps at batch 8 (CUDA events, peak memory), the
    val and predict steps; for DeepLabV3+ also the host's loader rate and
    each transform's time on one item (the PNG decoder is timed in 1b),
-   and R50 at 512×1024, B = 1, f32 on the card
+   and R50 at 256×512, B = 1, f32 on the card
    against the CPU (eval-mode logits within 1e-4 of their largest value,
    argmax equal on ≥ 99.9 % of the pixels, train-mode losses within
    1e-3 relative).
@@ -100,7 +100,7 @@
    launches.
 6e. The self-contained segmenters, the same way, each config as written:
    ``conf/cityscapes_stdc.yml`` (STDCNet-1, OHEM + detail loss, batch 16,
-   EMA, clip 10; 2 steps, 16 val images, 8 served, AMP and f32 steps over
+   EMA, clip 10; 2 steps, 16 val images, 4 served, AMP and f32 steps over
    3 calls, card vs CPU at B = 1; the detail target is the
    ``detail_target`` range of its profile), ``conf/cityscapes_ppliteseg.yml``
    and ``conf/cityscapes_sgcpnet.yml`` (batch 16), ``conf/cityscapes_enet.yml``
@@ -134,10 +134,11 @@
    (MobileNetV2 classifier, 100 classes, RandomResizedCrop 224, flip,
    ColorJitter, AdamW, cosine, warmup, AMP, batch 64) on
    SyntheticClassification at 375×500: ``Trainer.run()`` for 4 steps,
-   mAcc validation of 128 images, the checkpoint served through
+   mAcc validation of 64 images, the checkpoint served through
    ``infer.main`` (class ids equal to the predict step's argmax), 0
-   ``nms_keep`` launches; the AMP and f32 train steps at batch 64 and the
-   AMP step at bench.py's batch 256, the val and predict steps, peak memory; each
+   ``nms_keep`` launches; the AMP train step at batch 64 and at
+   bench.py's batch 256, the val and predict steps, peak
+   memory; each
    host transform's time and the loader rate; MobileNetV2 at B = 2, f32,
    card vs CPU (logits within 1e-4 of their largest value, loss 1e-4);
    then ``MiniImageNetClassification`` over an ``INDICES`` file of the JPEG
@@ -148,9 +149,9 @@
    ColorHSV, AdamW, cosine, warmup, AMP, EMA, batch 96) on
    SyntheticDetection at 427×640: ``Trainer.run()`` for 2 steps, bbox
    validation of 96 images (``nms_keep`` once per val batch), the
-   checkpoint served through ``infer.main`` (once more per served batch;
+   checkpoint served through ``infer.main`` on 16 images (once more;
    boxes equal to the predict step's un-letterboxed to the 427×640
-   frame); the AMP and f32 train steps at batch 96 and the AMP step at
+   frame); the AMP train step at batch 96 and at
    bench.py's batch 128, the DSL assigner alone (time and peak memory), the val and
    predict steps; ``nms_keep`` bit-exact on the path's (96, 1024) val
    input and timed; host transforms and loader rate; card vs CPU at B = 2,
@@ -162,7 +163,7 @@
    warmup, AMP, EMA, batch 160) with only ``IMG_DIR``/``ANN_FILE`` pointed
    at the COCO directory of JPEG files (320 train, 160 val images):
    ``Trainer.run()`` for 2 steps, bbox validation of 160 images
-   (``nms_keep`` once, at (160, 1024)), one served batch through
+   (``nms_keep`` once, at (160, 1024)), 16 images served through
    ``infer.main`` (once more; boxes the predict step's un-letterboxed); the
    AMP step at batch 160 (peak memory), the ATSS assignment alone,
    the val and predict steps; ``nms_keep`` bit-exact on the path's val
@@ -182,9 +183,10 @@
    ``matched_gt`` of ATSS and of TAL equal on the CPU's inputs, the val
    losses in float32 and the train losses in float64 1e-4; the float32
    train losses reported beside the CPU's own float32-vs-float64 gap).
-8e. NanoDet v1's other configs, one train step and one val batch each at
-   their batch, not timed: ``coco_nanodet_t`` (TAN), ``coco_nanodet_g``
-   (CustomCspNet, 128 channels), ``coco_nanodet_repvgg``,
+8e. NanoDet v1's other configs, one train step each at their batch and
+   one val batch (at most 32 images on the COCO directory), not timed:
+   ``coco_nanodet_t`` (TAN), ``coco_nanodet_g`` (CustomCspNet, 128
+   channels), ``coco_nanodet_repvgg``,
    ``coco_nanodet_efficientnet_lite`` and ``coco_nanodet_416`` on the COCO
    directory, ``voc_nanodet`` on a VOCdevkit through the ``voc_detection``
    evaluator; ``nms_keep`` once each, bit-exact on its val input.
@@ -193,9 +195,9 @@
    PAFPN, the decoupled head, SimOTA; mosaic + affine at 640², SGD,
    cosine, AMP, EMA; class and objectness biases at 0 so that the batches
    hold detections) through ``Trainer.run()`` for one epoch of 2 steps at
-   bs32, bbox validation of 64 images after it (``nms_keep`` once a
-   batch), one served batch (once more); the AMP and f32 steps at bs32,
-   the val and predict steps; ``nms_keep`` bit-exact on its (32, 1024) val
+   bs32, bbox validation of 32 images after it (``nms_keep`` once a
+   batch), one served batch (once more); the AMP step at bs32, the val
+   and predict steps; ``nms_keep`` bit-exact on its (32, 1024) val
    input and timed; card vs CPU at B = 2 (head outputs 1e-4, SimOTA
    ``matched_gt`` equal on the CPU's inputs, val losses in f32 and train
    losses in f64 1e-4).  ``conf/coco_yolov7.yml`` (YOLOv7-l, its OTA
@@ -214,7 +216,7 @@
    directory's JPEG files: ``conf/coco_efficientdet.yml`` (EfficientDet-D0:
    EfficientNet-B0, 3 BiFPN cells of 64 channels, the shared heads over
    49,104 anchors at 512²) through ``Trainer.run()`` for one epoch of 2
-   steps at bs32, bbox validation of 64 images after it (``nms_keep``
+   steps at bs32, bbox validation of 32 images after it (``nms_keep``
    once a batch), one served batch (once more); the AMP step, the
    val and predict steps; ``nms_keep`` bit-exact on its (32, 1024) val
    input and timed; card vs CPU at B = 2 (head outputs 1e-4, the loss's
@@ -257,7 +259,7 @@
    ColorHSV, Gaussian and median blur, grayscale, ToCXCYWH, ToTensor,
    Normalize on ``imgproc``, no OpenCV), only ``IMG_DIR``/``ANN_FILE``
    changed: ``Trainer.run()`` for one epoch of 2 steps at batch 32 with no
-   ``DEVICE_AUG``, bbox validation of 64 images (``nms_keep`` once per val
+   ``DEVICE_AUG``, bbox validation of 32 images (``nms_keep`` once per val
    batch), the checkpoint served through ``infer.main`` on 32 images (once
    more); prints the train epoch wall and fed rate beside the
    ``DEVICE_AUG`` phase's, the loader rate, an item's one-thread ms split
@@ -303,15 +305,28 @@
    device busy and idle share and the top operations of the YOLOv5 AMP
    train step with the device augmentation, and of the Mask R-CNN AMP
    train step with the share of the ROIAlign gathers and of their
-   backward, and of the SegNeXt-B AMP train step (the NMF's float32
-   matmuls and GELU kernels as named groups), and of the YOLOX-s,
-   EfficientDet-D0, AIRDet-s and OpenPose AMP steps with the share of the
-   ``simota_assign``, ``effdet_targets`` and ``openpose_targets`` ranges
+   backward, and of the YOLOX-s, EfficientDet-D0 and AIRDet-s AMP steps
+   with the share of the ``simota_assign`` and ``effdet_targets`` ranges
    (every path's val input among the NMS kernel inputs).  The other
    paths' steps are timed, not profiled: a profiler session of one step
-   costs seconds of the run's time limit (the device augmentation, STDC and NanoDet-Plus
-   are timed only, as are the AMP steps at the bench milestones'
-   batches).
+   costs seconds of the run's time limit (the device augmentation, STDC,
+   NanoDet-Plus, SegNeXt-B and OpenPose are timed only,
+   as are the AMP steps at the bench milestones' batches).
+11. Data parallelism (``data_parallel_phase``, after the YOLOv5 train
+   phase): full-width YOLOv5-s 640 on the flagship's recipe
+   (``DEVICE_AUG``, AMP, EMA) at the global batch of 32 through
+   ``Trainer.run()`` in three ``torchrun``s of this script at once: two
+   gloo ranks on the one card (2 steps, val of 64 images merged across
+   the ranks), one NCCL rank (1 step, one val batch) and a probe of NCCL
+   with two ranks on the card (refused: "Duplicate GPU detected"); then,
+   with the card to the two ranks alone, the two-rank AMP step by CUDA
+   events.  Checks: every rank's losses finite and equal, ``nms_keep``
+   launched once per val batch on each rank and bit-exact on a rank's
+   (16, 1024) input, only rank 0 writing checkpoints, one f32 step of two
+   ranks on a fixed global batch against one process (loss and parameters
+   1e-4 of the largest leaf, the update 1e-2), and the merged val's
+   records and metrics equal to one process's on rank 0's checkpoint.
+   Two ranks sharing one card measure correctness, not scaling.
 
 Prints the card's name and power limit, one JSON line of kernel records,
 and as its last line ``{"ok": true, "device": {...}}``.  Exits non-zero,
@@ -817,7 +832,7 @@ def path_phase(workdir: Path) -> dict:
     from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
     from cvpytorch_tpu_torch.train_state import make_predict_step, prepare_images
 
-    n_batches = 3
+    n_batches = 2
     setting = smoke_config(workdir, n_batches)
     cfg = CommonConfiguration.from_file(str(setting))
     _, dictionary = load_dictionary(cfg.DATASET.DICTIONARY, "DET_CLASSES")
@@ -922,7 +937,7 @@ def path_phase(workdir: Path) -> dict:
     print(f"nms_keep on the path's input {tuple(path_boxes.shape)} thr "
           f"{path_thr}: {path_nms_ms} ms", flush=True)
     print(json.dumps({"bs32_predict_profile": profile_device(lambda: predict(images))}))
-    print(json.dumps({"bs1_predict_profile": profile_device(lambda: predict(one), top=5)}))
+    # (no bs1 predict profile: its session held the run's time limit)
     return {
         "launches": launches,
         "bs1_predict_ms_p50": float(np.median(bs1)),
@@ -1026,7 +1041,7 @@ def raw_train_batch(trainer) -> dict:
 
 def train_timing(trainer) -> dict:
     """The train step at bs32 on one augmented batch already on the card,
-    by CUDA events over 10 steps after 3 warm-up steps, AMP and f32; the
+    by CUDA events over 5 steps after 2 warm-up steps, AMP and f32; the
     device augmentation of one batch; the peak memory of each step."""
     import torch
 
@@ -1052,7 +1067,7 @@ def train_timing(trainer) -> dict:
         step = make_train_step(amp=amp, ema_decay=0.9999)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_time_ms(lambda: step(state, batch), iters=10, warmup=3)
+        ms = cuda_time_ms(lambda: step(state, batch), iters=5, warmup=2)
         out[f"{name}_step_ms"] = ms
         out[f"{name}_images_per_s"] = BATCH / ms * 1e3
         out[f"{name}_max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
@@ -1157,8 +1172,388 @@ def _profiled_train_state(trainer):
     return lambda: step(state, raw)
 
 
+# -- data parallelism: YOLOv5-s 640 over torchrun ranks on the one card ----
+
+DP_RANKS = 2
+DP_STEPS = 2  # one epoch at the global batch of 32, 16 images a rank
+DP_VAL_IMAGES = 64  # 2 val batches a rank (16 images each)
+DP_NCCL_STEPS = 1  # the one-rank NCCL run: one step, one val batch
+DP_NCCL_VAL_IMAGES = BATCH
+DP_CHECK_SEED = 3  # the f32 check's model
+DP_TIMEOUT_S = 300
+DP_PROBE_TIMEOUT_S = 90
+
+
+def dp_config(workdir: Path, name: str, steps: int, val_images: int,
+              val_batch: int = BATCH) -> Path:
+    """``train_config``'s recipe (AMP, EMA, ``DEVICE_AUG``, the global batch
+    of 32) cut to one epoch of ``steps`` steps and a val of
+    ``val_images`` at ``val_batch``."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    cfg = json.loads(train_config(workdir).read_text())
+    cfg["EXPERIMENT_NAME"] = f"chip_smoke_{name}"
+    cfg["N_MAX_EPOCHS"] = 1
+    cfg["CHECKPOINT_DIR"] = str(workdir / "checkpoints")
+    cfg["DATASET"]["TRAIN"]["LENGTH"] = BATCH * steps
+    cfg["DATASET"]["VAL"].update(LENGTH=val_images, BATCH_SIZE=val_batch)
+    path = workdir / f"{name}.json"
+    path.write_text(json.dumps(cfg))
+    return path
+
+
+def fixed_raw_batch(trainer, rows: range) -> dict:
+    """``rows`` of a global raw train batch that every process builds alike:
+    item i's ``LOAD_NUM`` group is samples i, i + 1, i + 2, i + 3 (the
+    loader draws the group's others from each process's own host
+    ``random``), letterboxed by the ``DEVICE_AUG`` collate; on the card,
+    as step 0 of epoch 0."""
+    import torch
+
+    loader = trainer.dataloaders["train"]
+    ds = loader.dataset
+    host = loader.collate_fn([[ds._load_one((i + k) % len(ds)) for k in range(4)]
+                              for i in rows])
+    dev = trainer.device
+    return {"image": torch.from_numpy(host["image"]).to(dev),
+            "target": {**{k: torch.from_numpy(v).to(dev) for k, v in host["target"].items()},
+                       "epoch": 0, "aug_step": 0}}
+
+
+def dp_f32_step(trainer, rows: range) -> dict:
+    """One f32 train step (TF32 off) with EMA and the device augmentation
+    of a fresh YOLOv5-s from ``DP_CHECK_SEED`` on ``rows`` of
+    ``fixed_raw_batch``; rank 0's weights are broadcast first under a live
+    group.  Returns the loss, and the weights before and after, on the CPU."""
+    import torch
+
+    from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.optim.schedules import build_lr_scheduler
+    from cvpytorch_tpu_torch.parallel import dist as dp
+    from cvpytorch_tpu_torch.train_state import create_train_state, make_train_step
+
+    torch.manual_seed(DP_CHECK_SEED)
+    model = build_model(trainer.cfg, trainer.dictionary).to(
+        trainer.device, memory_format=torch.channels_last)
+    opt = build_optimizer(trainer.cfg, model,
+                          build_lr_scheduler(trainer.cfg, trainer.iters_per_epoch))
+    state = create_train_state(model, opt, use_ema=True)
+    dp.broadcast_module_(model)
+    dp.broadcast_module_(state.ema)
+    before = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    step = make_train_step(amp=False, ema_decay=0.9999,
+                           preprocess=trainer._device_aug_preprocess())
+    _, metrics = step(state, fixed_raw_batch(trainer, rows))
+    return {"loss": float(metrics["loss"]), "before": before,
+            "after": {k: v.detach().float().cpu() for k, v in model.state_dict().items()},
+            "params": [name for name, _ in model.named_parameters()]}
+
+
+def dp_step_split(step, state, raw) -> dict:
+    """Where a rank's W-rank AMP step goes, each variant timed by CUDA
+    events on both ranks at once: BN's all-reduces made identities (the
+    global moments' float32 passes kept, ``bn_collectives_off_ms``); this
+    rank's own moments by the fused BN, with no collective at all
+    (``local_ms``, under ``local_reductions``: no gradient sum either);
+    and the bucketed gradient sum alone (``grad_sum_ms``)."""
+    from cvpytorch_tpu_torch.parallel import dist as dp
+
+    run = lambda: step(state, raw)
+    real = dp.all_reduce_with_grad
+    dp.all_reduce_with_grad = lambda x: x
+    try:
+        off = cuda_time_ms(run, iters=2, warmup=1)
+    finally:
+        dp.all_reduce_with_grad = real
+    with dp.local_reductions():
+        local = cuda_time_ms(run, iters=2, warmup=1)
+    dp.barrier()
+    grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
+             if p.grad is not None]
+    grad_sum = cuda_time_ms(lambda: dp.all_reduce_sum_(grads), iters=2, warmup=1)
+    return {"bn_collectives_off_ms": off, "local_ms": local, "grad_sum_ms": grad_sum,
+            "grad_sum_mb": sum(g.nbytes for g in grads) / 2**20}
+
+
+def dp_rank_main(out_dir: str, setting: str, backend: str, device: str, go: str) -> int:
+    """One rank of ``data_parallel_phase`` (run by ``torchrun``): the
+    trainer's ``Trainer(cfg, device, backend).run()`` (its model's class
+    and objectness biases at 0, ``zero_class_biases``, so that the val
+    holds detections to merge) with ``nms_keep``'s count set to 0 just
+    before and read just after.  With ``go`` (a file
+    the phase writes once nothing else runs on the card), also:
+    ``nms_keep`` bit-exact against ``nms_keep_plain`` on this rank's first
+    val input and timed; ``dp_f32_step`` on this rank's rows; then, after
+    ``go``, the W-rank AMP step timed by CUDA events.  Writes
+    ``rank<r>.json`` (and rank 0 ``f32.pt``) under ``out_dir``."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
+    from cvpytorch_tpu_torch.parallel import dist as dp
+    from cvpytorch_tpu_torch.train_state import make_train_step
+
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(setting), device=device,
+                                  backend=backend)
+    zero_class_biases(trainer.model)  # so that the val holds detections to merge
+    rank, world = dp.rank(), dp.world_size()
+    seen, restore = capture_nms_inputs()
+    try:
+        run = run_instrumented(trainer, trainer_mod)
+    finally:
+        restore()
+    out = {"rank": rank, "world": world, "backend": backend, "device": str(trainer.device),
+           "launches": run["launches"], "val_batches": len(trainer.dataloaders["val"]),
+           "losses": [float(m["loss"]) for m in run["metrics"]], "step": run["state"].step,
+           "val": run["val"], "run_s": run["run_s"],
+           "save_dir": trainer.checkpoints.save_dir if trainer.checkpoints else None}
+    if go:
+        boxes, thr = seen[0]
+        out["nms"] = {"shape": list(boxes.shape), "thr": thr,
+                      "bit_exact": bool(torch.equal(nms_keep(boxes, thr),
+                                                    nms_keep_plain(boxes, thr)))}
+        sl = trainer._rows or slice(0, BATCH)
+        rows = range(sl.start, sl.stop)
+        out["rows"] = len(rows)
+        f32 = dp_f32_step(trainer, rows)
+        out["f32_loss"] = f32["loss"]
+        if rank == 0:
+            torch.save(f32, Path(out_dir) / "f32.pt")
+            # the merged val records (per image: scores, matches), for the
+            # phase to hold to one process's
+            torch.save(trainer.evaluator.state_dict(), Path(out_dir) / "val_state.pt")
+        deadline = time.monotonic() + DP_TIMEOUT_S
+        while not Path(go).exists():  # the card to ourselves for the timings
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{go} did not appear")
+            time.sleep(0.05)
+        dp.barrier()
+        out["nms"]["ms"] = nms_event_ms(boxes, thr)
+        out["nms"]["plain_ms"] = cuda_time_ms(lambda: nms_keep_plain(boxes, thr),
+                                              iters=2, warmup=1)
+        step = make_train_step(amp=True, ema_decay=0.9999,
+                               preprocess=trainer._device_aug_preprocess())
+        raw = fixed_raw_batch(trainer, rows)
+        # the run's state and shapes: warm already
+        out["amp_step_ms"] = cuda_time_ms(lambda: step(run["state"], raw), iters=2, warmup=0)
+        out["amp_step_split"] = dp_step_split(step, run["state"], raw)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
+    dp.barrier()
+    dp.destroy()
+    return 0
+
+
+def dp_nccl_probe() -> int:
+    """Two ranks of ``torchrun`` on one card with NCCL: an all-reduce,
+    which NCCL is expected to refuse; prints what it said."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from cvpytorch_tpu_torch.parallel import dist as dp
+
+    dp.initialize_distributed("nccl", timeout_s=60, device=torch.device("cuda", 0))
+    try:
+        x = torch.ones(1, device="cuda")
+        dist.all_reduce(x)
+        torch.cuda.synchronize()
+        print(f"NCCL_PROBE rank {dp.rank()}: accepted, all_reduce gave {float(x)}", flush=True)
+    except Exception as e:  # the expected refusal, reported by the phase
+        print(f"NCCL_PROBE rank {dp.rank()}: {type(e).__name__}: "
+              f"{' '.join(str(e).split())[:400]}", flush=True)
+    os._exit(0)  # a failed communicator's teardown can block
+
+
+def torchrun(nproc: int, args: list, log: Path) -> subprocess.Popen:
+    """``python -m torch.distributed.run --standalone`` of this script in a
+    session of its own (so that a timeout can stop every process of it),
+    its output in ``log``."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(nproc), str(Path(__file__).resolve()), *args],
+        stdout=log.open("w"), stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def stop_session(proc: subprocess.Popen) -> None:
+    """Kills the whole session of a ``torchrun`` that is still running."""
+    import os
+    import signal
+
+    if proc.poll() is None:
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+
+
+def wait_for(name: str, proc: subprocess.Popen, log: Path, timeout: float,
+             fatal: bool = True):
+    """The exit code of a ``torchrun`` process; at the deadline its whole
+    session is killed, and it raises (or, not ``fatal``, returns None)."""
+    try:
+        return proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        stop_session(proc)
+        if fatal:
+            raise AssertionError(f"{name} ran past {timeout} s:\n{log.read_text()[-3000:]}")
+        return None
+
+
+def same_val_records(merged: dict, one: dict) -> dict:
+    """Whether the merged COCO records equal one process's, image by image
+    in the same order (scores, matches, ignores and GT counts), and how
+    many detections they hold."""
+    equal, dets = True, 0
+    for t, ev in one.items():
+        for c, areas in enumerate(ev["records"]):
+            for a, recs in areas.items():
+                got = merged[t]["records"][c][a]
+                equal &= len(got) == len(recs)
+                for g, w in zip(got, recs):
+                    equal &= all(np.array_equal(x, y) for x, y in zip(g[:4], w[:4]))
+                    dets += len(w[0]) if a == "all" else 0
+    return {"equal": bool(equal), "detections": dets}
+
+
+def _max_rel(a: dict, b: dict) -> tuple[float, str]:
+    """max over the tensors of max |a − b|, over the largest |b| of all of
+    them (relative to the largest leaf), and where it is largest."""
+    top = max(float(v.abs().max()) for v in b.values() if v.is_floating_point())
+    err, at = max((float((a[k] - v).abs().max()), k) for k, v in b.items()
+                  if v.is_floating_point())
+    return err / top, at
+
+
+def data_parallel_phase(workdir: Path, card: str) -> dict:
+    """Full-width YOLOv5-s 640 trained over two ``torchrun`` ranks on the one
+    card (gloo: NCCL refuses two ranks on one device, which a probe shows)
+    and over one NCCL rank, each through ``Trainer.run()``, beside this
+    process's one-process reference (the probe from when the reference's
+    step is done); then the two-rank step timed
+    alone, and the checks against one process on the same global batch
+    and the same val set."""
+    workdir.mkdir()
+    setting = dp_config(workdir / "two_ranks", "dp_two_ranks", DP_STEPS, DP_VAL_IMAGES)
+    nccl_setting = dp_config(workdir / "nccl", "dp_nccl", DP_NCCL_STEPS, DP_NCCL_VAL_IMAGES)
+    outs = {k: workdir / k for k in ("two_ranks", "nccl")}
+    logs = {k: workdir / f"{k}.log" for k in ("probe", "nccl", "two_ranks")}
+    go = workdir / "go"
+    procs = {"two_ranks": torchrun(DP_RANKS, ["--dp-rank", str(outs["two_ranks"]),
+                                              str(setting), "gloo", "cuda:0", str(go)],
+                                   logs["two_ranks"]),
+             "nccl": torchrun(1, ["--dp-rank", str(outs["nccl"]), str(nccl_setting), "nccl",
+                                  "cuda", ""], logs["nccl"])}
+    try:
+        return _data_parallel_checks(workdir, card, outs, logs, procs, go)
+    finally:  # a failed check leaves no rank running
+        for proc in procs.values():
+            stop_session(proc)
+
+
+def _data_parallel_checks(workdir, card, outs, logs, procs, go) -> dict:
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.train_state import make_eval_step
+    from cvpytorch_tpu_torch.utils.checkpoints import Checkpoints
+
+    # one process, at a rank's val batch so that every image's forward is
+    # the ranks' own: what the merged metrics must equal
+    ref_setting = dp_config(workdir / "reference", "dp_reference", DP_STEPS, DP_VAL_IMAGES,
+                            val_batch=BATCH // DP_RANKS)
+    ref = trainer_mod.Trainer(CommonConfiguration.from_file(str(ref_setting)))
+    one = dp_f32_step(ref, range(BATCH))
+    # started once the ranks and this reference are under way: five
+    # processes loading torch at once slowed each
+    procs["probe"] = torchrun(DP_RANKS, ["--dp-nccl-probe"], logs["probe"])
+    if wait_for("the one-rank NCCL run", procs["nccl"], logs["nccl"], DP_TIMEOUT_S) != 0:
+        raise AssertionError(f"the one-rank NCCL run failed:\n{logs['nccl'].read_text()[-4000:]}")
+    probe_code = wait_for("the NCCL probe", procs["probe"], logs["probe"], DP_PROBE_TIMEOUT_S,
+                          fatal=False)
+    probe = [line for line in logs["probe"].read_text().splitlines() if "NCCL_PROBE" in line]
+    print(f"NCCL with {DP_RANKS} ranks on one card (torchrun exit {probe_code}, None: killed "
+          f"after {DP_PROBE_TIMEOUT_S} s): " + " | ".join(probe), flush=True)
+    nccl = json.loads((outs["nccl"] / "rank0.json").read_text())
+    torch.cuda.synchronize()
+    go.write_text("")  # nothing else of the phase runs on the card now
+    if wait_for("the two-rank run", procs["two_ranks"], logs["two_ranks"], DP_TIMEOUT_S) != 0:
+        raise AssertionError(f"the two-rank run failed:\n"
+                             f"{logs['two_ranks'].read_text()[-4000:]}")
+    ranks = [json.loads((outs["two_ranks"] / f"rank{r}.json").read_text())
+             for r in range(DP_RANKS)]
+    f32 = torch.load(outs["two_ranks"] / "f32.pt")
+    state = ref._build_train_state()
+    Checkpoints.restore_into(state, str(Path(ranks[0]["save_dir"]) / "last.pt"))
+    _, one_val = ref.val_epoch(0, state, make_eval_step(use_ema=True), None)
+    records = same_val_records(torch.load(outs["two_ranks"] / "val_state.pt",
+                                          weights_only=False), ref.evaluator.state_dict())
+    del ref, state
+    torch.cuda.empty_cache()
+
+    loss_rel = abs(f32["loss"] - one["loss"]) / abs(one["loss"])
+    param_rel, param_at = _max_rel(f32["after"], one["after"])
+    moved = lambda r: {k: r["after"][k] - r["before"][k] for k in r["params"]}
+    update_rel, update_at = _max_rel(moved(f32), moved(one))
+    merged = ranks[0]["val"][-1]
+    out = {
+        "ranks": DP_RANKS, "backend": "gloo", "global_batch": BATCH,
+        "rows_a_rank": [r["rows"] for r in ranks],
+        "losses": ranks[0]["losses"], "launches_by_rank": [r["launches"] for r in ranks],
+        "val_batches_by_rank": [r["val_batches"] for r in ranks],
+        "amp_step_ms_by_rank": [r["amp_step_ms"] for r in ranks],
+        "amp_step_split_by_rank": [r["amp_step_split"] for r in ranks],
+        "run_s_by_rank": [r["run_s"] for r in ranks],
+        "val_mAP": merged["mAP"], "val_records": records,
+        "val_equal_one_process": (json.dumps(merged, sort_keys=True)
+                                  == json.dumps(one_val, sort_keys=True)),
+        "f32_loss_two_ranks": f32["loss"], "f32_loss_one_process": one["loss"],
+        "f32_loss_rel": loss_rel, "f32_param_rel": param_rel, "f32_param_rel_at": param_at,
+        "f32_update_rel": update_rel, "f32_update_rel_at": update_at,
+        "nms_rank_inputs": [r["nms"] for r in ranks],
+        "nccl_one_rank": {k: nccl[k] for k in ("backend", "launches", "val_batches", "losses",
+                                               "run_s")},
+        "nccl_probe": probe, "nccl_probe_exit": probe_code, "card": card}
+    print(f"data parallelism, YOLOv5-s 640, global bs{BATCH} over {DP_RANKS} gloo ranks "
+          f"sharing one card ({card}): AMP step {max(out['amp_step_ms_by_rank']):.1f} ms a "
+          f"{BATCH}-image global batch (BN's all-reduces as identities "
+          f"{max(r['bn_collectives_off_ms'] for r in out['amp_step_split_by_rank']):.1f} ms, "
+          f"each rank's own moments and no collective "
+          f"{max(r['local_ms'] for r in out['amp_step_split_by_rank']):.1f} ms, the gradient "
+          f"sum alone {max(r['grad_sum_ms'] for r in out['amp_step_split_by_rank']):.1f} ms); "
+          f"two ranks on one card measure correctness, not "
+          f"scaling (no multi-GPU speed can be measured on one H100). f32 step vs one "
+          f"process: loss {loss_rel:.2e}, parameters {param_rel:.2e} ({param_at}), update "
+          f"{update_rel:.2e} ({update_at}); merged val equal to one process's: "
+          f"{out['val_equal_one_process']}", flush=True)
+    for r in ranks + [nccl]:
+        if not (r["step"] == len(r["losses"]) and np.isfinite(r["losses"]).all()):
+            raise AssertionError(f"rank {r['rank']} ({r['backend']}): losses {r['losses']}, "
+                                 f"step {r['step']}")
+        if r["launches"] != r["val_batches"]:
+            raise AssertionError(f"rank {r['rank']} ({r['backend']}) launched nms_keep "
+                                 f"{r['launches']} times for {r['val_batches']} val batches")
+    for r in ranks:
+        if not r["nms"]["bit_exact"]:
+            raise AssertionError(f"nms_keep differs from nms_keep_plain on rank "
+                                 f"{r['rank']}'s {r['nms']['shape']} input")
+    if ranks[0]["losses"] != ranks[1]["losses"] or ranks[0]["val"] != ranks[1]["val"]:
+        raise AssertionError("the ranks logged other losses or val metrics")
+    if [r["rows"] for r in ranks] != [BATCH // DP_RANKS] * DP_RANKS:
+        raise AssertionError(f"rows a rank: {[r['rows'] for r in ranks]}")
+    if ranks[1]["save_dir"] is not None or len(list((workdir / "two_ranks" / "checkpoints")
+                                                    .iterdir())) != 1:
+        raise AssertionError("a rank other than 0 wrote checkpoints")
+    if not (out["val_equal_one_process"] and records["equal"] and records["detections"]):
+        raise AssertionError(f"merged val {merged} ({records}) != one process's {one_val}")
+    if not (loss_rel <= 1e-4 and param_rel <= 1e-4 and update_rel <= 1e-2):
+        raise AssertionError(f"two-rank f32 step vs one process: {out}")
+    return out
+
+
 HOST_AUG_STEPS = 2  # one epoch
-HOST_AUG_VAL_IMAGES = 64  # one val epoch of 2 batches
+HOST_AUG_VAL_IMAGES = 32  # one val batch
 
 
 def host_aug_config(workdir: Path, coco: dict) -> Path:
@@ -1604,7 +1999,7 @@ def cls_loader_check(workdir: Path) -> dict:
 
 MASKRCNN_BATCH = 16  # TRAIN and VAL BATCH_SIZE of conf/coco_maskrcnn.yml
 MASKRCNN_STEPS = 2  # one epoch of 2 train steps
-MASKRCNN_VAL_IMAGES = 32  # one val epoch of 2 batches
+MASKRCNN_VAL_IMAGES = 16  # one val batch
 MASK_SIZE = 112  # CocoSegmentation's default raster (cvpytorch_tpu/data/datasets/coco.py:176)
 # the ROIAlign tap gathers (index_select: PyTorch's vectorized_gather_kernel,
 # 8 calls a train step, 4 taps × 2 branches) and their backward (index_add_:
@@ -1619,7 +2014,7 @@ def maskrcnn_config(workdir: Path) -> Path:
     warmup of 500 iterations from 0.001, bbox + segm evaluation, batch 16,
     its 800² keep-ratio Resize, flip, ToTensor and Normalize) with the
     dataset swapped for SyntheticInstanceSegmentation at 800² and MASK_SIZE
-    112; cut to one epoch of 4 steps validated on 32 images.  The INFER
+    112; cut to one epoch of 4 steps validated on 16 images.  The INFER
     stage (one batch) serves the checkpoint afterwards."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
 
@@ -1659,13 +2054,38 @@ def run_instrumented(trainer, trainer_mod) -> dict:
     """``trainer.run()`` with ``nms_keep``'s count set to 0 just before and
     read just after, every step's metrics recorded (tensors, read after the
     run, so no step waits for them), and the host-clock walls of each
-    train epoch, each val epoch and the evaluator's calls."""
+    train epoch, each val epoch and the evaluator's calls.  The batches of
+    the first train epoch and of the first val epoch, as the steps got them
+    on the card, are kept in ``trainer.kept_batches`` for ``loader_batch``."""
     import torch
 
     from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
 
     metrics, times, val = [], {"train_epoch": [], "val_epoch": [], "evaluator": 0.0}, []
+    kept = trainer.kept_batches = {"train": [], "val": []}
     real_make_train_step = trainer_mod.make_train_step
+    real_make_eval_step = trainer_mod.make_eval_step
+    real_prefetcher = trainer_mod.DevicePrefetcher
+    feeds = []
+
+    def keeping_prefetcher(*args, **kwargs):
+        feed = real_prefetcher(*args, **kwargs)
+        feeds.append(feed)
+        return keep(feed) if len(feeds) == 1 else feed  # the first train epoch's
+
+    def keep(feed):
+        for batch in feed:
+            kept["train"].append(batch)
+            yield batch
+
+    def keeping_make_eval_step(*args, **kwargs):
+        step = real_make_eval_step(*args, **kwargs)
+
+        def keeping(state, batch):
+            if len(kept["val"]) < len(trainer.dataloaders["val"]):  # the first val epoch
+                kept["val"].append(batch)
+            return step(state, batch)
+        return keeping
 
     def recording_make_train_step(*args, **kwargs):
         step = real_make_train_step(*args, **kwargs)
@@ -1696,6 +2116,8 @@ def run_instrumented(trainer, trainer_mod) -> dict:
         trainer.evaluator.update = timed(trainer.evaluator.update, "evaluator")
         trainer.evaluator.evaluate = timed(trainer.evaluator.evaluate, "evaluator")
     trainer_mod.make_train_step = recording_make_train_step
+    trainer_mod.make_eval_step = keeping_make_eval_step
+    trainer_mod.DevicePrefetcher = keeping_prefetcher
     try:
         nms_keep.launches = 0
         t0 = time.perf_counter()
@@ -1705,6 +2127,8 @@ def run_instrumented(trainer, trainer_mod) -> dict:
         launches = nms_keep.launches
     finally:
         trainer_mod.make_train_step = real_make_train_step
+        trainer_mod.make_eval_step = real_make_eval_step
+        trainer_mod.DevicePrefetcher = real_prefetcher
     return {"state": state, "metrics": metrics, "times": times, "val": val,
             "run_s": run_s, "launches": launches}
 
@@ -1987,9 +2411,12 @@ SEG_BATCH = {"deeplabv3plus": 8, "unet": 8, "segformer_b2": 8,  # each config's 
              "topformer_b": 16, "regseg": 16, "stdc": 16, "ppliteseg": 16, "sgcpnet": 16,
              "enet": 8, "segnet": 8, "icnet": 16, "lednet": 8, "lspnet": 16}
 SEG_FRAME = [1024, 2048]  # a Cityscapes frame: RandomScaleCrop and Resize work on it
-SEG_VAL_IMAGES = 16  # one val epoch of 2 batches (1 at a batch of 16)
-SEG_VAL = {"lednet": 8}  # one val batch of the one-step paths; else SEG_VAL_IMAGES
-SEG_SERVED = {"stdc": 8}  # images served through infer.main; else one batch
+# the val: one batch of the config's
+SEG_SERVED = 4  # images served through infer.main, a partial batch
+# the card-vs-CPU check's input: the first train image at every second
+# pixel, 256×512 (at 512×1024 the CPU's forwards held the run's time
+# limit)
+SEG_CHECK_STRIDE = 2
 SEG_STEPS = 1  # one epoch of each config
 # the paths that run once on the card and are not timed or profiled, and
 # those whose f32 step is not timed (since PR 16 all but DeepLabV3+'s)
@@ -2008,16 +2435,8 @@ SEG_CARD_VS_CPU = {"deeplabv3plus": "DeepLabV3+ R50", "segformer_b2": "SegFormer
 SEG_EMA = {name: 0.9999 for name in ("segformer_b2", "sfnet_r18", "segnext_b",
                                      "incepformer_t", "topformer_b", "regseg", "stdc",
                                      "ppliteseg", "sgcpnet", "enet", "segnet")}
-# SegNeXt's named groups of device kernels: under AMP the NMF's matmuls are
-# its only float32 ones (forward and backward; the NMF's forward is also the
-# ``nmf`` range), and the GELU passes
-PROFILE_GROUPS = {"segnext_b": {
-    "nmf_f32_gemm": re.compile(r"^(?!.*(bf16|fp16|half)).*gemm", re.I),
-    "gelu": re.compile(r"gelu", re.I)}}
-# the seg paths profiled at the end of the run: SegNeXt-B (its NMF and
-# depthwise convolutions); a profiler session costs seconds, and the run
-# keeps within its time limit (STDC is timed, not profiled)
-SEG_PROFILED = ("segnext_b",)
+# no seg path is profiled (SegNeXt-B's session, the last one, left for the
+# run's time limit: PERF.md §5 keeps its readings)
 
 
 def incepformer_logits_gb(model, images) -> float:
@@ -2038,8 +2457,8 @@ def seg_config(workdir: Path, name: str) -> Path:
     photometric distortion, Resize, ToTensor and Normalize, mIoU
     evaluation; SegFormer and SFNet also EMA and grad clip 10) with the
     dataset swapped for SyntheticSegmentation at the 1024×2048 Cityscapes
-    frame; cut to one epoch of ``SEG_STEPS`` steps validated on 16
-    images.  The INFER stage (one batch) serves the checkpoint
+    frame; cut to one epoch of ``SEG_STEPS`` steps validated on one
+    batch.  The INFER stage (``SEG_SERVED`` images) serves the checkpoint
     afterwards."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
 
@@ -2051,8 +2470,8 @@ def seg_config(workdir: Path, name: str) -> Path:
     if data.TRAIN.BATCH_SIZE != SEG_BATCH[name] or data.VAL.BATCH_SIZE != SEG_BATCH[name]:
         raise AssertionError(f"cityscapes_{name}: BATCH_SIZE {data.TRAIN.BATCH_SIZE}")
     data.TRAIN.update({**synthetic, "LENGTH": SEG_BATCH[name] * SEG_STEPS})
-    data.VAL.update({**synthetic, "LENGTH": SEG_VAL.get(name, SEG_VAL_IMAGES)})
-    data.INFER = {**dict(data.VAL), "LENGTH": SEG_SERVED.get(name, SEG_BATCH[name])}
+    data.VAL.update({**synthetic, "LENGTH": SEG_BATCH[name]})
+    data.INFER = {**dict(data.VAL), "LENGTH": SEG_SERVED}
     cfg.EVALUATOR.EVAL_INTERVALS = 1
     cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
                 "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
@@ -2076,7 +2495,7 @@ def seg_phase(workdir: Path, name: str) -> tuple[dict, object]:
     from cvpytorch_tpu_torch.train_state import make_predict_step
 
     steps, batch = SEG_STEPS, SEG_BATCH[name]
-    n_served = SEG_SERVED.get(name, batch)
+    n_served = SEG_SERVED
     workdir.mkdir()
     setting = seg_config(workdir, name)
     trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
@@ -2299,7 +2718,8 @@ def shared_pool_check(cpu: SharedPools, card: SharedPools) -> dict:
 
 
 def seg_card_vs_cpu(trainer, batches, label: str) -> dict:
-    """The config's model (``label``) at 512×1024, B = 1, f32 with TF32
+    """The config's model (``label``) at 256×512 (the first train image at
+    every ``SEG_CHECK_STRIDE``-th pixel), B = 1, f32 with TF32
     off, from the same seeded weights on the card and on the CPU, dropout
     and DropPath off: in eval mode the logits (``model.logits``, what the
     infer argmax takes) within 1e-4 of their largest value and the argmax
@@ -2318,8 +2738,8 @@ def seg_card_vs_cpu(trainer, batches, label: str) -> dict:
 
     if torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: the step makers turn it off")
-    image = batches["train"]["image"][:1]
-    target = batches["train"]["target"][:1]
+    image = batches["train"]["image"][:1, ::SEG_CHECK_STRIDE, ::SEG_CHECK_STRIDE].contiguous()
+    target = batches["train"]["target"][:1, ::SEG_CHECK_STRIDE, ::SEG_CHECK_STRIDE].contiguous()
     torch.manual_seed(0)
     base = build_model(trainer.cfg, trainer.dictionary)
     pools = isinstance(base, (segnet_enet.SegNet, segnet_enet.ENet))
@@ -2355,7 +2775,8 @@ def seg_card_vs_cpu(trainer, batches, label: str) -> dict:
                                                      recorded["cuda", "eval"])
         out["shared_pools_train"] = shared_pool_check(recorded["cpu", "train"],
                                                       recorded["cuda", "train"])
-    print(f"{label} card vs CPU, f32, B=1, 512x1024: {json.dumps(out)}", flush=True)
+    print(f"{label} card vs CPU, f32, B=1, {image.shape[1]}x{image.shape[2]}: "
+          f"{json.dumps(out)}", flush=True)
     if pools and not (out["shared_pools_eval"]["near_ties_only"]
                       and out["shared_pools_train"]["near_ties_only"]):
         raise AssertionError(f"a pool index differs card vs CPU off a near-tie: {out}")
@@ -2501,7 +2922,7 @@ CLS_BATCH = 64  # TRAIN and VAL BATCH_SIZE of conf/mini-imagenet.yml
 CLS_MILESTONE_BATCH = 256  # bench.py's case_cls
 CLS_FRAME = [375, 500]  # ImageNet's typical frame: the crop and resize do real work
 CLS_STEPS = 4  # one epoch
-CLS_VAL_IMAGES = 128  # one val epoch of 2 batches
+CLS_VAL_IMAGES = 64  # one val batch
 
 
 def cls_config(workdir: Path) -> Path:
@@ -2510,7 +2931,7 @@ def cls_config(workdir: Path) -> Path:
     224, flip, ColorJitter, AdamW with weight decay 0.01, cosine schedule,
     linear warmup, AMP, batch 64, mAcc evaluation) with the dataset swapped
     for SyntheticClassification at 375×500; cut to one epoch of 4 steps
-    validated on 128 images.  The INFER stage (one batch) serves the
+    validated on 64 images.  The INFER stage (one batch) serves the
     checkpoint afterwards."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
 
@@ -2610,9 +3031,23 @@ def cls_phase(workdir: Path) -> tuple[dict, object]:
 
 def loader_batch(trainer, stage: str, n: int) -> dict:
     """``n`` images and their targets from the ``stage`` loader's first
-    batches, concatenated, on the card."""
+    batches, concatenated, on the card: those ``run_instrumented`` kept
+    from the run when they hold ``n`` images (loading them again cost the
+    run's time limit ~30 s), else loaded anew."""
     import torch
 
+    kept = getattr(trainer, "kept_batches", {}).get(stage, [])
+    if sum(len(b["image"]) for b in kept) >= n:
+        def cat(*xs):
+            return torch.cat(xs)[:n]
+
+        target = kept[0]["target"]
+        if isinstance(target, dict):  # the loader's arrays, not the loop's epoch and step
+            target = {k: cat(*(b["target"][k] for b in kept)) for k, v in target.items()
+                      if isinstance(v, torch.Tensor) and v.dim()}
+        else:
+            target = cat(*(b["target"] for b in kept))
+        return {"image": cat(*(b["image"] for b in kept)), "target": target}
     parts, have = [], 0
     for batch in trainer.dataloaders[stage]:
         parts.append(batch)
@@ -2729,6 +3164,9 @@ NANODET_BATCH = 96  # TRAIN and VAL BATCH_SIZE of conf/coco_nanodetplus.yml
 NANODET_MILESTONE_BATCH = 128  # bench.py's case_nanodet
 NANODET_FRAME = [427, 640]  # a common COCO frame; 320/640 is not an exact half of 427
 NANODET_STEPS = 2  # one epoch
+# images NanoDet-Plus and NanoDet v1 serve through infer.main, a partial
+# batch
+DET_SERVED = 16
 NANODET_VAL_IMAGES = 96  # one val epoch of 1 batch
 
 
@@ -2738,7 +3176,7 @@ def nanodet_config(workdir: Path) -> Path:
     letterbox 320, flip, ColorHSV p=1, AdamW with weight decay 0.05,
     cosine schedule, linear warmup of 500 iterations, AMP, EMA, batch 96,
     bbox evaluation) with the dataset swapped for SyntheticDetection at
-    427×640; cut to one epoch of 4 steps validated on 96 images.  The
+    427×640; cut to one epoch of ``NANODET_STEPS`` steps validated on 96 images.  The
     INFER stage (one batch) serves the checkpoint afterwards."""
     from cvpytorch_tpu_torch.config import CommonConfiguration
 
@@ -2749,7 +3187,7 @@ def nanodet_config(workdir: Path) -> Path:
     synthetic = {"SIZE": NANODET_FRAME, "SEED": 0}
     data.TRAIN.update({**synthetic, "LENGTH": NANODET_BATCH * NANODET_STEPS})
     data.VAL.update({**synthetic, "LENGTH": NANODET_VAL_IMAGES})
-    data.INFER = {**dict(data.VAL), "LENGTH": NANODET_BATCH}
+    data.INFER = {**dict(data.VAL), "LENGTH": DET_SERVED}
     cfg.EVALUATOR.EVAL_INTERVALS = 1
     cfg.update({"N_MAX_EPOCHS": 1, "CHECKPOINT_DIR": str(workdir / "checkpoints"),
                 "TENSORBOARD": False, "N_ITERS_TO_DISPLAY_STATUS": 1, "SEED": 0})
@@ -2841,7 +3279,7 @@ def nanodet_phase(workdir: Path) -> tuple[dict, object]:
     print(f"NanoDet-Plus Trainer.run(): {NANODET_STEPS} steps in {run['run_s']:.2f} s (host "
           f"clock, from model build to the last checkpoint), losses {run['losses']}, nms_keep "
           f"launches {run['launches']}, val mAP {run['val_mAP']}", flush=True)
-    served = serve_checkpoint(workdir, setting, trainer, run["state"], NANODET_BATCH,
+    served = serve_checkpoint(workdir, setting, trainer, run["state"], DET_SERVED,
                               "NanoDet-Plus")
     print(f"infer.main on the trained NanoDet-Plus: {json.dumps(served)} in the "
           f"{NANODET_FRAME[0]}×{NANODET_FRAME[1]} frame's pixels", flush=True)
@@ -2976,6 +3414,9 @@ YOLOV6_VAL_IMAGES = 64  # one val epoch of 2 batches, after epoch 4
 ONE_STEP_CONFIGS = {"coco_nanodet_t": 160, "coco_nanodet_g": 128, "coco_nanodet_repvgg": 128,
                     "coco_nanodet_efficientnet_lite": 160, "coco_nanodet_416": 128,
                     "voc_nanodet": 64}
+# the one-step configs on the COCO directory validate at most this many
+# images, one (partial) batch
+ONE_STEP_VAL = 32
 
 
 def coco_det_config(workdir: Path, name: str, coco: dict, n_train: int, n_val: int,
@@ -3018,7 +3459,7 @@ def nanodet_v1_phase(workdir: Path, coco: dict) -> tuple[dict, object]:
     workdir.mkdir()
     n_train = NANODET_V1_BATCH * NANODET_V1_STEPS
     setting = coco_det_config(workdir, "coco_nanodet", coco, n_train, NANODET_V1_VAL_IMAGES,
-                              NANODET_V1_BATCH)
+                              DET_SERVED)
     trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
     model = trainer.model
     if not (model.v1 and type(model.neck).__name__ == "PAN" and model.strides == (8, 16, 32)):
@@ -3028,7 +3469,7 @@ def nanodet_v1_phase(workdir: Path, coco: dict) -> tuple[dict, object]:
     run = det_run(trainer, trainer_mod, "NanoDet v1", NANODET_V1_STEPS,
                   ("qfl_loss", "bbox_loss", "dfl_loss", "loss"),
                   -(-NANODET_V1_VAL_IMAGES // NANODET_V1_BATCH))
-    served = serve_checkpoint(workdir, setting, trainer, run["state"], NANODET_V1_BATCH,
+    served = serve_checkpoint(workdir, setting, trainer, run["state"], DET_SERVED,
                               "NanoDet v1")
     times = run["times"]
     out = {"steps": NANODET_V1_STEPS, "launches": run["launches"], "losses": run["losses"],
@@ -3201,16 +3642,16 @@ def yolov6_phase(workdir: Path, coco: dict) -> tuple[dict, object]:
 def yolov6_timing(trainer) -> tuple[dict, dict, dict]:
     """YOLOv6-s's AMP train step at batch 32 on a host-augmented batch
     already on the card, with the TAL assignment (no epoch in the targets)
-    and with ATSS (epoch 3), by CUDA events over 5 steps after 2, peak
+    and with ATSS (epoch 3), by CUDA events over 3 steps after 1, peak
     memory; the val and predict steps.  Returns the numbers, the AMP
     states and the batches."""
     import torch
 
-    timed, states, batches = milestone_timing(trainer, YOLOV6_BATCH, None, iters=5,
+    timed, states, batches = milestone_timing(trainer, YOLOV6_BATCH, None, iters=3,
                                               ema_decay=0.9999, amp_only=True)
     atss_batch = {**batches["train"], "target": {**batches["train"]["target"], "epoch": 3}}
     timed["atss_epoch_3"], states["atss"] = train_step_timing(
-        trainer, atss_batch, YOLOV6_BATCH, iters=5, ema_decay=0.9999, amp_only=True)
+        trainer, atss_batch, YOLOV6_BATCH, iters=3, ema_decay=0.9999, amp_only=True)
     batches["atss"] = atss_batch
     torch.cuda.empty_cache()
     print(f"YOLOv6-s steps at bs{YOLOV6_BATCH}: {json.dumps(timed)}", flush=True)
@@ -3318,8 +3759,9 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
     JPEG files; for ``voc_nanodet`` a VOCdevkit through the
     ``voc_detection`` evaluator; for ``widerface_faceboxes`` and
     ``pennfudan_retinanet`` directories in their layouts, ``layout_det_config``;
-    YOLOX's class biases at 0): one train step and one val batch at the
-    config's batch through ``Trainer.run()`` (``nms_keep`` once), finite
+    YOLOX's class biases at 0): one train step at the config's batch and
+    one val batch (on the COCO directory of at most ``ONE_STEP_VAL``
+    images) through ``Trainer.run()`` (``nms_keep`` once), finite
     losses and metric, ``nms_keep`` bit-exact against ``nms_keep_plain``
     on the val input the path gave it, and timed by CUDA events.  The
     steps are not timed."""
@@ -3331,16 +3773,19 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
 
     workdir.mkdir(parents=True)
     n = {**ONE_STEP_CONFIGS, **OTA_FCOS_ONE_STEP, **SLICE14_ONE_STEP}[name]
+    n_val = n
     if name.startswith("voc"):
         setting = voc_det_config(workdir, name, n)
     elif name in ("widerface_faceboxes", "pennfudan_retinanet"):
         setting = layout_det_config(workdir, name, n)
     else:
-        setting = coco_det_config(workdir, name, coco, n, n, n)
+        n_val = min(n, ONE_STEP_VAL)
+        setting = coco_det_config(workdir, name, coco, n, n_val, n)
     trainer = trainer_mod.Trainer(CommonConfiguration.from_file(str(setting)))
     kind = type(trainer.model).__name__
     sizes = {stage: len(trainer.datasets[stage]) for stage in ("train", "val")}
-    if sizes != {"train": n, "val": n} or (kind == "NanoDetPlus") != (name in ONE_STEP_CONFIGS) \
+    if sizes != {"train": n, "val": n_val} \
+            or (kind == "NanoDetPlus") != (name in ONE_STEP_CONFIGS) \
             or kind == "NanoDetPlus" and not trainer.model.v1:
         raise AssertionError(f"{name}: {sizes}, {kind}")
     zero_class_biases(trainer.model)
@@ -3373,7 +3818,7 @@ def one_step_run(workdir: Path, name: str, coco: dict) -> dict:
 YOLOX_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_yolox_s.yml
 YOLOX_EPOCHS = 1
 YOLOX_STEPS = 2  # an epoch: 64 of the COCO directory's train images
-YOLOX_VAL_IMAGES = 64  # one val epoch of 2 batches, after epoch 2
+YOLOX_VAL_IMAGES = 32  # one val batch after the epoch
 YOLOV7_BATCH = 16  # TRAIN and VAL BATCH_SIZE of conf/coco_yolov7.yml
 YOLOV7_STEPS = 2
 FCOS_BATCH = 16  # TRAIN and VAL BATCH_SIZE of conf/coco_fcos.yml
@@ -3518,8 +3963,8 @@ def yolox_card_vs_cpu(trainer, batches) -> dict:
     float32 the assignment is reported, not gated: 1e8 added to a cost
     rounds it to a multiple of 8, and a 1-ulp difference between the
     devices' class-cost sums moves a cost across a rounding boundary, and
-    so the stable rank (the float32 val losses of each device's own
-    predictions are reported beside)."""
+    so the stable rank (the float32 losses of each device's own
+    predictions are not taken: the run's time limit)."""
     import copy
 
     import torch
@@ -3532,9 +3977,7 @@ def yolox_card_vs_cpu(trainer, batches) -> dict:
         out = {"target": t}
         with torch.no_grad():
             out["head"], out["priors"] = model.eval()._forward(x)
-            out["val"] = model.eval()(x, t, mode="val")[0]
-            out["train"] = model.train()(x, t, mode="train")[1]
-            out["train_preds"], _ = model._forward(x)
+            out["train_preds"], _ = model.train()._forward(x)
             out["train_f64"] = copy.deepcopy(model).double().train()(
                 x.double(), {**t, "boxes": t["boxes"].double()}, mode="train")[1]
         return out
@@ -3563,10 +4006,7 @@ def yolox_card_vs_cpu(trainer, batches) -> dict:
                                                        != matched["cuda", f32]).sum()),
                "simota_positives": int((matched["cpu", f64] >= 0).sum()),
                "val_f64_shared_loss_rel": _rel_losses(val64["cuda"], val64["cpu"]),
-               "train_f64_loss_rel": _rel_losses(card["train_f64"], cpu["train_f64"]),
-               "val_f32_loss_rel": _rel_losses(card["val"], cpu["val"]),
-               "train_f32_loss_rel": _rel_losses(card["train"], cpu["train"]),
-               "train_cpu_f32_vs_f64": _rel_losses(cpu["train"], cpu["train_f64"])}
+               "train_f64_loss_rel": _rel_losses(card["train_f64"], cpu["train_f64"])}
         print(f"YOLOX-s card vs CPU, B=2, 640²: {json.dumps(out)}", flush=True)
         if not (out["head_max_rel_err"] <= 1e-4 and out["simota_f64_matched_gt_equal"]
                 and max(out["val_f64_shared_loss_rel"].values()) <= 1e-4
@@ -3582,19 +4022,17 @@ def yolov7_card_vs_cpu(trainer, batches) -> dict:
     largest value (f32); on shared inputs, float64 on both devices, the
     OTA stage of the loss (its selection and matched gts) on the CPU's
     train-mode raw maps equal, and the loss on the CPU's eval-mode raw
-    maps (val losses within 1e-4 relative); the float32 matches and the
-    float32 val and train losses of each device's own maps reported (the
-    1e8 cost terms, as YOLOX's)."""
+    maps (val losses within 1e-4 relative); the float32 matches reported
+    (the 1e8 cost terms, as YOLOX's; the float32 losses of each device's
+    own maps are not taken: the run's time limit)."""
     import torch
 
     def forward(model, batch):
         x, t = batch["image"], batch["target"]
         with torch.no_grad():
             raw = model.eval()._raw(x)
-            val = model.eval()(x, t, mode="val")[0]
-            train = model.train()(x, t, mode="train")[1]
-            train_raw = model._raw(x)
-        return {"val": val, "train": train, "target": t, "image": x,
+            train_raw = model.train()._raw(x)
+        return {"target": t, "image": x,
                 **{f"raw{i}": r for i, r in enumerate(raw)},
                 **{f"train_raw{i}": r for i, r in enumerate(train_raw)}}
 
@@ -3622,9 +4060,7 @@ def yolov7_card_vs_cpu(trainer, batches) -> dict:
                "ota_f32_matches_differing": int((matched["cpu", f32]
                                                  != matched["cuda", f32]).sum()),
                "ota_selected": int((matched["cpu", f64] >= 0).sum()),
-               "val_f64_shared_loss_rel": _rel_losses(shared["cuda"], shared["cpu"]),
-               "val_f32_loss_rel": _rel_losses(card["val"], cpu["val"]),
-               "train_f32_loss_rel": _rel_losses(card["train"], cpu["train"])}
+               "val_f64_shared_loss_rel": _rel_losses(shared["cuda"], shared["cpu"])}
         print(f"YOLOv7-l card vs CPU, B=2, 640²: {json.dumps(out)}", flush=True)
         if not (out["raw_max_rel_err"] <= 1e-4 and out["ota_f64_matches_equal"]
                 and max(out["val_f64_shared_loss_rel"].values()) <= 1e-4):
@@ -3654,7 +4090,7 @@ def slice13_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
         run, trainer = det_phase(workdir / key, name, coco, batch, steps, epochs, n_val, serve)
         print(json.dumps({key: run, "card": card}), flush=True)
         timed, states, batches = milestone_timing(trainer, batch, None, iters=3,
-                                                  ema_decay=0.9999, amp_only=key != "yolox_s")
+                                                  ema_decay=0.9999, amp_only=True)
         print(json.dumps({f"{key}_timing": timed, "card": card}), flush=True)
         nms, nms_input = val_nms_input(states["train"], batches["val"], key)
         if key == "yolox_s":
@@ -3682,7 +4118,7 @@ def slice13_phases(workdir: Path, coco: dict, card: str) -> tuple[dict, dict]:
 EFFDET_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_efficientdet.yml (512²)
 EFFDET_EPOCHS = 1
 EFFDET_STEPS = 2  # an epoch: 64 of the COCO directory's train images
-EFFDET_VAL_IMAGES = 64  # one val epoch of 2 batches, after epoch 2
+EFFDET_VAL_IMAGES = 32  # one val batch after the epoch
 AIRDET_BATCH = 32  # TRAIN and VAL BATCH_SIZE of conf/coco_airdet.yml (640²)
 AIRDET_STEPS = 2
 # the slice's other configs, one train step and one val batch each at their
@@ -3701,7 +4137,7 @@ def effdet_card_vs_cpu(trainer, batches) -> dict:
     loss on the CPU's eval-mode outputs within 1e-4 relative; the
     train-mode losses of the whole model in float64 within 1e-4
     (stochastic depth off).  The float32 losses of each device's own
-    outputs are reported."""
+    outputs are not taken (the run's time limit)."""
     import copy
 
     import torch
@@ -3713,11 +4149,9 @@ def effdet_card_vs_cpu(trainer, batches) -> dict:
         t64 = {**t, "boxes": t["boxes"].double()}
         with torch.no_grad():
             cls, reg, anchors = model.eval()._forward(x)
-            val = model.eval()(x, t, mode="val")[0]
-            train = model.train()(x, t, mode="train")[1]
             train_f64 = copy.deepcopy(model).double().train()(x.double(), t64, mode="train")[1]
-        return {"target": t, "cls": cls, "reg": reg, "anchors": anchors, "val": val,
-                "train": train, "train_f64": train_f64}
+        return {"target": t, "cls": cls, "reg": reg, "anchors": anchors,
+                "train_f64": train_f64}
 
     def check(cpu, card):
         f64 = torch.float64
@@ -3740,9 +4174,7 @@ def effdet_card_vs_cpu(trainer, batches) -> dict:
                "positive_anchors": int(assigned["cpu"]["positive"].sum()),
                "ignored_anchors": int(assigned["cpu"]["ignored"].sum()),
                "val_f64_shared_loss_rel": _rel_losses(val64["cuda"], val64["cpu"]),
-               "train_f64_loss_rel": _rel_losses(card["train_f64"], cpu["train_f64"]),
-               "val_f32_loss_rel": _rel_losses(card["val"], cpu["val"]),
-               "train_f32_loss_rel": _rel_losses(card["train"], cpu["train"])}
+               "train_f64_loss_rel": _rel_losses(card["train_f64"], cpu["train_f64"])}
         print(f"EfficientDet-D0 card vs CPU, B=2, 512²: {json.dumps(out)}", flush=True)
         if not (out["head_cls_max_rel_err"] <= 1e-4 and out["head_reg_max_rel_err"] <= 1e-4
                 and all(out["targets_f64_equal"].values()) and out["positive_anchors"] > 0
@@ -3760,8 +4192,9 @@ def airdet_card_vs_cpu(trainer, batches) -> dict:
     inputs, float64 on both devices, SimOTA (soft-label costs) on the
     CPU's train-mode outputs (``matched_gt`` equal) and the loss on the
     CPU's eval-mode outputs (within 1e-4 relative); the train-mode losses
-    of the whole model in float64 within 1e-4.  The float32 assignment
-    and losses are reported (the 1e8 cost terms, as YOLOX's)."""
+    of the whole model in float64 within 1e-4.  The float32 assignment is
+    reported (the 1e8 cost terms, as YOLOX's; the float32 losses are not
+    taken: the run's time limit)."""
     import copy
 
     import torch
@@ -3774,13 +4207,10 @@ def airdet_card_vs_cpu(trainer, batches) -> dict:
         t64 = {**t, "boxes": t["boxes"].double()}
         with torch.no_grad():
             cls, reg, priors = model.eval()._outs(x)
-            val = model.eval()(x, t, mode="val")[0]
-            train = model.train()(x, t, mode="train")[1]
-            train_cls, train_reg, _ = model._outs(x)
+            train_cls, train_reg, _ = model.train()._outs(x)
             train_f64 = copy.deepcopy(model).double().train()(x.double(), t64, mode="train")[1]
-        return {"target": t, "cls": cls, "reg": reg, "priors": priors, "val": val,
-                "train": train, "train_cls": train_cls, "train_reg": train_reg,
-                "train_f64": train_f64}
+        return {"target": t, "cls": cls, "reg": reg, "priors": priors,
+                "train_cls": train_cls, "train_reg": train_reg, "train_f64": train_f64}
 
     def check(cpu, card):
         model = trainer.model
@@ -3809,9 +4239,7 @@ def airdet_card_vs_cpu(trainer, batches) -> dict:
                                                        != matched["cuda", f32]).sum()),
                "simota_positives": int((matched["cpu", f64] >= 0).sum()),
                "val_f64_shared_loss_rel": _rel_losses(val64["cuda"], val64["cpu"]),
-               "train_f64_loss_rel": _rel_losses(card["train_f64"], cpu["train_f64"]),
-               "val_f32_loss_rel": _rel_losses(card["val"], cpu["val"]),
-               "train_f32_loss_rel": _rel_losses(card["train"], cpu["train"])}
+               "train_f64_loss_rel": _rel_losses(card["train_f64"], cpu["train_f64"])}
         print(f"AIRDet-s card vs CPU, B=2, 640²: {json.dumps(out)}", flush=True)
         if not (out["head_cls_max_rel_err"] <= 1e-4 and out["head_reg_max_rel_err"] <= 1e-4
                 and out["simota_f64_matched_gt_equal"] and out["simota_positives"] > 0
@@ -4611,7 +5039,8 @@ def exported_serving(workdir: Path, setting: Path, ckpt: Path, trainer, state) -
             if name == "eager" or name.startswith(big):
                 out[f"{name}_{big}_ms"] = cuda_time_ms(lambda: fn(images), iters=10, warmup=2)
             if name == "eager" or name.startswith("bs1"):
-                out[f"{name}_bs1_ms_p50"] = float(np.median(call_ms(lambda: fn(one))))
+                out[f"{name}_bs1_ms_p50"] = float(np.median(call_ms(lambda: fn(one),
+                                                                    calls=10, warmup=2)))
     nms_keep.launches = launches  # timing launches do not count
     return out, (boxes, thr)
 
@@ -4922,6 +5351,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dp-rank"]:  # a rank of data_parallel_phase's torchrun
+        return dp_rank_main(*sys.argv[2:7])
+    if sys.argv[1:2] == ["--dp-nccl-probe"]:
+        return dp_nccl_probe()
     from cvpytorch_tpu_torch.ops import nms_kernel  # raises outside the repo
     from cvpytorch_tpu_torch.train_state import make_train_step
 
@@ -4958,6 +5391,10 @@ def main() -> int:
         print(json.dumps({"train_step_check": check, "card": card}))
         mark("path, train")
         torch.cuda.empty_cache()
+        dp = data_parallel_phase(Path(tmp) / "data_parallel", card)
+        print(json.dumps({"data_parallel": dp}), flush=True)
+        mark("data_parallel")
+        torch.cuda.empty_cache()
         mrcnn, mrcnn_trainer = maskrcnn_phase(Path(tmp) / "maskrcnn")
         print(json.dumps({"maskrcnn": mrcnn, "card": card}), flush=True)
         mrcnn_batches = {stage: loader_batch(mrcnn_trainer, stage, MASKRCNN_BATCH)
@@ -4980,7 +5417,7 @@ def main() -> int:
                 mark(name)
                 continue
             steps_timed, states, batches = milestone_timing(
-                seg_trainer, SEG_BATCH[name], None, iters=3,
+                seg_trainer, SEG_BATCH[name], None, iters=2,
                 ema_decay=SEG_EMA.get(name, 0.0), amp_only=name in SEG_AMP_ONLY)
             if name in SEG_COUNT_FLOPS:
                 step = make_train_step(amp=True, ema_decay=SEG_EMA.get(name, 0.0))
@@ -4998,8 +5435,6 @@ def main() -> int:
                 print(json.dumps({f"{name}_card_vs_cpu": seg_card_vs_cpu(
                     seg_trainer, batches, SEG_CARD_VS_CPU[name]), "card": card}), flush=True)
             seg[name] = {"result": result, "timing": steps_timed}
-            if name in SEG_PROFILED:  # kept on the card for the profiles at the end
-                seg[name].update(state=states["train"], batch=batches["train"])
             del seg_trainer, states
             mark(name)
         torch.cuda.empty_cache()
@@ -5010,9 +5445,9 @@ def main() -> int:
         cls, cls_trainer = cls_phase(Path(tmp) / "cls")
         print(json.dumps({"cls": cls, "card": card}), flush=True)
         cls_timed, cls_states, cls_batches = milestone_timing(
-            cls_trainer, CLS_BATCH, CLS_MILESTONE_BATCH, iters=5)
+            cls_trainer, CLS_BATCH, CLS_MILESTONE_BATCH, iters=5, amp_only=True)
         print(json.dumps({"cls_timing": cls_timed, "card": card}), flush=True)
-        print(json.dumps({"cls_host_timing": host_pipeline_timing(cls_trainer, n_items=16),
+        print(json.dumps({"cls_host_timing": host_pipeline_timing(cls_trainer, n_items=4),
                           "card": card}), flush=True)
         print(json.dumps({"cls_card_vs_cpu": cls_card_vs_cpu(cls_trainer, cls_batches),
                           "card": card}), flush=True)
@@ -5024,12 +5459,13 @@ def main() -> int:
         nanodet, nd_trainer = nanodet_phase(Path(tmp) / "nanodet")
         print(json.dumps({"nanodet": nanodet, "card": card}), flush=True)
         nd_timed, nd_states, nd_batches = milestone_timing(
-            nd_trainer, NANODET_BATCH, NANODET_MILESTONE_BATCH, iters=3, ema_decay=0.9999)
+            nd_trainer, NANODET_BATCH, NANODET_MILESTONE_BATCH, iters=3, ema_decay=0.9999,
+            amp_only=True)
         nd_state = nd_states["train"]
         nd_timed["dsl_assign"] = dsl_timing(nd_state, nd_batches["train"])
         print(json.dumps({"nanodet_timing": nd_timed, "card": card}), flush=True)
         nd_nms, nd_input = val_nms_input(nd_state, nd_batches["val"], "NanoDet-Plus")
-        print(json.dumps({"nanodet_host_timing": host_pipeline_timing(nd_trainer, n_items=16),
+        print(json.dumps({"nanodet_host_timing": host_pipeline_timing(nd_trainer, n_items=4),
                           "card": card}), flush=True)
         print(json.dumps({"nanodet_card_vs_cpu": nanodet_card_vs_cpu(nd_trainer, nd_batches),
                           "card": card}), flush=True)
@@ -5068,7 +5504,7 @@ def main() -> int:
         # slice 14: EfficientDet-D0, AIRDet-s, the slice's other configs, NAS-FPN and RFP
         s14, s14_later = slice14_phases(Path(tmp) / "slice14", coco, card)
         # slice 15: OpenPose, LitePose, SimplePose and the optimizer rules
-        s15, s15_later = slice15_phases(Path(tmp) / "slice15", card)
+        s15, _ = slice15_phases(Path(tmp) / "slice15", card)
         # the host-augmented YOLOv5 path after the other phases
         torch.cuda.empty_cache()
         host_aug, ha_trainer = host_aug_phase(Path(tmp) / "host_aug", coco)
@@ -5125,41 +5561,17 @@ def main() -> int:
         print(json.dumps({"maskrcnn_amp_train_step_profile": mrcnn_profile,
                           "nms_keep_device_ms": mrcnn_split, "card": card}), flush=True)
         mark("yolov5 and maskrcnn profiles")
-        # one profiled step a seg path: the profiler's own cost holds the
-        # run's time limit
-        for name, run in seg.items():
-            if name not in SEG_PROFILED:
-                continue
-            torch.cuda.empty_cache()
-            seg_step = make_train_step(amp=True, ema_decay=SEG_EMA.get(name, 0.0))
-            prof = profile_device(lambda: seg_step(run["state"], run["batch"]), top=15,
-                                  groups=PROFILE_GROUPS.get(name))
-            prof["device_idle_share_unprofiled"] = 1 - prof["device_busy_ms"] / run[
-                "timing"]["amp_step_ms"]
-            print(json.dumps({f"{name}_amp_train_step_profile": prof, "card": card}),
-                  flush=True)
-        mark("seg profiles")
-        # the assigners' ranges: YOLOX-s's SimOTA (slice 13), EfficientDet-D0's
-        # target build and AIRDet-s's SimOTA (slice 14)
-        for phase, later, key, span in ((s13, s13_later, "yolox_s", "simota_assign"),
-                                        (s14, s14_later, "efficientdet_d0", "effdet_targets"),
-                                        (s14, s14_later, "airdet_s", "simota_assign")):
-            run = later[key]
-            prof = assigner_range_profile(run["state"], run["batch"], run["amp_ms"], span)
-            print(json.dumps({f"{key}_amp_train_step_profile": prof, "card": card}),
-                  flush=True)
-            phase[key]["profile"] = {k: prof[k] for k in (
-                "device_busy_ms", "device_idle_share", "device_idle_share_unprofiled",
-                f"{span}_share_of_busy")}
-        # OpenPose: the target rendering's range in the AMP step (the greedy
-        # matching is timed alone by CUDA events, beside the val step)
-        prof = assigner_range_profile(s15_later["state"], s15_later["batch"],
-                                      s15_later["amp_ms"], "openpose_targets")
-        print(json.dumps({"openpose_amp_train_step_profile": prof, "card": card}), flush=True)
-        s15["openpose"]["profile"] = {k: prof[k] for k in (
+        # the assigners' ranges: YOLOX-s's SimOTA only; the AIRDet-s,
+        # EfficientDet-D0 and OpenPose sessions are left for the run's time
+        # limit (PERF.md §5 keeps their last readings)
+        run = s13_later["yolox_s"]
+        prof = assigner_range_profile(run["state"], run["batch"], run["amp_ms"],
+                                      "simota_assign")
+        print(json.dumps({"yolox_s_amp_train_step_profile": prof, "card": card}), flush=True)
+        s13["yolox_s"]["profile"] = {k: prof[k] for k in (
             "device_busy_ms", "device_idle_share", "device_idle_share_unprofiled",
-            "openpose_targets_share_of_busy")}
-    mark("nanodet and assigner profiles")
+            "simota_assign_share_of_busy")}
+    mark("assigner profiles")
     bound, bound_by = nms_bound_ms(BATCH, 1024)
     bound1, _ = nms_bound_ms(1, 1024)
     print(json.dumps({"nms_keep_B1_K1024": {**times["B1"], **split["B1"],
@@ -5217,6 +5629,9 @@ def main() -> int:
                "openpose_served": s15["openpose"]["run"]["served_launches"],
                "litepose_steps_val_and_served": s15["litepose"]["launches"],
                "slice16_train": s16["run"]["launches"],
+               **{f"data_parallel_rank{r}_train_and_val": n
+                  for r, n in enumerate(dp["launches_by_rank"])},
+               "data_parallel_nccl_one_rank_train_and_val": dp["nccl_one_rank"]["launches"],
                "yolov5_exported_served": s16["exported"]["launches"]}
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
@@ -5251,6 +5666,8 @@ def main() -> int:
         "dataset_layout_path_inputs": {name: run["nms_inputs"] for name, run in layouts.items()
                                        if run["nms_inputs"]},
         "yolov5_exported_path_input": exported_nms,
+        "data_parallel_rank_inputs": [{**r, "bound_ms": nms_bound_ms(*r["shape"][:2])[0]}
+                                      for r in dp["nms_rank_inputs"]],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

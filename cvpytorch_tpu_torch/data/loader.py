@@ -4,7 +4,16 @@
 ``DataLoader``: thread-pool sample fetch with ordered batch assembly and a
 bounded background queue of ready numpy batches.  With ``shuffle`` the
 order of an epoch is ``np.random.RandomState(seed + epoch)``'s shuffle of
-the indices, as in the JAX package (single process, so no host sharding).
+the indices, as in the JAX package.  ``batch_size`` is the global batch:
+with ``world_size`` ranks every rank draws the same order and loads only
+its rows of each global batch, so the ranks' batches together are the
+single-process batch.  With ``drop_last`` (train) the global batch must
+divide by the world size and rank r takes rows [r·B/W, (r+1)·B/W); without
+it (val) each global batch, the last partial one too, is split as
+``np.array_split`` splits it, so that every item is loaded by exactly one
+rank, and a rank skips a split that comes out empty.
+``batch_positions()`` gives each of this rank's batches' positions in the
+epoch's single-process order (what the evaluators' merge sorts by).
 
 ``DevicePrefetcher``: a depth-2 feed of batches already on the device.  A
 producer thread pulls host batches and, on ``cuda``, copies every array
@@ -48,7 +57,11 @@ def default_collate(samples: list[dict]) -> dict:
 class DataLoader:
     def __init__(self, dataset, batch_size: int = 1, shuffle: bool = False,
                  num_workers: int = 4, collate_fn: Callable | None = None,
-                 drop_last: bool = False, seed: int = 0):
+                 drop_last: bool = False, seed: int = 0, rank: int = 0,
+                 world_size: int = 1):
+        if drop_last and batch_size % world_size:
+            raise ValueError(f"global batch {batch_size} not divisible by "
+                             f"{world_size} ranks")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -56,6 +69,7 @@ class DataLoader:
         self.collate_fn = collate_fn or default_collate
         self.drop_last = drop_last
         self.seed = seed
+        self.rank, self.world_size = rank, world_size
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -67,24 +81,44 @@ class DataLoader:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
         return idx
 
-    def __len__(self) -> int:
+    def _global_batches(self) -> int:
         n = len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
 
+    def batch_positions(self) -> list[np.ndarray]:
+        """This rank's batches as positions in the epoch's order."""
+        n, B, W = len(self.dataset), self.batch_size, self.world_size
+        out = []
+        for b in range(self._global_batches()):
+            rows = np.arange(b * B, min((b + 1) * B, n))
+            if W > 1:
+                rows = (rows[self.rank * B // W:(self.rank + 1) * B // W] if self.drop_last
+                        else np.array_split(rows, W)[self.rank])
+            if len(rows):
+                out.append(rows)
+        return out
+
+    def __len__(self) -> int:
+        """Batches this rank loads an epoch (at train, the global batches)."""
+        if self.drop_last or self.world_size == 1:
+            return self._global_batches()
+        n, B = len(self.dataset), self.batch_size
+        # array_split gives rank r a row of a batch of m rows iff m > r
+        return (n // B) * (B > self.rank) + (n % B > self.rank)
+
     def __iter__(self) -> Iterator[dict]:
         indices = self._indices()
-        n_batches = len(self)
+        chunks = [indices[rows] for rows in self.batch_positions()]
         out_q: queue.Queue = queue.Queue(maxsize=PREFETCH)
         stop = threading.Event()
 
         def producer():
             with ThreadPoolExecutor(self.num_workers) as pool:
-                for b in range(n_batches):
+                for chunk in chunks:
                     if stop.is_set():
                         return
-                    chunk = indices[b * self.batch_size:(b + 1) * self.batch_size]
                     try:
                         samples = list(pool.map(self.dataset.__getitem__, chunk))
                         out_q.put(self.collate_fn(samples))

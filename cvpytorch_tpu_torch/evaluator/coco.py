@@ -193,15 +193,35 @@ class COCOEval:
 
     def reset(self):
         # records[c][area] = list over images of
-        #   (scores (D,), dtm (T,D), dtig (T,D), npig)
+        #   (scores (D,), dtm (T,D), dtig (T,D), npig, position)
         self.records = [{a: [] for a in self.area_keys} for _ in range(self.num_classes)]
+
+    def state_dict(self):
+        return {"records": self.records}
+
+    def merge_state_dicts(self, states):
+        """Every rank's per-(class, areaRng) image records, in the images'
+        single-process order when every record has its position: the AP's
+        stable sort ranks cross-image score ties by that order, which a
+        rank-by-rank concatenation changes.  Records without positions are
+        concatenated in the states' order, as the JAX merge does."""
+        def merged(recs):
+            recs = list(recs)
+            return sorted(recs, key=lambda r: r[4]) \
+                if all(r[4] is not None for r in recs) else recs
+
+        self.records = [
+            {a: merged(r for s in states for r in s["records"][c][a]) for a in self.area_keys}
+            for c in range(self.num_classes)]
 
     def add_image(self, gt_boxes, gt_labels, det_boxes, det_scores,
                   det_labels, gt_crowd=None, gt_masks=None, det_masks=None,
-                  gt_kpts=None, det_kpts=None, gt_ann_areas=None):
+                  gt_kpts=None, det_kpts=None, gt_ann_areas=None, position=None):
         """All arrays unpadded, boxes xyxy original-image pixels; segm
         takes the (n, Hm, Wm) masks too, keypoints the (n, K, 3) keypoints
-        and optionally the GT annotation areas."""
+        and optionally the GT annotation areas.  ``position``: the image's
+        place in the single-process order, for ``merge_state_dicts``."""
+        position = None if position is None else int(position)
         gt_boxes = np.asarray(gt_boxes, np.float64).reshape(-1, 4)
         gt_labels = np.asarray(gt_labels).reshape(-1)
         det_boxes = np.asarray(det_boxes, np.float64).reshape(-1, 4)
@@ -238,7 +258,7 @@ class COCOEval:
                 ious, IOU_THRS, crowd, crowd, gt_areas, dt_areas,
                 [AREA_RNG[a] for a in self.area_keys])
             for i, a in enumerate(self.area_keys):
-                self.records[c][a].append((ds, dtm[i], dtig[i], int(npig[i])))
+                self.records[c][a].append((ds, dtm[i], dtig[i], int(npig[i]), position))
 
     def _pr_curves(self, c, area, max_det):
         """(ap (T,) or None, recall (T,) or None) for one cell."""
@@ -339,7 +359,14 @@ class CocoEvaluator(BaseEvaluator):
     def reset(self):
         self._evals = {t: COCOEval(self.num_classes, t) for t in self.iou_types}
 
-    def update(self, targets, preds):
+    def state_dict(self):
+        return {t: ev.state_dict() for t, ev in self._evals.items()}
+
+    def merge_state_dicts(self, states):
+        for t, ev in self._evals.items():
+            ev.merge_state_dicts([s[t] for s in states])
+
+    def update(self, targets, preds, indices=None):
         """targets: padded dict {'boxes','labels','valid','pads','scales'
         [,'crowd'][,'masks']} (GT in network pixels, un-letterboxed here);
         preds: the NMS output dict, already un-letterboxed by the model,
@@ -347,7 +374,8 @@ class CocoEvaluator(BaseEvaluator):
         'keypoints' (B, K, 17, 3) for keypoints (original pixels; GT
         keypoints are un-letterboxed here).  A bottom-up model's decode
         pieces ('peaks_xy', 'peaks_score', 'conns', 'stride') are
-        assembled into people here first."""
+        assembled into people here first.  ``indices``: the images'
+        positions in the single-process order (``BaseEvaluator``)."""
         if "conns" in preds:
             xy, sc, cn = (np.asarray(preds[k]) for k in ("peaks_xy", "peaks_score", "conns"))
             decoded = [paf.assemble_instances(xy[b], sc[b], cn[b]) for b in range(len(xy))]
@@ -387,7 +415,8 @@ class CocoEvaluator(BaseEvaluator):
                         kw["gt_ann_areas"] = np.asarray(targets["areas"])[i][gv]
                 ev.add_image(gb, t_labels[i][gv], p_boxes[i][pv],
                              p_scores[i][pv], p_labels[i][pv],
-                             gt_crowd=t_crowd[i][gv], **kw)
+                             gt_crowd=t_crowd[i][gv],
+                             position=None if indices is None else indices[i], **kw)
 
     def evaluate(self) -> dict:
         out = {"performance": 0.0}

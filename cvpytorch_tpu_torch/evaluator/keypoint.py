@@ -36,7 +36,7 @@ class KeypointEvaluator(BaseEvaluator):
         self._total = 0
         self._oks: list[float] = []
 
-    def update(self, targets, preds):
+    def update(self, targets, preds, indices=None):  # sums: order-free
         if isinstance(preds, dict):
             raise ValueError("the keypoint evaluator takes decoded (B, K, 3) keypoints, not a "
                              f"dict of {sorted(preds)} (a bottom-up model: use coco_keypoints)")

@@ -10,7 +10,10 @@ left out of mAP; a class with gt and no detections counts AP 0.  The gt
 arrives in network pixels and is un-letterboxed by ``pads``/``scales``;
 the predictions are already in the original image's pixels.  Sorts use
 numpy's default kind, as the JAX evaluator does, so score ties rank the
-same."""
+same: the ranking depends on the order of the images' records, which
+``merge_state_dicts`` puts back in the single-process order by the
+images' positions (``update``'s ``indices``); without them it
+concatenates the states in their order, as the JAX merge does."""
 from __future__ import annotations
 
 import numpy as np
@@ -44,9 +47,9 @@ class VOCEvaluator(BaseEvaluator):
         self.reset()
 
     def reset(self):
-        self._dets, self._gts = [], []
+        self._dets, self._gts, self._pos = [], [], []
 
-    def update(self, targets, preds):
+    def update(self, targets, preds, indices=None):
         t_boxes = np.asarray(targets["boxes"])
         t_labels = np.asarray(targets["labels"])
         t_valid = np.asarray(targets["valid"])
@@ -55,6 +58,7 @@ class VOCEvaluator(BaseEvaluator):
         scales = np.asarray(targets.get("scales", np.ones((B, 2))))
         p_boxes, p_scores, p_labels, p_valid = (
             np.asarray(preds[k]) for k in ("boxes", "scores", "labels", "valid"))
+        self._pos.extend([None] * B if indices is None else (int(i) for i in indices))
         for i in range(B):
             gv = t_valid[i]
             gb = t_boxes[i][gv].copy()
@@ -66,11 +70,15 @@ class VOCEvaluator(BaseEvaluator):
             self._dets.append((p_boxes[i][pv], p_scores[i][pv], p_labels[i][pv]))
 
     def state_dict(self):
-        return {"dets": self._dets, "gts": self._gts}
+        return {"dets": self._dets, "gts": self._gts, "pos": self._pos}
 
     def merge_state_dicts(self, states):
-        self._dets = [d for s in states for d in s["dets"]]
-        self._gts = [g for s in states for g in s["gts"]]
+        records = [r for s in states for r in zip(s["pos"], s["dets"], s["gts"])]
+        if all(r[0] is not None for r in records):
+            records.sort(key=lambda r: r[0])
+        self._pos = [r[0] for r in records]
+        self._dets = [r[1] for r in records]
+        self._gts = [r[2] for r in records]
 
     def _match_class(self, c: int) -> tuple[list, list, int]:
         """Scores and 0/1 matches of class ``c``'s detections, and its gt count."""

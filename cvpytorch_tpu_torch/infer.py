@@ -65,11 +65,19 @@ def save_seg_mask(pred, path: str, palette=None) -> None:
 
 
 def resolve_device(name: str) -> torch.device:
-    """``cuda`` must be available when asked for; there is no fallback."""
+    """``cuda`` must be available when asked for; there is no fallback.
+    Under ``torchrun`` (``LOCAL_RANK`` set) a bare ``cuda`` is this rank's
+    card, ``cuda:LOCAL_RANK``, which must exist."""
     device = torch.device(name)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available; pass --device cpu to run "
                            "on the CPU")
+    if device.type == "cuda" and device.index is None and "LOCAL_RANK" in os.environ:
+        device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        if device.index >= torch.cuda.device_count():
+            raise RuntimeError(f"local rank {device.index} has no card of its own "
+                               f"({torch.cuda.device_count()} visible): pass --device "
+                               "cuda:<index> to place the ranks")
     return device
 
 

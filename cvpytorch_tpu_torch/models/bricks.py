@@ -7,7 +7,9 @@ activation table, ``BatchNorm2d``, ``ConvBNAct``,
 the unbiased one in ``running_var``, which is what the JAX package's
 BatchNorm fork imitates; the YOLO bricks use torch momentum 0.03 and
 eps 1e-3 (flax momentum 0.97).  BN momentum is always torch's: flax
-momentum m is torch momentum 1 − m.
+momentum m is torch momentum 1 − m.  Under data parallelism
+(``parallel.dist``) the bricks' ``BatchNorm2d`` takes its train-mode
+moments over the global batch, as the JAX BatchNorm does on a mesh.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import dist as dp
 
 
 def make_divisible(v: float, divisor: int = 8, min_value: int | None = None) -> int:
@@ -84,11 +88,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     model, the trainer's ``AMP_BN_BF16_STATS``): in train mode under
     autocast the batch moments are taken in bfloat16
     (``bf16_batch_moments``); the normalisation and the running statistics
-    stay float32, from those moments."""
+    stay float32, from those moments.
+
+    In a live group of more than one rank (``parallel.dist``) train mode
+    takes the moments of the global batch (``_global_forward``): the mean
+    from the all-reduced sums and count, then the all-reduced Σ(x − mean)²
+    (not E[x²] − mean², which cancels in float32), both carrying autograd
+    and in float32 at least (float64 inputs stay float64);
+    ``running_var`` gets Bessel's factor n / max(n − 1, 1) of the global
+    n, and a global count of one is the one-value case above.
+    ``bf16_stats`` is refused there (ROADMAP, Queue 1 item 11c)."""
 
     bf16_stats = False
 
     def forward(self, x):
+        if self.training and dp.reductions_active():
+            return self._global_forward(x)
         if (self.bf16_stats and self.training and x.numel() != x.shape[1]
                 and torch.is_autocast_enabled(x.device.type)):
             return self._bf16_stats_forward(x)
@@ -103,6 +118,28 @@ class BatchNorm2d(nn.BatchNorm2d):
         shape = (1, -1, 1, 1)
         return ((x - x.mean((0, 2, 3), keepdim=True)) * self.weight.reshape(shape)
                 + self.bias.reshape(shape))
+
+    def _global_forward(self, x):
+        if self.bf16_stats:
+            raise NotImplementedError(
+                "bf16_stats takes per-rank moments: bfloat16 BN moments under data "
+                "parallelism are not ported yet (ROADMAP, Queue 1 item 11c)")
+        C = x.shape[1]
+        dims = [d for d in range(x.dim()) if d != 1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        count = xf.new_full((1,), x.numel() // C)
+        sums = dp.all_reduce_with_grad(torch.cat([xf.sum(dims), count]))
+        n = sums[C:].detach()
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        d = xf - (sums[:C] / n).reshape(shape)
+        var = dp.all_reduce_with_grad((d * d).sum(dims)) / n
+        with torch.no_grad():
+            self.running_mean.lerp_((sums[:C] / n).detach(), self.momentum)
+            self.running_var.lerp_(var.detach() * (n / torch.clamp_min(n - 1, 1)),
+                                   self.momentum)
+            self.num_batches_tracked += 1
+        a = torch.rsqrt(var + self.eps) * self.weight
+        return (d * a.reshape(shape) + self.bias.reshape(shape)).to(x.dtype)
 
     def _bf16_stats_forward(self, x):
         mean, var = (m.float() for m in bf16_batch_moments(x))

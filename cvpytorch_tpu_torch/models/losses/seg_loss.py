@@ -6,6 +6,13 @@ integer ``labels`` (B, H, W) with an ``ignore_index`` (255 for
 Cityscapes), and is a mean over the valid pixels with the same weights as
 the JAX function.  Ignored pixels stay in every tensor with weight 0, so
 shapes do not depend on the data.
+
+Under data parallelism (``parallel.dist``) each rank's loss is its share
+of the global batch's: the weighted means divide by the weight summed over
+the ranks, and the Dice sums are all-reduced (with autograd) and the Dice
+loss split evenly over the ranks, so the ranks' losses sum to the global
+loss.  OHEM and Lovász-softmax rank the pixels of the whole batch and are
+refused there (ROADMAP, Queue 1 item 11c).
 """
 from __future__ import annotations
 
@@ -14,7 +21,15 @@ from functools import partial
 import torch
 import torch.nn.functional as F
 
+from ...parallel import dist as dp
 from ...registry import LOSSES
+
+
+def _refuse_split(name: str):
+    if dp.reductions_active():
+        raise NotImplementedError(
+            f"{name} ranks the pixels of the whole batch: under data parallelism it is "
+            "not ported yet (ROADMAP, Queue 1 item 11c)")
 
 
 def _valid_mask(labels, ignore_index):
@@ -33,7 +48,7 @@ def _gather(x, safe):
 def _weighted_mean(loss, w, safe, class_weights):
     if class_weights is not None:
         w = w * torch.as_tensor(class_weights, dtype=w.dtype, device=w.device)[safe]
-    return (loss * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (loss * w).sum() / torch.clamp(dp.global_sum(w.sum()), min=1.0)
 
 
 @LOSSES.register(name="CrossEntropyLoss2d")
@@ -52,6 +67,7 @@ def ohem_cross_entropy_2d(logits, labels, thresh: float = 0.7,
     """Cross-entropy over the hard pixels: those whose probability of the
     true class is at most max(thresh, the ``min_kept``-th smallest such
     probability), ``min_kept`` a ratio of all pixels."""
+    _refuse_split("OhemCrossEntropyLoss2d")
     mask = _valid_mask(labels, ignore_index)
     safe = _safe_labels(labels, ignore_index)
     logp_gt = _gather(F.log_softmax(logits, 1), safe)
@@ -71,7 +87,7 @@ def bce_2d(logits, labels, ignore_index: int = 255):
     y = torch.clamp(labels.float(), 0, 1)
     x = logits[:, 0]
     loss = torch.clamp(x, min=0) - x * y + torch.log1p(torch.exp(-torch.abs(x)))
-    return (loss * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return (loss * mask).sum() / torch.clamp(dp.global_sum(mask.sum()), min=1.0)
 
 
 @LOSSES.register(name="DiceLoss")
@@ -82,10 +98,12 @@ def dice_loss(logits, labels, smooth: float = 1.0, ignore_index: int = 255):
     onehot = F.one_hot(_safe_labels(labels, ignore_index), num_classes)
     onehot = onehot.permute(0, 3, 1, 2).to(probs.dtype) * mask
     dims = (0, 2, 3)
-    inter = (probs * onehot).sum(dims)
-    denom = probs.sum(dims) + onehot.sum(dims)
+    sums = dp.all_reduce_with_grad(torch.stack([
+        (probs * onehot).sum(dims), probs.sum(dims) + onehot.sum(dims)]))
+    inter, denom = sums[0], sums[1]
     dice = (2 * inter + smooth) / (denom + smooth)
-    return 1.0 - dice.mean()
+    loss = 1.0 - dice.mean()
+    return loss / dp.world_size() if dp.reductions_active() else loss
 
 
 @LOSSES.register(name="FocalLoss2d")
@@ -102,6 +120,7 @@ def lovasz_softmax(logits, labels, ignore_index: int = 255):
     """Lovász-softmax over the classes present in the labels.  Every class
     sorts its errors at once, stably (as ``jnp.argsort``), so pixels with
     equal errors take the JAX order; ignored pixels get error 0."""
+    _refuse_split("LovaszSoftmax")
     num_classes = logits.shape[1]
     probs = torch.softmax(logits, 1).permute(1, 0, 2, 3).reshape(num_classes, -1)
     labels_f = labels.reshape(-1)

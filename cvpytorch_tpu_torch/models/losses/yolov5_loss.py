@@ -14,6 +14,11 @@ objectness target is a scatter-max of the detached, clipped CIoU
 (``scatter_reduce(..., "amax")``, exact because every score is ≥ 0).
 Level balance (4, 1, 0.4); the total is scaled by the batch size.
 
+Under data parallelism (``parallel.dist``) the normalisers are the global
+batch's: n_pos is summed over the ranks, the objectness mean divides by
+the global B·S·A and the total is scaled by the global B, so the ranks'
+losses (and each term) sum to the loss of the global batch.
+
 Runs in float32 on whatever raw maps it is given; the caller casts them.
 """
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.boxes import bbox_iou
+from ...parallel import dist as dp
 from ...registry import LOSSES
 
 _OFFSETS = ((0.0, 0.0), (0.5, 0.0), (0.0, 0.5), (-0.5, 0.0), (0.0, -0.5))
@@ -108,6 +114,8 @@ class YOLOv5Loss:
         boxes, labels = targets["boxes"], targets["labels"]
         valid = targets["valid"]
         B, M = boxes.shape[:2]
+        split = dp.reductions_active()  # this rank's share of a global batch
+        B_global = dp.global_batch(B)
         lbox = lobj = lcls = 0.0
         for i, pi in enumerate(raw_outs):
             _, ny, nx, A, no = pi.shape
@@ -122,7 +130,7 @@ class YOLOv5Loss:
             rows = torch.gather(pk, 1, t["cell"][..., None].expand(B, M * 5, A * no))
             ps = rows.reshape(B, M, 5, A, no).transpose(2, 3).reshape(B, M * A * 5, no)
             w = t["w"]
-            n_pos = w.sum().clamp(min=1.0)
+            n_pos = dp.global_sum(w.sum()).clamp(min=1.0)
 
             # box: CIoU in grid units, cxcywh
             pxy = torch.sigmoid(ps[..., 0:2]) * 2.0 - 0.5
@@ -140,7 +148,8 @@ class YOLOv5Loss:
             tobj = tobj.scatter_reduce(1, t["flat_cell"], score, "amax",
                                        include_self=True)
             obj_bce = sigmoid_binary_cross_entropy(obj_logits, tobj)
-            lobj = lobj + obj_bce.mean() * self.balance[i]
+            obj_mean = (obj_bce.sum() / (B_global * S * A)) if split else obj_bce.mean()
+            lobj = lobj + obj_mean * self.balance[i]
 
             if self.num_classes > 1:
                 tcls = torch.where(valid, labels, 0)  # (B,M)
@@ -154,5 +163,5 @@ class YOLOv5Loss:
         lbox = lbox * self.hyp_box
         lobj = lobj * self.hyp_obj
         lcls = lcls * self.hyp_cls
-        total = (lbox + lobj + lcls) * B  # scaled by the batch, as in JAX
+        total = (lbox + lobj + lcls) * B_global  # scaled by the batch, as in JAX
         return total, {"box_loss": lbox, "obj_loss": lobj, "cls_loss": lcls}

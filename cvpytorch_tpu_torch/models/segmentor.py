@@ -69,6 +69,9 @@ def build_head(cfg, num_classes: int, in_channels: Sequence[int]) -> nn.Module:
     "SegNeXt", "PSPNet", "Deeplabv3", "Deeplabv3Plus", "SegFormer",
     "UPerNet", "SFNet", "TopFormer", "RegSeg"))
 class EncoderDecoder(nn.Module):
+    # its seg losses take global normalisers under data parallelism
+    dp_global_loss = True
+
     def __init__(self, dictionary: Sequence[Any] = (), model_cfg=None):
         super().__init__()
         names, weights = dictionary_to_names_weights(list(dictionary))

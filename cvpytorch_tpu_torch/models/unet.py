@@ -43,6 +43,9 @@ class DoubleConv(nn.Module):
 
 @MODELS.register(name="UNet")
 class UNet(nn.Module):
+    # its seg losses take global normalisers under data parallelism
+    dp_global_loss = True
+
     def __init__(self, dictionary: Sequence[Any] = (), model_cfg=None,
                  base_channels: int = 64, depth: int = 4):
         super().__init__()

@@ -39,6 +39,9 @@ STRIDES = (8.0, 16.0, 32.0)
 
 @MODELS.register(name="YOLOv5")
 class YOLOv5(nn.Module):
+    # its loss takes global normalisers under data parallelism (parallel.dist)
+    dp_global_loss = True
+
     def __init__(self, dictionary: Sequence[Any] = (), model_cfg: Any = None,
                  conf_threshold: float = 0.001, iou_threshold: float = 0.6,
                  max_det: int = 300, multi_label: bool = True):

@@ -264,7 +264,14 @@ def apply_aug(images, boxes, valid, params: dict, out_size: int):
     return normalize(out), nboxes, keep
 
 
-def fused_det_augment(images, boxes, valid, generator, out_size: int):
-    """``apply_aug`` with fresh draws from ``generator``."""
-    params = draw_aug_params(generator, images.shape[0], images.shape[2], out_size)
+def fused_det_augment(images, boxes, valid, generator, out_size: int,
+                      rows: slice | None = None, global_batch: int | None = None):
+    """``apply_aug`` with fresh draws from ``generator``.  ``rows``: the
+    batch is these rows of a global batch of ``global_batch`` (a rank's
+    share under data parallelism): the global batch's draws are made and
+    the rows' kept, so that the rows are augmented as in one process."""
+    B = images.shape[0] if rows is None else global_batch
+    params = draw_aug_params(generator, B, images.shape[2], out_size)
+    if rows is not None:
+        params = {k: v[rows] for k, v in params.items()}
     return apply_aug(images, boxes, valid, params, out_size)

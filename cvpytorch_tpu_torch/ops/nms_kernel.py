@@ -71,8 +71,23 @@ def build_log() -> str:
     return library_path().with_suffix(".ptxas.txt").read_text()
 
 
+def _write_atomic(path: Path, text: str) -> None:
+    """``path`` appears whole or not at all (a temporary file, renamed)."""
+    fd, tmp = tempfile.mkstemp(suffix=path.suffix, dir=path.parent)
+    try:
+        with os.fdopen(fd, "w") as f:
+            f.write(text)
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; cached per process."""
+    """Build (if needed) and load the kernel library; cached per process.
+    Processes that build at once (data-parallel ranks) each build into a
+    temporary file and rename it over the library, the build log first, so
+    a process never loads or reads a file that is half written."""
     global _lib
     with _lib_lock:
         if _lib is not None:
@@ -85,7 +100,7 @@ def load_library() -> ctypes.CDLL:
             try:
                 done = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
                                       check=True, capture_output=True, text=True)
-                so.with_suffix(".ptxas.txt").write_text(done.stdout + done.stderr)
+                _write_atomic(so.with_suffix(".ptxas.txt"), done.stdout + done.stderr)
                 os.replace(tmp, so)
             except subprocess.CalledProcessError as e:
                 raise RuntimeError(f"nvcc failed:\n{e.stderr}") from e

@@ -26,6 +26,16 @@ call changes no global state.
 EMA blends the parameters and the BN running statistics with the decay
 d·(1 − e^{−(step+1)/2000}) after each update and copies
 ``num_batches_tracked``.
+
+Data parallelism (``parallel.dist``, a live group of more than one rank):
+each rank's loss is its share of the global batch's (the losses' and BN's
+normalisers are global), so the train step sums the ranks' gradients
+(``all_reduce_sum_``, bucketed, before the optimizer: the clip sees the
+global gradient) and their metrics, which are then the global batch's on
+every rank; optimizer, EMA and schedule run the same on every rank.  The
+sum is explicit rather than DDP's average, which would need the loss
+scaled by the world size, prefix the checkpoint's keys with ``module.``
+and hook the backward.  The eval step runs under ``local_reductions()``.
 """
 from __future__ import annotations
 
@@ -36,6 +46,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 from torch import nn
+
+from .parallel import dist as dp
 
 
 @dataclass
@@ -111,6 +123,13 @@ def make_train_step(amp: bool = False, ema_decay: float = 0.0, preprocess=None):
                                      mode="train")
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
+        split = dp.reductions_active()
+        if split:
+            params = [p for g in state.optimizer.param_groups for p in g["params"]]
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            dp.all_reduce_sum_([p.grad for p in params])
         state.optimizer.step()
         if state.ema is not None and ema_decay > 0:
             ema_update(state.ema, model, ema_decay_schedule(ema_decay, state.step + 1))
@@ -119,6 +138,11 @@ def make_train_step(amp: bool = False, ema_decay: float = 0.0, preprocess=None):
         for k, v in loss_dict.items():
             metrics[k] = torch.as_tensor(v, dtype=torch.float32,
                                          device=images.device).detach()
+        if split:  # the ranks' shares of each term sum to the global batch's
+            names = list(metrics)
+            summed = torch.stack([metrics[k] for k in names])
+            dp.all_reduce_sum_([summed])
+            metrics = dict(zip(names, summed.unbind()))
         return state, metrics
 
     return train_step
@@ -131,7 +155,7 @@ def make_eval_step(use_ema: bool = False):
     def eval_step(state: TrainState, batch):
         model = state.ema if (use_ema and state.ema is not None) else state.model
         model.eval()
-        with torch.inference_mode():
+        with torch.inference_mode(), dp.local_reductions():
             return model(prepare_images(batch["image"]),
                          targets=batch.get("target"), mode="val")
 

@@ -1,12 +1,12 @@
 """Trainer (counterpart of ``cvpytorch_tpu/trainer.py``): the epoch loop.
 
 ``python -m cvpytorch_tpu_torch.trainer --setting conf/X.yml|X.json
-[--device cuda|cpu]`` — reads the config, dictionary, datasets and model,
-builds the optimizer and schedule, and runs ``Trainer.run()``: train
-epochs through a ``DevicePrefetcher``, a val epoch every
-``EVALUATOR.EVAL_INTERVALS`` epochs on the EMA weights, early stopping on
-the evaluator's 'performance', and ``last``/``best``/``deploy``
-checkpoints.
+[--device cuda|cpu] [--backend nccl|gloo]`` — reads the config,
+dictionary, datasets and model, builds the optimizer and schedule, and
+runs ``Trainer.run()``: train epochs through a ``DevicePrefetcher``, a
+val epoch every ``EVALUATOR.EVAL_INTERVALS`` epochs on the EMA weights,
+early stopping on the evaluator's 'performance', and
+``last``/``best``/``deploy`` checkpoints.
 
 Runs on ``cuda`` unless ``--device cpu`` is given; without CUDA that
 raises.  With ``DATASET.TRAIN.DEVICE_AUG`` the host only letterboxes the
@@ -23,8 +23,28 @@ the keypoints and annotation areas when the dataset has them.
 with ``torch.profiler`` into a Chrome trace under DIR.
 ``AMP_BN_BF16_STATS: true`` takes the train-mode BN batch moments in
 bfloat16 under AMP (``models/bricks.BatchNorm2d``), on this trainer's model
-only.  Single device: the JAX package's mesh (``PARALLEL``) is not ported
-yet and raises.
+only.
+
+Data parallelism: under ``torchrun`` (``python -m torch.distributed.run
+--nproc-per-node W -m cvpytorch_tpu_torch.trainer --setting X``) every
+rank joins the process group (``parallel.dist.initialize_distributed``;
+NCCL on the card, gloo on the CPU, unless ``--backend`` says), runs on
+``cuda:LOCAL_RANK`` unless ``--device`` names a card, and takes its rows
+of each global batch (``BATCH_SIZE`` is the global batch, as in the JAX
+package): the train step is the single-process step on the global batch
+(global loss normalisers and BN moments, gradients summed over the
+ranks), the device augmentation draws the global batch's randoms and
+keeps the rank's rows, rank 0's weights are broadcast at the start, val
+scores each image on one rank and merges the evaluators in the
+single-process order before ``evaluate()``, so every rank takes the same
+best-checkpoint and early-stop decisions.  Only rank 0 logs at INFO and
+writes checkpoints, summaries and the profiler trace.  A model whose loss
+still takes per-rank normalisers (a class without its own
+``dp_global_loss = True``), ``AMP_BN_BF16_STATS`` and a BN other than the
+bricks' raise under more than one rank (ROADMAP, Queue 1 item 11c), and so
+does ``PARALLEL`` with ``MODEL`` or ``SPATIAL`` above 1 (item 11b).  The
+host transforms draw from each rank's own ``random``/``np.random``, as a
+JAX multi-host run's do.
 """
 from __future__ import annotations
 
@@ -40,10 +60,11 @@ from .data.transforms import build_transforms
 from .data.transforms.det_transforms import make_det_collate, make_device_aug_collate
 from .evaluator import build_evaluator
 from .infer import TASKS, build_model, resolve_device
-from .models.bricks import set_bn_bf16_stats
+from .models.bricks import BatchNorm2d, set_bn_bf16_stats
 from .ops.augment import fused_det_augment, step_generator
 from .optim.optimizers import build_optimizer
 from .optim.schedules import build_lr_scheduler
+from .parallel import dist as dp
 from .registry import DATASETS
 from .train_state import create_train_state, make_eval_step, make_train_step
 from .utils.checkpoints import Checkpoints, EarlyStopping
@@ -58,20 +79,38 @@ from .data import datasets as _datasets  # noqa: F401  (registers)
 AUG_SEED_OFFSET = 7919
 
 
+def check_parallel(par) -> None:
+    """``PARALLEL``: the data axis is the ranks (``torchrun``); ``MODEL``
+    and ``SPATIAL`` of 1 are accepted, anything else raises."""
+    if not par:
+        return
+    items = dict(par.items()) if hasattr(par, "items") else {"": par}
+    unported = {k: v for k, v in items.items()
+                if k not in ("MODEL", "SPATIAL") or int(v or 1) != 1}
+    if unported:
+        raise NotImplementedError(
+            f"PARALLEL {unported} is not ported yet: the port trains data-parallel over "
+            "torchrun ranks only; tensor and spatial parallelism are ROADMAP, Queue 1 "
+            "item 11b")
+
+
 class Trainer:
-    def __init__(self, cfg: CommonConfiguration, device: str = "cuda"):
+    def __init__(self, cfg: CommonConfiguration, device: str = "cuda",
+                 backend: str | None = None):
         self.cfg = cfg
+        check_parallel(cfg.PARALLEL)
         self.device = resolve_device(device)
-        self.logger = setup_logger()
+        dp.initialize_distributed(
+            backend or ("nccl" if self.device.type == "cuda" else "gloo"), device=self.device)
+        self.rank, self.world = dp.rank(), dp.world_size()
+        self.rank0 = self.rank == 0
+        self.logger = setup_logger(rank=self.rank)
         self.seed = int(cfg.SEED or DEFAULT_SEED)
         setup_seed(self.seed)
         self.start_epoch = -1
         self.n_epochs = int(cfg.N_MAX_EPOCHS or 1)
-        if cfg.PARALLEL:
-            raise NotImplementedError("PARALLEL is not ported yet (ROADMAP, Queue 1 "
-                                      "item 11): the port trains on one device")
         self._profiler = None
-        self.logger.info("device: %s", self.device)
+        self.logger.info("device: %s, rank %d of %d", self.device, self.rank, self.world)
         self._device_aug_size = None
         self._parser_dict()
         self._parser_datasets()
@@ -121,8 +160,12 @@ class Trainer:
                 batch_size=int(stage_cfg.get("BATCH_SIZE", 1)),
                 shuffle=bool(stage_cfg.get("SHUFFLE", stage == "train")),
                 num_workers=int(stage_cfg.get("NUM_WORKER", 4) or 4),
-                drop_last=(stage == "train"), seed=self.seed)
-        self.batch_size = int(self.cfg.DATASET.TRAIN.get("BATCH_SIZE", 1))
+                drop_last=(stage == "train"), seed=self.seed,
+                rank=self.rank, world_size=self.world)
+        self.batch_size = int(self.cfg.DATASET.TRAIN.get("BATCH_SIZE", 1))  # global
+        # this rank's rows of the global train batch (the device augmentation's draws)
+        self._rows = (dp.process_batch_slice(self.batch_size, self.rank, self.world)
+                      if self.world > 1 else None)
         self.iters_per_epoch = max(len(self.dataloaders["train"]), 1)
         self.evaluator = (build_evaluator(self.cfg, self.datasets.get("val"))
                           if self.cfg.EVALUATOR and "val" in self.datasets
@@ -136,6 +179,26 @@ class Trainer:
                                  self.datasets.get("train") or self.datasets.get("val"))
         # this model's own setting: a later Trainer's model starts from off
         set_bn_bf16_stats(self.model, bool(self.cfg.AMP_BN_BF16_STATS))
+        if self.world > 1:
+            self._check_data_parallel()
+
+    def _check_data_parallel(self):
+        """Refuses what would train on per-rank statistics under W > 1."""
+        model = self.model
+        item = "(ROADMAP, Queue 1 item 11c)"
+        if not vars(type(model)).get("dp_global_loss", False):
+            raise NotImplementedError(
+                f"{type(model).__name__}'s loss takes per-rank normalisers: data-parallel "
+                f"training of it is not ported yet {item}")
+        if self.cfg.AMP_BN_BF16_STATS:
+            raise NotImplementedError("AMP_BN_BF16_STATS takes per-rank BN moments: not "
+                                      f"ported under data parallelism yet {item}")
+        for name, m in model.named_modules():
+            if (isinstance(m, torch.nn.modules.batchnorm._BatchNorm)
+                    and not isinstance(m, BatchNorm2d)):
+                raise NotImplementedError(
+                    f"{name} is a {type(m).__name__}, whose moments are per rank: global "
+                    f"BN moments need the bricks' BatchNorm2d {item}")
 
     # ------------------------------------------------------------------
     def _build_train_state(self):
@@ -159,6 +222,9 @@ class Trainer:
             else:
                 state = Checkpoints.load_weights_into(state, cfg.PRETRAIN_MODEL)
                 self.logger.info("loaded weights from %s", cfg.PRETRAIN_MODEL)
+        for module in (state.model, state.ema):  # every rank starts from rank 0's
+            if module is not None:
+                dp.broadcast_module_(module)
         return state
 
     # ------------------------------------------------------------------
@@ -176,12 +242,14 @@ class Trainer:
             preprocess=self._device_aug_preprocess() if self._device_aug_size else None)
         eval_step = make_eval_step(use_ema=bool(cfg.EMA))
 
-        ckpts = Checkpoints(
-            cfg.CHECKPOINT_DIR or "checkpoints", cfg.EXPERIMENT_NAME or "exp",
-            str(cfg.USE_MODEL.CLASS).split(".")[-1],
-            async_save=cfg.ASYNC_CHECKPOINT is not False)
-        writer = DummyWriter(cfg.TENSORBOARD_LOG_DIR if cfg.TENSORBOARD else None,
-                             enabled=bool(cfg.TENSORBOARD))
+        ckpts = writer = None
+        if self.rank0:  # the other ranks write nothing
+            ckpts = Checkpoints(
+                cfg.CHECKPOINT_DIR or "checkpoints", cfg.EXPERIMENT_NAME or "exp",
+                str(cfg.USE_MODEL.CLASS).split(".")[-1],
+                async_save=cfg.ASYNC_CHECKPOINT is not False)
+            writer = DummyWriter(cfg.TENSORBOARD_LOG_DIR if cfg.TENSORBOARD else None,
+                                 enabled=bool(cfg.TENSORBOARD))
         stopper = EarlyStopping(int(cfg.PATIENCE or 0) or 10**9)
         eval_intervals = int(
             (cfg.EVALUATOR.get("EVAL_INTERVALS", 1) if cfg.EVALUATOR else 1) or 1)
@@ -197,14 +265,17 @@ class Trainer:
                 perf, _ = self.val_epoch(epoch, state, eval_step, writer)
                 is_best = perf > best_perf
                 best_perf = max(best_perf, perf)
-                ckpts.autosave_checkpoint(state, epoch, is_best,
-                                          extra={"best": best_perf})
+                if ckpts:
+                    ckpts.autosave_checkpoint(state, epoch, is_best,
+                                              extra={"best": best_perf})
                 if stopper(epoch, perf):
                     break
-            elif (epoch + 1) % save_intervals == 0:
+            elif ckpts and (epoch + 1) % save_intervals == 0:
                 ckpts.autosave_checkpoint(state, epoch, is_best=False)
-        writer.close()
-        ckpts.wait()
+        if writer:
+            writer.close()
+        if ckpts:
+            ckpts.wait()
         self._stop_profiler()
         self.checkpoints = ckpts
         self.state = state
@@ -221,7 +292,8 @@ class Trainer:
             images = batch["image"]
             gen = step_generator(seed, int(t["aug_step"]), images.device)
             imgs, boxes, keep = fused_det_augment(images, t["boxes"], t["valid"],
-                                                  gen, size)
+                                                  gen, size, rows=self._rows,
+                                                  global_batch=self.batch_size)
             B = imgs.shape[0]
             new_t = {
                 "boxes": boxes, "labels": t["labels"].reshape(B, -1), "valid": keep,
@@ -242,7 +314,7 @@ class Trainer:
         ``DIR/trace_steps_<first>-<last>.json``; each profiled step is a
         ``train_step_<n>`` range."""
         prof = self.cfg.PROFILER
-        if not prof or not hasattr(prof, "get"):
+        if not prof or not hasattr(prof, "get") or not self.rank0:
             return
         start = prof.get("START_STEP")
         start = 10 if start is None else int(start)
@@ -326,9 +398,14 @@ class Trainer:
         return preds.to(dtype).cpu().numpy()
 
     def val_epoch(self, epoch, state, eval_step, writer):
+        """Scores this rank's val rows; with a live process group the
+        evaluators are merged (in the single-process order) before
+        ``evaluate()``, and the val losses logged are the mean over every
+        rank's batches of the losses each takes with its own normalisers."""
         self.evaluator.reset()
         loss_logger = LossLogger()
-        for batch in self.dataloaders["val"]:
+        loader = self.dataloaders["val"]
+        for positions, batch in zip(loader.batch_positions(), loader):
             targets_host = batch["target"]
             if isinstance(targets_host, dict):
                 # the epoch reaches the val targets too, so that a loss
@@ -337,7 +414,17 @@ class Trainer:
             loss_dict, preds = eval_step(state, map_arrays(
                 batch, lambda a: torch.from_numpy(a).to(self.device)))
             loss_logger.update({k: float(v) for k, v in loss_dict.items()})
-            self.evaluator.update(targets_host, self._host_predictions(preds))
+            # the images' places in the single-process order, for the merge
+            kw = {"indices": positions} if dp.group_live() else {}
+            self.evaluator.update(targets_host, self._host_predictions(preds), **kw)
+        if dp.group_live():
+            self.evaluator.merge_state_dicts(dp.allgather_pickled(self.evaluator.state_dict()))
+            sums = dp.allgather_pickled({k: (m.total, m.count)
+                                         for k, m in loss_logger.meters.items()})
+            loss_logger = LossLogger()
+            for k in sorted({k for s in sums for k in s}):  # a rank may have had no batch
+                total, count = (sum(s[k][i] for s in sums if k in s) for i in (0, 1))
+                loss_logger.update({k: total / max(count, 1)})
         metrics = self.evaluator.evaluate()
         perf = float(metrics.get("performance", 0.0))
         self.logger.info(
@@ -356,9 +443,14 @@ class Trainer:
 def main(argv=None):
     parser = argparse.ArgumentParser("cvpytorch_tpu_torch trainer")
     parser.add_argument("--setting", required=True, help="path to a .yml or .json config")
-    parser.add_argument("--device", default="cuda")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (under torchrun cuda:LOCAL_RANK), cuda:<i> or cpu")
+    parser.add_argument("--backend", default=None,
+                        help="process-group backend under torchrun: nccl (default on "
+                        "cuda) or gloo (default on cpu)")
     args = parser.parse_args(argv)
-    trainer = Trainer(CommonConfiguration.from_file(args.setting), device=args.device)
+    trainer = Trainer(CommonConfiguration.from_file(args.setting), device=args.device,
+                      backend=args.backend)
     trainer.run()
 
 
