@@ -315,17 +315,27 @@
 11. Data parallelism (``data_parallel_phase``, after the YOLOv5 train
    phase): full-width YOLOv5-s 640 on the flagship's recipe
    (``DEVICE_AUG``, AMP, EMA) at the global batch of 32 through
-   ``Trainer.run()`` in three ``torchrun``s of this script at once: two
+   ``Trainer.run()`` in two ``torchrun``s of this script at once: two
    gloo ranks on the one card (2 steps, val of 64 images merged across
-   the ranks), one NCCL rank (1 step, one val batch) and a probe of NCCL
-   with two ranks on the card (refused: "Duplicate GPU detected"); then,
-   with the card to the two ranks alone, the two-rank AMP step by CUDA
-   events.  Checks: every rank's losses finite and equal, ``nms_keep``
+   the ranks; NCCL 2.28.9 refuses two ranks on one device: "Duplicate
+   GPU detected") and one NCCL rank (1 step, one val batch); then, with the card to the two ranks alone, the two-rank AMP
+   step by CUDA events.  Checks: every rank's losses finite and equal, ``nms_keep``
    launched once per val batch on each rank and bit-exact on a rank's
    (16, 1024) input, only rank 0 writing checkpoints, one f32 step of two
    ranks on a fixed global batch against one process (loss and parameters
    1e-4 of the largest leaf, the update 1e-2), and the merged val's
    records and metrics equal to one process's on rank 0's checkpoint.
+   Then, in the same two-rank session, tensor parallelism: YOLOv5-s 640
+   with ``PARALLEL: {MODEL: 2}`` (data = 1) through ``Trainer.run()`` at a
+   global batch of 8 (2 steps, AMP, EMA, the grad clip, one val batch,
+   one checkpoint).  Checks: ``nms_keep`` once per val batch and
+   bit-exact on a rank's input, the replicated leaves bit-identical
+   across the ranks, each rank holding only its blocks of the leaves the
+   rule shards, rank 0's checkpoint served in this process, one f32 step
+   laid out on the mesh against one process (loss 1e-4), and
+   ``spatial_apply`` of JAX's two test models on a Cityscapes frame
+   against the unsplit forward (interior and seam rows 1e-5); the TP AMP
+   step and its share of the model group's collectives by CUDA events.
    Two ranks sharing one card measure correctness, not scaling.
 
 Prints the card's name and power limit, one JSON line of kernel records,
@@ -1181,21 +1191,24 @@ DP_NCCL_STEPS = 1  # the one-rank NCCL run: one step, one val batch
 DP_NCCL_VAL_IMAGES = BATCH
 DP_CHECK_SEED = 3  # the f32 check's model
 DP_TIMEOUT_S = 300
-DP_PROBE_TIMEOUT_S = 90
+TP_TIMEOUT_S = 240  # the two-rank session's tensor-parallel part
 
 
 def dp_config(workdir: Path, name: str, steps: int, val_images: int,
-              val_batch: int = BATCH) -> Path:
+              val_batch: int = BATCH, batch: int = BATCH, parallel: dict | None = None) -> Path:
     """``train_config``'s recipe (AMP, EMA, ``DEVICE_AUG``, the global batch
-    of 32) cut to one epoch of ``steps`` steps and a val of
-    ``val_images`` at ``val_batch``."""
+    of 32 or ``batch``) cut to one epoch of ``steps`` steps and a val of
+    ``val_images`` at ``val_batch``, with ``parallel`` as its
+    ``PARALLEL``."""
     workdir.mkdir(parents=True, exist_ok=True)
     cfg = json.loads(train_config(workdir).read_text())
     cfg["EXPERIMENT_NAME"] = f"chip_smoke_{name}"
     cfg["N_MAX_EPOCHS"] = 1
     cfg["CHECKPOINT_DIR"] = str(workdir / "checkpoints")
-    cfg["DATASET"]["TRAIN"]["LENGTH"] = BATCH * steps
+    cfg["DATASET"]["TRAIN"].update(LENGTH=batch * steps, BATCH_SIZE=batch)
     cfg["DATASET"]["VAL"].update(LENGTH=val_images, BATCH_SIZE=val_batch)
+    if parallel:
+        cfg["PARALLEL"] = parallel
     path = workdir / f"{name}.json"
     path.write_text(json.dumps(cfg))
     return path
@@ -1223,13 +1236,15 @@ def dp_f32_step(trainer, rows: range) -> dict:
     """One f32 train step (TF32 off) with EMA and the device augmentation
     of a fresh YOLOv5-s from ``DP_CHECK_SEED`` on ``rows`` of
     ``fixed_raw_batch``; rank 0's weights are broadcast first under a live
-    group.  Returns the loss, and the weights before and after, on the CPU."""
+    group, then laid out on the trainer's mesh.  Returns the loss, and the
+    weights before and after (gathered whole), on the CPU."""
     import torch
 
     from cvpytorch_tpu_torch.infer import build_model
     from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
     from cvpytorch_tpu_torch.optim.schedules import build_lr_scheduler
     from cvpytorch_tpu_torch.parallel import dist as dp
+    from cvpytorch_tpu_torch.parallel.mesh import full_state_dict, shard_train_state
     from cvpytorch_tpu_torch.train_state import create_train_state, make_train_step
 
     torch.manual_seed(DP_CHECK_SEED)
@@ -1241,41 +1256,34 @@ def dp_f32_step(trainer, rows: range) -> dict:
     dp.broadcast_module_(model)
     dp.broadcast_module_(state.ema)
     before = {k: v.detach().float().cpu() for k, v in model.state_dict().items()}
+    shard_train_state(state, trainer.mesh)
     step = make_train_step(amp=False, ema_decay=0.9999,
                            preprocess=trainer._device_aug_preprocess())
     _, metrics = step(state, fixed_raw_batch(trainer, rows))
     return {"loss": float(metrics["loss"]), "before": before,
-            "after": {k: v.detach().float().cpu() for k, v in model.state_dict().items()},
+            "after": {k: v.detach().float().cpu() for k, v in full_state_dict(model).items()},
             "params": [name for name, _ in model.named_parameters()]}
 
 
 def dp_step_split(step, state, raw) -> dict:
-    """Where a rank's W-rank AMP step goes, each variant timed by CUDA
-    events on both ranks at once: BN's all-reduces made identities (the
-    global moments' float32 passes kept, ``bn_collectives_off_ms``); this
-    rank's own moments by the fused BN, with no collective at all
-    (``local_ms``, under ``local_reductions``: no gradient sum either);
-    and the bucketed gradient sum alone (``grad_sum_ms``)."""
+    """The W-rank AMP step with BN's all-reduces made identities (the
+    global moments' float32 passes kept), timed by CUDA events on both
+    ranks at once: what BN's collectives take of the step.  (The split's
+    other two variants, each rank's own moments and the gradient sum
+    alone, are in PERF.md §5 from earlier runs.)"""
     from cvpytorch_tpu_torch.parallel import dist as dp
 
-    run = lambda: step(state, raw)
     real = dp.all_reduce_with_grad
     dp.all_reduce_with_grad = lambda x: x
     try:
-        off = cuda_time_ms(run, iters=2, warmup=1)
+        return {"bn_collectives_off_ms": cuda_time_ms(lambda: step(state, raw), iters=2,
+                                                      warmup=1)}
     finally:
         dp.all_reduce_with_grad = real
-    with dp.local_reductions():
-        local = cuda_time_ms(run, iters=2, warmup=1)
-    dp.barrier()
-    grads = [p.grad for g in state.optimizer.param_groups for p in g["params"]
-             if p.grad is not None]
-    grad_sum = cuda_time_ms(lambda: dp.all_reduce_sum_(grads), iters=2, warmup=1)
-    return {"bn_collectives_off_ms": off, "local_ms": local, "grad_sum_ms": grad_sum,
-            "grad_sum_mb": sum(g.nbytes for g in grads) / 2**20}
 
 
-def dp_rank_main(out_dir: str, setting: str, backend: str, device: str, go: str) -> int:
+def dp_rank_main(out_dir: str, setting: str, backend: str, device: str, go: str,
+                 tp_setting: str = "") -> int:
     """One rank of ``data_parallel_phase`` (run by ``torchrun``): the
     trainer's ``Trainer(cfg, device, backend).run()`` (its model's class
     and objectness biases at 0, ``zero_class_biases``, so that the val
@@ -1283,8 +1291,10 @@ def dp_rank_main(out_dir: str, setting: str, backend: str, device: str, go: str)
     before and read just after.  With ``go`` (a file
     the phase writes once nothing else runs on the card), also:
     ``nms_keep`` bit-exact against ``nms_keep_plain`` on this rank's first
-    val input and timed; ``dp_f32_step`` on this rank's rows; then, after
-    ``go``, the W-rank AMP step timed by CUDA events.  Writes
+    val input and timed; ``dp_f32_step`` on this rank's rows;
+    ``tp_rank_run`` on ``tp_setting`` (while the phase's one-process
+    reference and the NCCL rank still run); then, after ``go``, the
+    W-rank AMP step timed by CUDA events and ``tp_rank_timings``.  Writes
     ``rank<r>.json`` (and rank 0 ``f32.pt``) under ``out_dir``."""
     import torch
 
@@ -1323,6 +1333,7 @@ def dp_rank_main(out_dir: str, setting: str, backend: str, device: str, go: str)
             # the merged val records (per image: scores, matches), for the
             # phase to hold to one process's
             torch.save(trainer.evaluator.state_dict(), Path(out_dir) / "val_state.pt")
+        tp_trainer, tp_state, out["tp"] = tp_rank_run(tp_setting, backend, device, out_dir)
         deadline = time.monotonic() + DP_TIMEOUT_S
         while not Path(go).exists():  # the card to ourselves for the timings
             if time.monotonic() > deadline:
@@ -1338,32 +1349,313 @@ def dp_rank_main(out_dir: str, setting: str, backend: str, device: str, go: str)
         # the run's state and shapes: warm already
         out["amp_step_ms"] = cuda_time_ms(lambda: step(run["state"], raw), iters=2, warmup=0)
         out["amp_step_split"] = dp_step_split(step, run["state"], raw)
+        del run, step, raw, trainer
+        torch.cuda.empty_cache()
+        out["tp"].update(tp_rank_timings(tp_trainer, tp_state))
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(out))
     dp.barrier()
     dp.destroy()
     return 0
 
 
-def dp_nccl_probe() -> int:
-    """Two ranks of ``torchrun`` on one card with NCCL: an all-reduce,
-    which NCCL is expected to refuse; prints what it said."""
-    import os
+# -- tensor parallelism: YOLOv5-s 640 over the model axis of the same ranks ----
+
+TP_BATCH = 8  # the global batch: data = 1, so each rank computes all 8 images
+TP_STEPS = 2
+TP_VAL_IMAGES = TP_BATCH  # one val batch
+SPATIAL_FRAME = (1, 1024, 2048, 3)  # a Cityscapes frame, NHWC
+
+
+def replicated_digests(state) -> dict:
+    """sha256 of every replicated leaf: the model's and the EMA's
+    floating tensors (parameters and BN statistics) that are not blocks,
+    and the optimizer's per-leaf state of the replicated parameters."""
+    import hashlib
 
     import torch
-    import torch.distributed as dist
 
+    from cvpytorch_tpu_torch.parallel.tensor import is_sharded, shards
+
+    digest = lambda t: hashlib.sha256(
+        t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+    out = {}
+    for prefix, module in (("model", state.model), ("ema", state.ema)):
+        blocks = shards(module)
+        for name, t in module.state_dict().items():
+            if name not in blocks and t.is_floating_point():
+                out[f"{prefix}.{name}"] = digest(t)
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    for i, p in enumerate(params):
+        if not is_sharded(p):
+            for k, v in state.optimizer.state.get(p, {}).items():
+                if torch.is_tensor(v) and v.is_floating_point():
+                    out[f"optimizer.{i}.{k}"] = digest(v)
+    return out
+
+
+def held_report(trainer, state) -> dict:
+    """What this rank holds against the rule: every leaf ``tp_shardings``
+    shards on a full model is a block of its shape over the model axis and
+    every other leaf is whole; the leaves and megabytes held against one
+    process's."""
+    from cvpytorch_tpu_torch.infer import build_model
+    from cvpytorch_tpu_torch.parallel.mesh import tp_shardings
+    from cvpytorch_tpu_torch.parallel.tensor import shards
+
+    full = build_model(trainer.cfg, trainer.dictionary)
+    plan = {k for k, v in tp_shardings(full, trainer.mesh).items() if v}
+    blocks = shards(state.model)
+    shapes = {n: tuple(p.shape) for n, p in state.model.named_parameters()}
+    whole = {n: tuple(p.shape) for n, p in full.named_parameters()}
+    only_blocks = set(blocks) == plan and all(
+        shapes[n] == (blocks[n].shape() if n in plan else whole[n]) for n in whole)
+    return {"sharded_leaves": len(blocks), "leaves": len(whole), "only_blocks": only_blocks,
+            "params_mb_held": sum(p.nbytes for p in state.model.parameters()) / 2**20,
+            "params_mb_one_process": sum(p.nbytes for p in full.parameters()) / 2**20}
+
+
+class _LocalStandIns:
+    """``torch.distributed`` with the model axis's collectives done locally
+    at their shapes (an all-gather repeats this rank's block): the step's
+    time without them."""
+
+    def __getattr__(self, name):
+        import torch.distributed as dist
+
+        return getattr(dist, name)
+
+    @staticmethod
+    def all_gather(pieces, x, group=None):
+        for p in pieces:
+            p.copy_(x)
+
+    @staticmethod
+    def all_reduce(x, group=None):
+        pass
+
+    @staticmethod
+    def broadcast(x, src, group=None):
+        pass
+
+
+def tp_step_split(step, state, raw) -> dict:
+    """The tensor-parallel AMP step, and the same step with the model
+    group's collectives as local stand-ins, timed by CUDA events on both
+    ranks at once (the ranks wait on each other's collectives: the host
+    clock of a step is its wall).  The stand-ins leave the state garbage:
+    this runs last."""
+    from cvpytorch_tpu_torch.parallel import dist as dp
+    from cvpytorch_tpu_torch.parallel import tensor
+
+    dp.barrier()
+    ms = cuda_time_ms(lambda: step(state, raw), iters=2, warmup=0)  # warm from the run
+    real = tensor.dist
+    tensor.dist = _LocalStandIns()
+    try:
+        local = cuda_time_ms(lambda: step(state, raw), iters=2, warmup=1)
+    finally:
+        tensor.dist = real
+    dp.barrier()
+    return {"amp_step_ms": ms, "model_collectives_local_ms": local,
+            "model_collectives_share": 1 - local / ms}
+
+
+def spatial_models(device) -> dict:
+    """JAX's two ``spatial_apply`` test models in torch, on NHWC input,
+    weights from a seed: the 3-conv FCN (receptive radius 3, overlap 4)
+    and the stride-2 down/up chain (a 3×3 stride-2 convolution, ReLU, a
+    4×4 stride-2 transposed convolution, a 3×3 head; overlap 8, interior
+    from row 6)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(0)
+
+    def conv(o, i, k=3):
+        return ((torch.randn(o, i, k, k, generator=g) / (i * k * k) ** 0.5).to(device),
+                (torch.randn(o, generator=g) * 0.1).to(device))
+
+    c0, c1, c2 = conv(8, 3), conv(8, 8), conv(2, 8)
+    down, head = conv(8, 3), conv(2, 4)
+    up = ((torch.randn(8, 4, 4, 4, generator=g) / 32 ** 0.5).to(device),
+          (torch.randn(4, generator=g) * 0.1).to(device))
+
+    def fcn(x):
+        x = x.permute(0, 3, 1, 2)
+        x = F.relu(F.conv2d(x, *c0, padding=1))
+        x = F.relu(F.conv2d(x, *c1, padding=1))
+        return F.conv2d(x, *c2, padding=1).permute(0, 2, 3, 1)
+
+    def down_up(x):
+        x = F.relu(F.conv2d(x.permute(0, 3, 1, 2), *down, stride=2, padding=1))
+        x = F.conv_transpose2d(x, *up, stride=2, padding=1)
+        return F.conv2d(x, *head, padding=1).permute(0, 2, 3, 1)
+
+    return {"fcn": (fcn, 4, 3), "down_up": (down_up, 8, 6)}
+
+
+def spatial_check(mesh, device) -> dict:
+    """``spatial_apply`` of both models over the model axis's two ranks on a
+    Cityscapes frame against this process's unsplit forward, float32 with
+    TF32 off: the largest difference over the interior rows and over the
+    rows either side of each seam, and both times by CUDA events."""
+    import torch
+
+    from cvpytorch_tpu_torch.parallel.spatial import spatial_apply
+
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand(SPATIAL_FRAME, generator=g).to(device)
+    h = SPATIAL_FRAME[1] // mesh.model
+    out = {}
+    with torch.no_grad():
+        for name, (fn, overlap, r) in spatial_models(device).items():
+            run = lambda: spatial_apply(fn, x, mesh, axis="model", overlap=overlap)
+            got, ref = run(), fn(x)
+            seams = [h * s + d for s in range(1, mesh.model) for d in (-1, 0)]
+            out[name] = {
+                "overlap": overlap, "shape": list(got.shape),
+                "interior_max_abs_err": float((got - ref)[:, r:-r].abs().max()),
+                "seam_max_abs_err": float((got - ref)[:, seams].abs().max()),
+                "border_max_abs_err": float((got - ref).abs().max()),
+                "split_ms": cuda_time_ms(run, iters=2, warmup=1),
+                "unsplit_ms": cuda_time_ms(lambda: fn(x), iters=2, warmup=1)}
+    return out
+
+
+def tp_rank_run(setting: str, backend: str, device: str, out_dir: str) -> tuple:
+    """The tensor-parallel run on this rank of the two-rank session:
+    ``Trainer(cfg).run()`` with ``PARALLEL: {MODEL: 2}`` (class and
+    objectness biases at 0) with ``nms_keep``'s count set to 0 just before
+    and read just after; then ``nms_keep`` bit-exact on this rank's first
+    val input, the replicated leaves' digests, what the rank holds and
+    ``dp_f32_step`` laid out on the mesh (rank 0 writes it, weights
+    gathered whole, as ``tp_f32.pt`` under ``out_dir``).  Returns the
+    trainer, its state and the record."""
+    import torch
+
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep, nms_keep_plain
     from cvpytorch_tpu_torch.parallel import dist as dp
 
-    dp.initialize_distributed("nccl", timeout_s=60, device=torch.device("cuda", 0))
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(setting), device=device,
+                                  backend=backend)
+    zero_class_biases(trainer.model)
+    seen, restore = capture_nms_inputs()
     try:
-        x = torch.ones(1, device="cuda")
-        dist.all_reduce(x)
-        torch.cuda.synchronize()
-        print(f"NCCL_PROBE rank {dp.rank()}: accepted, all_reduce gave {float(x)}", flush=True)
-    except Exception as e:  # the expected refusal, reported by the phase
-        print(f"NCCL_PROBE rank {dp.rank()}: {type(e).__name__}: "
-              f"{' '.join(str(e).split())[:400]}", flush=True)
-    os._exit(0)  # a failed communicator's teardown can block
+        run = run_instrumented(trainer, trainer_mod)
+    finally:
+        restore()
+    boxes, thr = seen[0]
+    state = run["state"]
+    out = {"mesh": trainer.mesh.shape, "launches": run["launches"],
+           "val_batches": len(trainer.dataloaders["val"]), "step": state.step,
+           "losses": [float(m["loss"]) for m in run["metrics"]], "val": run["val"],
+           "run_s": run["run_s"],
+           "save_dir": trainer.checkpoints.save_dir if trainer.checkpoints else None,
+           "nms": {"shape": list(boxes.shape), "thr": thr,
+                   "bit_exact": bool(torch.equal(nms_keep(boxes, thr),
+                                                 nms_keep_plain(boxes, thr)))},
+           "replicated": replicated_digests(state), "held": held_report(trainer, state)}
+    f32 = dp_f32_step(trainer, range(TP_BATCH))
+    out["f32_loss"] = f32["loss"]
+    if dp.rank() == 0:
+        torch.save(f32, Path(out_dir) / "tp_f32.pt")
+    del f32
+    torch.cuda.empty_cache()
+    return trainer, state, out
+
+
+def tp_rank_timings(trainer, state) -> dict:
+    """With the card to the two ranks: ``spatial_apply`` on a Cityscapes
+    frame, then the tensor-parallel AMP step and its split."""
+    from cvpytorch_tpu_torch.train_state import make_train_step
+
+    out = {"spatial": spatial_check(trainer.mesh, trainer.device)}
+    step = make_train_step(amp=True, ema_decay=0.9999,
+                           preprocess=trainer._device_aug_preprocess())
+    out["split"] = tp_step_split(step, state, fixed_raw_batch(trainer, range(TP_BATCH)))
+    return out
+
+
+def tensor_parallel_checks(workdir: Path, card: str, tps: list, tp_f32: dict, one: dict,
+                           setting: Path) -> dict:
+    """The gates on the two ranks' tensor-parallel part: every step's loss
+    finite; ``nms_keep`` launched once per val batch on each rank and
+    bit-exact on its input; the replicated leaves bit-identical across
+    the ranks; each rank holding only its blocks; rank 0 alone writing the
+    checkpoint, which serves one batch through ``infer.main`` in this one
+    process; the f32 step (``tp_f32``, its weights gathered whole) against
+    one process's (``one``) on the same batch: the loss within 1e-4, the
+    parameters and BN statistics after it within 1e-4 of the largest leaf,
+    the update within 1e-2, as the data-parallel step is held; and
+    ``spatial_apply``'s interior and seam rows within 1e-5 of the unsplit
+    forward."""
+    from cvpytorch_tpu_torch import infer
+    from cvpytorch_tpu_torch.ops.nms_kernel import nms_keep
+
+    before = nms_keep.launches
+    infer.main(["--setting", str(setting), "--checkpoint",
+                str(Path(tps[0]["save_dir"]) / "last.pt"), "--out", str(workdir / "tp_served")])
+    served = json.loads((workdir / "tp_served" / "predictions.json").read_text())
+    param_rel, param_at = _max_rel(tp_f32["after"], one["after"])
+    moved = lambda r: {k: r["after"][k] - r["before"][k] for k in r["params"]}
+    update_rel, update_at = _max_rel(moved(tp_f32), moved(one))
+    out = {
+        "ranks": len(tps), "mesh": tps[0]["mesh"], "global_batch": TP_BATCH,
+        "losses_by_rank": [t["losses"] for t in tps],
+        "launches_by_rank": [t["launches"] for t in tps],
+        "val_batches_by_rank": [t["val_batches"] for t in tps],
+        "val_mAP_by_rank": [t["val"][-1]["mAP"] for t in tps],
+        "run_s_by_rank": [t["run_s"] for t in tps],
+        "nms_rank_inputs": [t["nms"] for t in tps],
+        "replicated_leaves": len(tps[0]["replicated"]),
+        "replicated_bit_identical": all(t["replicated"] == tps[0]["replicated"] for t in tps),
+        "held_by_rank": [t["held"] for t in tps],
+        "f32_loss_by_rank": [t["f32_loss"] for t in tps], "f32_loss_one_process": one["loss"],
+        "f32_loss_rel": max(abs(t["f32_loss"] - one["loss"]) / abs(one["loss"]) for t in tps),
+        "f32_param_rel": param_rel, "f32_param_rel_at": param_at,
+        "f32_update_rel": update_rel, "f32_update_rel_at": update_at,
+        "spatial_by_rank": [t["spatial"] for t in tps],
+        "split_by_rank": [t["split"] for t in tps],
+        "served_images": len(served), "served_launches": nms_keep.launches - before,
+        "card": card}
+    split, held = out["split_by_rank"], tps[0]["held"]
+    print(f"tensor parallelism, YOLOv5-s 640, global bs{TP_BATCH} over model = {len(tps)} "
+          f"gloo ranks sharing one card ({card}): AMP step "
+          f"{max(t['amp_step_ms'] for t in split):.1f} ms, "
+          f"{max(t['model_collectives_local_ms'] for t in split):.1f} ms with the model "
+          f"group's collectives as local stand-ins (their share "
+          f"{min(t['model_collectives_share'] for t in split):.2f}–"
+          f"{max(t['model_collectives_share'] for t in split):.2f}); a rank holds "
+          f"{held['params_mb_held']:.1f} of {held['params_mb_one_process']:.1f} MB of "
+          f"parameters ({held['sharded_leaves']} of {held['leaves']} leaves as blocks); f32 "
+          f"step vs one process: loss {out['f32_loss_rel']:.2e}, parameters {param_rel:.2e} "
+          f"({param_at}), update {update_rel:.2e} ({update_at}); replicated leaves "
+          f"bit-identical: {out['replicated_bit_identical']}", flush=True)
+    for t in tps:
+        if not (t["step"] == len(t["losses"]) == TP_STEPS and np.isfinite(t["losses"]).all()):
+            raise AssertionError(f"tensor-parallel losses {t['losses']}, step {t['step']}")
+        if t["launches"] != t["val_batches"] or not t["nms"]["bit_exact"]:
+            raise AssertionError(f"tensor-parallel nms_keep: {t['launches']} launches for "
+                                 f"{t['val_batches']} val batches, {t['nms']}")
+        if not t["held"]["only_blocks"]:
+            raise AssertionError(f"a rank holds more than its blocks: {t['held']}")
+        for name, r in t["spatial"].items():
+            if not (r["interior_max_abs_err"] <= 1e-5 and r["seam_max_abs_err"] <= 1e-5):
+                raise AssertionError(f"spatial_apply {name} vs the unsplit forward: {r}")
+    if not out["replicated_bit_identical"]:
+        raise AssertionError("the ranks' replicated leaves differ: " + str(sorted(
+            k for k, v in tps[0]["replicated"].items() if tps[1]["replicated"].get(k) != v)[:10]))
+    if [t["save_dir"] is not None for t in tps] != [True] + [False] * (len(tps) - 1):
+        raise AssertionError("a rank other than 0 wrote the tensor-parallel checkpoint")
+    if not (len(served) == BATCH and out["served_launches"] == 1):
+        raise AssertionError(f"the tensor-parallel checkpoint served {len(served)} images with "
+                             f"{out['served_launches']} nms_keep launches")
+    if not (out["f32_loss_rel"] <= 1e-4 and param_rel <= 1e-4 and update_rel <= 1e-2):
+        raise AssertionError(f"tensor-parallel f32 step vs one process: {out}")
+    return out
 
 
 def torchrun(nproc: int, args: list, log: Path) -> subprocess.Popen:
@@ -1427,31 +1719,33 @@ def _max_rel(a: dict, b: dict) -> tuple[float, str]:
 
 def data_parallel_phase(workdir: Path, card: str) -> dict:
     """Full-width YOLOv5-s 640 trained over two ``torchrun`` ranks on the one
-    card (gloo: NCCL refuses two ranks on one device, which a probe shows)
-    and over one NCCL rank, each through ``Trainer.run()``, beside this
-    process's one-process reference (the probe from when the reference's
-    step is done); then the two-rank step timed
-    alone, and the checks against one process on the same global batch
-    and the same val set."""
+    card (gloo: NCCL refuses two ranks on one device) and over one NCCL
+    rank, each through ``Trainer.run()``, beside this process's
+    one-process reference; the two ranks then train it tensor-parallel;
+    then the two-rank steps timed alone, and the checks against one
+    process on the same global batch and the same val set."""
     workdir.mkdir()
     setting = dp_config(workdir / "two_ranks", "dp_two_ranks", DP_STEPS, DP_VAL_IMAGES)
     nccl_setting = dp_config(workdir / "nccl", "dp_nccl", DP_NCCL_STEPS, DP_NCCL_VAL_IMAGES)
+    tp_setting = dp_config(workdir / "tensor_parallel", "tp", TP_STEPS, TP_VAL_IMAGES,
+                           val_batch=TP_BATCH, batch=TP_BATCH, parallel={"MODEL": DP_RANKS})
     outs = {k: workdir / k for k in ("two_ranks", "nccl")}
-    logs = {k: workdir / f"{k}.log" for k in ("probe", "nccl", "two_ranks")}
+    logs = {k: workdir / f"{k}.log" for k in ("nccl", "two_ranks")}
     go = workdir / "go"
     procs = {"two_ranks": torchrun(DP_RANKS, ["--dp-rank", str(outs["two_ranks"]),
-                                              str(setting), "gloo", "cuda:0", str(go)],
+                                              str(setting), "gloo", "cuda:0", str(go),
+                                              str(tp_setting)],
                                    logs["two_ranks"]),
              "nccl": torchrun(1, ["--dp-rank", str(outs["nccl"]), str(nccl_setting), "nccl",
                                   "cuda", ""], logs["nccl"])}
     try:
-        return _data_parallel_checks(workdir, card, outs, logs, procs, go)
+        return _data_parallel_checks(workdir, card, outs, logs, procs, go, tp_setting)
     finally:  # a failed check leaves no rank running
         for proc in procs.values():
             stop_session(proc)
 
 
-def _data_parallel_checks(workdir, card, outs, logs, procs, go) -> dict:
+def _data_parallel_checks(workdir, card, outs, logs, procs, go, tp_setting) -> dict:
     import torch
 
     from cvpytorch_tpu_torch import trainer as trainer_mod
@@ -1465,20 +1759,14 @@ def _data_parallel_checks(workdir, card, outs, logs, procs, go) -> dict:
                             val_batch=BATCH // DP_RANKS)
     ref = trainer_mod.Trainer(CommonConfiguration.from_file(str(ref_setting)))
     one = dp_f32_step(ref, range(BATCH))
-    # started once the ranks and this reference are under way: five
-    # processes loading torch at once slowed each
-    procs["probe"] = torchrun(DP_RANKS, ["--dp-nccl-probe"], logs["probe"])
+    one_tp = dp_f32_step(ref, range(TP_BATCH))  # the TP run's global batch
     if wait_for("the one-rank NCCL run", procs["nccl"], logs["nccl"], DP_TIMEOUT_S) != 0:
         raise AssertionError(f"the one-rank NCCL run failed:\n{logs['nccl'].read_text()[-4000:]}")
-    probe_code = wait_for("the NCCL probe", procs["probe"], logs["probe"], DP_PROBE_TIMEOUT_S,
-                          fatal=False)
-    probe = [line for line in logs["probe"].read_text().splitlines() if "NCCL_PROBE" in line]
-    print(f"NCCL with {DP_RANKS} ranks on one card (torchrun exit {probe_code}, None: killed "
-          f"after {DP_PROBE_TIMEOUT_S} s): " + " | ".join(probe), flush=True)
     nccl = json.loads((outs["nccl"] / "rank0.json").read_text())
     torch.cuda.synchronize()
     go.write_text("")  # nothing else of the phase runs on the card now
-    if wait_for("the two-rank run", procs["two_ranks"], logs["two_ranks"], DP_TIMEOUT_S) != 0:
+    if wait_for("the two-rank run", procs["two_ranks"], logs["two_ranks"],
+                DP_TIMEOUT_S + TP_TIMEOUT_S) != 0:
         raise AssertionError(f"the two-rank run failed:\n"
                              f"{logs['two_ranks'].read_text()[-4000:]}")
     ranks = [json.loads((outs["two_ranks"] / f"rank{r}.json").read_text())
@@ -1504,6 +1792,9 @@ def _data_parallel_checks(workdir, card, outs, logs, procs, go) -> dict:
         "val_batches_by_rank": [r["val_batches"] for r in ranks],
         "amp_step_ms_by_rank": [r["amp_step_ms"] for r in ranks],
         "amp_step_split_by_rank": [r["amp_step_split"] for r in ranks],
+        "tensor_parallel": tensor_parallel_checks(
+            workdir, card, [r["tp"] for r in ranks],
+            torch.load(outs["two_ranks"] / "tp_f32.pt"), one_tp, tp_setting),
         "run_s_by_rank": [r["run_s"] for r in ranks],
         "val_mAP": merged["mAP"], "val_records": records,
         "val_equal_one_process": (json.dumps(merged, sort_keys=True)
@@ -1514,14 +1805,11 @@ def _data_parallel_checks(workdir, card, outs, logs, procs, go) -> dict:
         "nms_rank_inputs": [r["nms"] for r in ranks],
         "nccl_one_rank": {k: nccl[k] for k in ("backend", "launches", "val_batches", "losses",
                                                "run_s")},
-        "nccl_probe": probe, "nccl_probe_exit": probe_code, "card": card}
+        "card": card}
     print(f"data parallelism, YOLOv5-s 640, global bs{BATCH} over {DP_RANKS} gloo ranks "
           f"sharing one card ({card}): AMP step {max(out['amp_step_ms_by_rank']):.1f} ms a "
           f"{BATCH}-image global batch (BN's all-reduces as identities "
-          f"{max(r['bn_collectives_off_ms'] for r in out['amp_step_split_by_rank']):.1f} ms, "
-          f"each rank's own moments and no collective "
-          f"{max(r['local_ms'] for r in out['amp_step_split_by_rank']):.1f} ms, the gradient "
-          f"sum alone {max(r['grad_sum_ms'] for r in out['amp_step_split_by_rank']):.1f} ms); "
+          f"{max(r['bn_collectives_off_ms'] for r in out['amp_step_split_by_rank']):.1f} ms); "
           f"two ranks on one card measure correctness, not "
           f"scaling (no multi-GPU speed can be measured on one H100). f32 step vs one "
           f"process: loss {loss_rel:.2e}, parameters {param_rel:.2e} ({param_at}), update "
@@ -5352,9 +5640,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     if sys.argv[1:2] == ["--dp-rank"]:  # a rank of data_parallel_phase's torchrun
-        return dp_rank_main(*sys.argv[2:7])
-    if sys.argv[1:2] == ["--dp-nccl-probe"]:
-        return dp_nccl_probe()
+        return dp_rank_main(*sys.argv[2:8])
     from cvpytorch_tpu_torch.ops import nms_kernel  # raises outside the repo
     from cvpytorch_tpu_torch.train_state import make_train_step
 
@@ -5632,6 +5918,9 @@ def main() -> int:
                **{f"data_parallel_rank{r}_train_and_val": n
                   for r, n in enumerate(dp["launches_by_rank"])},
                "data_parallel_nccl_one_rank_train_and_val": dp["nccl_one_rank"]["launches"],
+               **{f"tensor_parallel_rank{r}_train_and_val": n
+                  for r, n in enumerate(dp["tensor_parallel"]["launches_by_rank"])},
+               "tensor_parallel_served": dp["tensor_parallel"]["served_launches"],
                "yolov5_exported_served": s16["exported"]["launches"]}
     print(json.dumps({"kernels": [{
         "name": "nms_keep",
@@ -5668,6 +5957,8 @@ def main() -> int:
         "yolov5_exported_path_input": exported_nms,
         "data_parallel_rank_inputs": [{**r, "bound_ms": nms_bound_ms(*r["shape"][:2])[0]}
                                       for r in dp["nms_rank_inputs"]],
+        "tensor_parallel_rank_inputs": [{**r, "bound_ms": nms_bound_ms(*r["shape"][:2])[0]}
+                                        for r in dp["tensor_parallel"]["nms_rank_inputs"]],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

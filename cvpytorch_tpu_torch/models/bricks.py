@@ -90,11 +90,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     (``bf16_batch_moments``); the normalisation and the running statistics
     stay float32, from those moments.
 
-    In a live group of more than one rank (``parallel.dist``) train mode
-    takes the moments of the global batch (``_global_forward``): the mean
-    from the all-reduced sums and count, then the all-reduced Σ(x − mean)²
-    (not E[x²] − mean², which cancels in float32), both carrying autograd
-    and in float32 at least (float64 inputs stay float64);
+    With more than one rank on the data axis (``parallel.dist``) train
+    mode takes the moments of the global batch over the data group
+    (``_global_forward``; the ranks of one model group hold the same
+    rows): the mean from the all-reduced sums and count, then the
+    all-reduced Σ(x − mean)² (not E[x²] − mean², which cancels in
+    float32), both carrying autograd and in float32 at least (float64
+    inputs stay float64);
     ``running_var`` gets Bessel's factor n / max(n − 1, 1) of the global
     n, and a global count of one is the one-value case above.
     ``bf16_stats`` is refused there (ROADMAP, Queue 1 item 11c)."""

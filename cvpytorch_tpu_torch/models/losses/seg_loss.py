@@ -9,9 +9,10 @@ shapes do not depend on the data.
 
 Under data parallelism (``parallel.dist``) each rank's loss is its share
 of the global batch's: the weighted means divide by the weight summed over
-the ranks, and the Dice sums are all-reduced (with autograd) and the Dice
-loss split evenly over the ranks, so the ranks' losses sum to the global
-loss.  OHEM and Lovász-softmax rank the pixels of the whole batch and are
+the ranks of the data group, and the Dice sums are all-reduced (with
+autograd) and the Dice loss split evenly over them, so their losses sum to
+the global loss (the ranks of one model group hold the same rows and count
+them once).  OHEM and Lovász-softmax rank the pixels of the whole batch and are
 refused there (ROADMAP, Queue 1 item 11c).
 """
 from __future__ import annotations
@@ -103,7 +104,7 @@ def dice_loss(logits, labels, smooth: float = 1.0, ignore_index: int = 255):
     inter, denom = sums[0], sums[1]
     dice = (2 * inter + smooth) / (denom + smooth)
     loss = 1.0 - dice.mean()
-    return loss / dp.world_size() if dp.reductions_active() else loss
+    return loss / dp.data_size() if dp.reductions_active() else loss
 
 
 @LOSSES.register(name="FocalLoss2d")

@@ -15,9 +15,9 @@ objectness target is a scatter-max of the detached, clipped CIoU
 Level balance (4, 1, 0.4); the total is scaled by the batch size.
 
 Under data parallelism (``parallel.dist``) the normalisers are the global
-batch's: n_pos is summed over the ranks, the objectness mean divides by
-the global B·S·A and the total is scaled by the global B, so the ranks'
-losses (and each term) sum to the loss of the global batch.
+batch's: n_pos is summed over the data group, the objectness mean divides
+by the global B·S·A and the total is scaled by the global B, so the data
+ranks' losses (and each term) sum to the loss of the global batch.
 
 Runs in float32 on whatever raw maps it is given; the caller casts them.
 """

@@ -23,7 +23,9 @@ chain on the parameters' ``.grad``:
   ``lr_schedule(count) * scale``, where ``count`` is the number of updates
   applied before it (0 first), as optax counts;
 * ``GRAD_CLIP`` norm scales by ``max/‖g‖`` when ``‖g‖ ≥ max``, with no
-  epsilon (``optax.clip_by_global_norm``); value clips elementwise;
+  epsilon (``optax.clip_by_global_norm``); value clips elementwise.  Under
+  tensor parallelism ‖g‖ is the whole model's: the leaves held as blocks
+  add their Σg² summed over the model group (``parallel.tensor.sq_norm``);
 * ``ACCUMULATE_STEPS`` k averages k gradients with optax's running mean
   and applies once; only applied updates advance ``count``.
 
@@ -48,6 +50,7 @@ import math
 
 import torch
 
+from ..parallel.tensor import sq_norm
 from ..registry import OPTIMIZERS
 
 
@@ -112,7 +115,7 @@ class _Chain:
         if self.clip is not None:
             kind, limit = self.clip
             if kind == "norm":
-                norm = torch.sqrt(sum((g * g).sum() for g in grads))
+                norm = torch.sqrt(sq_norm(grads, params))
                 factor = torch.where(norm < limit, 1.0, limit / norm)
                 torch._foreach_mul_(grads, factor)
             else:

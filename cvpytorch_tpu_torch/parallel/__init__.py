@@ -1,5 +1,9 @@
-"""Data parallelism over ``torchrun`` ranks (counterpart of
-``cvpytorch_tpu/parallel``): ``parallel.dist``."""
+"""Parallelism over ``torchrun`` ranks (counterpart of
+``cvpytorch_tpu/parallel``): ``parallel.dist`` (process groups, the data
+axis's reductions), ``parallel.mesh`` (the ``(data, model, spatial)``
+mesh and the tensor-parallel layout), ``parallel.tensor`` (the
+column-parallel layers and the model axis's collectives) and
+``parallel.spatial`` (overlap-tile evaluation)."""
 from .dist import (  # noqa: F401
     all_reduce_sum_,
     all_reduce_with_grad,

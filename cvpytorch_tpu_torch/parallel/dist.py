@@ -22,8 +22,17 @@ sum to its gradient.  Inside ``local_reductions()`` (the eval step) and
 without a live group of more than one rank the helpers are identities.
 
 ``BATCH_SIZE`` is the global batch; ``process_batch_slice`` gives a
-rank's rows of it.  The mesh's ``model`` and ``spatial`` axes are not
-ported here (ROADMAP, Queue 1 item 11b).
+rank's rows of it.
+
+The reductions above run over the **data group**: the ranks that hold
+other rows of the global batch.  Without a mesh that is every rank (the
+data-parallel layout); ``parallel.mesh.create_mesh`` sets the current
+mesh (``set_mesh``), and a train step makes its state's mesh current
+while it runs (``using_mesh``); the data group is then the mesh's ``data``
+axis, so that the ranks of one model group, which hold the same rows,
+count them once.
+``broadcast_module_``, ``allgather_pickled``, ``barrier`` and the rank-0
+writes stay on the world.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ DEFAULT_TIMEOUT_S = 600.0
 BUCKET_BYTES = 32 << 20  # gradient all-reduce bucket
 
 _local = threading.local()
+_mesh = None  # the current parallel.mesh.Mesh, None: the data group is the world
 
 
 def group_live() -> bool:
@@ -77,8 +87,38 @@ def initialize_distributed(backend: str, timeout_s: float = DEFAULT_TIMEOUT_S,
 
 
 def destroy() -> None:
+    set_mesh(None)
     if group_live():
         dist.destroy_process_group()
+
+
+def set_mesh(mesh) -> None:
+    """Makes ``mesh`` (a ``parallel.mesh.Mesh``, or None) the current one:
+    its ``data`` axis is the group the reductions run over."""
+    global _mesh
+    _mesh = mesh
+
+
+@contextlib.contextmanager
+def using_mesh(mesh):
+    """``mesh`` current inside (None: the current one kept)."""
+    before = _mesh
+    if mesh is not None:
+        set_mesh(mesh)
+    try:
+        yield
+    finally:
+        set_mesh(before)
+
+
+def data_size() -> int:
+    """Ranks holding other rows of the global batch."""
+    return _mesh.data if _mesh is not None else world_size()
+
+
+def data_group():
+    """The process group of the data axis (None: the world)."""
+    return _mesh.group("data") if _mesh is not None else None
 
 
 def is_main_process() -> bool:
@@ -115,9 +155,9 @@ def allgather_pickled(obj) -> list:
 
 
 def reductions_active() -> bool:
-    """True in a live group of more than one rank, outside
+    """True with more than one rank on the data axis, outside
     ``local_reductions()``."""
-    return not getattr(_local, "off", False) and world_size() > 1
+    return not getattr(_local, "off", False) and data_size() > 1
 
 
 @contextlib.contextmanager
@@ -133,40 +173,41 @@ def local_reductions():
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (detached) summed over the ranks."""
+    """``x`` (detached) summed over the data group."""
     x = x.detach()
     if not reductions_active():
         return x
     x = x.clone()
-    dist.all_reduce(x)
+    dist.all_reduce(x, group=data_group())
     return x
 
 
 def global_batch(local: int) -> int:
-    """The global batch of a rank's ``local`` rows (the ranks hold equal
-    shares of a global batch)."""
-    return local * world_size() if reductions_active() else local
+    """The global batch of a rank's ``local`` rows (the data ranks hold
+    equal shares of a global batch)."""
+    return local * data_size() if reductions_active() else local
 
 
-class _SumOverRanks(torch.autograd.Function):
+class _SumOverGroup(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         x = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(x)
+        dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, grad):
-        return _SumOverRanks.apply(grad)
+        return _SumOverGroup.apply(grad, ctx.group), None
 
 
 def all_reduce_with_grad(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the ranks whose backward sums the ranks' gradients: the
-    gradient of the ranks' summed losses with respect to this rank's
+    """Sum over the data group whose backward sums the ranks' gradients:
+    the gradient of the ranks' summed losses with respect to this rank's
     ``x``."""
     if not reductions_active():
         return x
-    return _SumOverRanks.apply(x)
+    return _SumOverGroup.apply(x, data_group())
 
 
 def _bucketed(tensors: list[torch.Tensor], collective) -> None:
@@ -195,9 +236,11 @@ def _bucketed(tensors: list[torch.Tensor], collective) -> None:
 
 @torch.no_grad()
 def all_reduce_sum_(tensors: list[torch.Tensor]) -> None:
-    """Sums each tensor over the ranks in place, a bucket an all-reduce."""
-    if world_size() > 1 and tensors:
-        _bucketed(tensors, dist.all_reduce)
+    """Sums each tensor over the data group in place, a bucket an
+    all-reduce."""
+    if data_size() > 1 and tensors:
+        group = data_group()
+        _bucketed(tensors, lambda flat: dist.all_reduce(flat, group=group))
 
 
 @torch.no_grad()

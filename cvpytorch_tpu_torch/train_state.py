@@ -36,6 +36,20 @@ every rank; optimizer, EMA and schedule run the same on every rank.  The
 sum is explicit rather than DDP's average, which would need the loss
 scaled by the world size, prefix the checkpoint's keys with ``module.``
 and hook the backward.  The eval step runs under ``local_reductions()``.
+
+Tensor parallelism (a mesh with a ``model`` axis above 1,
+``parallel.mesh.shard_train_state``, which sets ``state.mesh``; the step
+runs with that mesh current): the gradients are summed over the
+data group only (the model ranks hold the same rows), the optimizer and
+EMA step each rank's blocks, and after the sum the replicated leaves'
+gradients and the BN running statistics are broadcast from the model
+group's first rank (``parallel.tensor.broadcast_from_model_root_``, one
+bucket of bytes).  Every model rank computes the replicated layers on the
+same inputs, but two processes on the card may pick different cuDNN
+algorithms for one layer, or reduce a weight gradient in another order,
+and the copies would drift apart where JAX holds one value: the broadcast
+keeps them identical, at the cost of one collective of the replicated
+leaves' size a step.
 """
 from __future__ import annotations
 
@@ -48,6 +62,7 @@ import torch
 from torch import nn
 
 from .parallel import dist as dp
+from .parallel import tensor
 
 
 @dataclass
@@ -56,6 +71,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     ema: nn.Module | None = None
     step: int = 0
+    mesh: object = None  # the parallel.mesh.Mesh it is laid out on (shard_train_state)
 
 
 def create_train_state(model: nn.Module, optimizer, use_ema: bool = False) -> TrainState:
@@ -91,6 +107,12 @@ def ema_update(ema: nn.Module, model: nn.Module, d: float) -> None:
     ema_blend(blend_e, blend_p, d)
 
 
+def bn_statistics(model: nn.Module) -> list[torch.Tensor]:
+    """The BN layers' running means and variances."""
+    return [b for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)
+            for b in (m.running_mean, m.running_var) if b is not None]
+
+
 def prepare_images(images: torch.Tensor) -> torch.Tensor:
     """uint8 batches become [0, 1] float32 on the device; float batches
     pass through as float32."""
@@ -114,6 +136,10 @@ def make_train_step(amp: bool = False, ema_decay: float = 0.0, preprocess=None):
     _float32_everywhere()
 
     def train_step(state: TrainState, batch):
+        with dp.using_mesh(state.mesh):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch):
         if preprocess is not None:
             batch = preprocess(batch)
         model = state.model.train()
@@ -123,13 +149,18 @@ def make_train_step(amp: bool = False, ema_decay: float = 0.0, preprocess=None):
                                      mode="train")
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
-        split = dp.reductions_active()
-        if split:
+        split, tp = dp.reductions_active(), state.mesh is not None and state.mesh.model > 1
+        if split or tp:
             params = [p for g in state.optimizer.param_groups for p in g["params"]]
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        if split:
             dp.all_reduce_sum_([p.grad for p in params])
+        if tp:  # the replicated leaves as the model group's first rank has them
+            tensor.broadcast_from_model_root_(
+                [p.grad for p in params if not tensor.is_sharded(p)] + bn_statistics(model),
+                state.mesh)
         state.optimizer.step()
         if state.ema is not None and ema_decay > 0:
             ema_update(state.ema, model, ema_decay_schedule(ema_decay, state.step + 1))

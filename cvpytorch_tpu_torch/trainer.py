@@ -41,10 +41,26 @@ best-checkpoint and early-stop decisions.  Only rank 0 logs at INFO and
 writes checkpoints, summaries and the profiler trace.  A model whose loss
 still takes per-rank normalisers (a class without its own
 ``dp_global_loss = True``), ``AMP_BN_BF16_STATS`` and a BN other than the
-bricks' raise under more than one rank (ROADMAP, Queue 1 item 11c), and so
-does ``PARALLEL`` with ``MODEL`` or ``SPATIAL`` above 1 (item 11b).  The
-host transforms draw from each rank's own ``random``/``np.random``, as a
-JAX multi-host run's do.
+bricks' raise with more than one rank on the data axis (ROADMAP, Queue 1
+item 11c).  The host transforms draw from each rank's own
+``random``/``np.random``, as a JAX multi-host run's do.
+
+Tensor parallelism: ``PARALLEL: {MODEL: n}`` lays the W ranks out as JAX's
+``(data, model, spatial)`` mesh (``parallel.mesh.create_mesh``: rank =
+d·n + m, data = W / n) and the train state as ``tp_shardings`` lays it out
+(``shard_train_state``, after the weights are loaded in full and
+broadcast): each rank holds its block of every leaf the rule shards, of
+the model, the EMA and the optimizer's moments.  The ranks of one model
+group load the same rows (``BATCH_SIZE`` divides by the data size), take
+their first rank's train batch, compute those rows' whole loss and reduce
+over the data group only; so data = 1 trains every model family, and the
+refusals above apply when data > 1.  Val: every rank of a model group runs
+the forward, and only its first rank's records and losses are merged.
+Rank 0's model group gathers each checkpoint in full (rank 0 writes it),
+so it restores in one process, and a one-process checkpoint resumes under
+tensor parallelism.  The log's parameter count is the full model's.
+``SPATIAL`` above 1 raises (item 11b-2).  Every rank seeds alike, so a
+model group's device random streams (dropout, DropPath) draw alike.
 """
 from __future__ import annotations
 
@@ -65,6 +81,8 @@ from .ops.augment import fused_det_augment, step_generator
 from .optim.optimizers import build_optimizer
 from .optim.schedules import build_lr_scheduler
 from .parallel import dist as dp
+from .parallel.mesh import create_mesh, shard_train_state
+from .parallel.tensor import broadcast_from_model_root_
 from .registry import DATASETS
 from .train_state import create_train_state, make_eval_step, make_train_step
 from .utils.checkpoints import Checkpoints, EarlyStopping
@@ -79,38 +97,61 @@ from .data import datasets as _datasets  # noqa: F401  (registers)
 AUG_SEED_OFFSET = 7919
 
 
-def check_parallel(par) -> None:
-    """``PARALLEL``: the data axis is the ranks (``torchrun``); ``MODEL``
-    and ``SPATIAL`` of 1 are accepted, anything else raises."""
+def tensors(tree):
+    """The tensors of a nested batch."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensors(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def check_parallel(par) -> tuple[int, int]:
+    """``PARALLEL: {MODEL: n, SPATIAL: m}`` → (n, m): the data axis is the
+    rest of the ranks (``torchrun``).  ``SPATIAL`` above 1 and any other
+    key raise."""
     if not par:
-        return
+        return 1, 1
     items = dict(par.items()) if hasattr(par, "items") else {"": par}
-    unported = {k: v for k, v in items.items()
-                if k not in ("MODEL", "SPATIAL") or int(v or 1) != 1}
-    if unported:
+    unknown = {k: v for k, v in items.items() if k not in ("MODEL", "SPATIAL")}
+    if unknown:
         raise NotImplementedError(
-            f"PARALLEL {unported} is not ported yet: the port trains data-parallel over "
-            "torchrun ranks only; tensor and spatial parallelism are ROADMAP, Queue 1 "
-            "item 11b")
+            f"PARALLEL {unknown} is not ported: the port reads MODEL (tensor parallelism) and "
+            "SPATIAL (ROADMAP, Queue 1 item 11b-2)")
+    spatial = int(items.get("SPATIAL") or 1)
+    if spatial != 1:
+        raise NotImplementedError(
+            f"PARALLEL SPATIAL {spatial} is not ported yet: train-time spatial parallelism "
+            "(halo-partitioned convolutions, BN moments over data × spatial) is ROADMAP, "
+            "Queue 1 item 11b-2")
+    return int(items.get("MODEL") or 1), spatial
 
 
 class Trainer:
     def __init__(self, cfg: CommonConfiguration, device: str = "cuda",
                  backend: str | None = None):
         self.cfg = cfg
-        check_parallel(cfg.PARALLEL)
+        model_ranks, spatial_ranks = check_parallel(cfg.PARALLEL)
         self.device = resolve_device(device)
         dp.initialize_distributed(
             backend or ("nccl" if self.device.type == "cuda" else "gloo"), device=self.device)
         self.rank, self.world = dp.rank(), dp.world_size()
         self.rank0 = self.rank == 0
+        self.mesh = create_mesh(model=model_ranks, spatial=spatial_ranks)
+        # the rows this rank holds: its place on the data axis
+        self.data_index, self.data_size = self.mesh.index("data"), self.mesh.data
+        # the ranks of rank 0's model group gather the checkpoint; the
+        # model group's first rank gives the val records
+        self.saves = self.data_index == 0 and self.mesh.index("spatial") == 0
+        self.scores = self.mesh.index("model") == 0 and self.mesh.index("spatial") == 0
         self.logger = setup_logger(rank=self.rank)
         self.seed = int(cfg.SEED or DEFAULT_SEED)
         setup_seed(self.seed)
         self.start_epoch = -1
         self.n_epochs = int(cfg.N_MAX_EPOCHS or 1)
         self._profiler = None
-        self.logger.info("device: %s, rank %d of %d", self.device, self.rank, self.world)
+        self.logger.info("device: %s, rank %d of %d, mesh %s", self.device, self.rank,
+                         self.world, self.mesh.shape)
         self._device_aug_size = None
         self._parser_dict()
         self._parser_datasets()
@@ -161,11 +202,11 @@ class Trainer:
                 shuffle=bool(stage_cfg.get("SHUFFLE", stage == "train")),
                 num_workers=int(stage_cfg.get("NUM_WORKER", 4) or 4),
                 drop_last=(stage == "train"), seed=self.seed,
-                rank=self.rank, world_size=self.world)
+                rank=self.data_index, world_size=self.data_size)
         self.batch_size = int(self.cfg.DATASET.TRAIN.get("BATCH_SIZE", 1))  # global
         # this rank's rows of the global train batch (the device augmentation's draws)
-        self._rows = (dp.process_batch_slice(self.batch_size, self.rank, self.world)
-                      if self.world > 1 else None)
+        self._rows = (dp.process_batch_slice(self.batch_size, self.data_index, self.data_size)
+                      if self.data_size > 1 else None)
         self.iters_per_epoch = max(len(self.dataloaders["train"]), 1)
         self.evaluator = (build_evaluator(self.cfg, self.datasets.get("val"))
                           if self.cfg.EVALUATOR and "val" in self.datasets
@@ -179,11 +220,12 @@ class Trainer:
                                  self.datasets.get("train") or self.datasets.get("val"))
         # this model's own setting: a later Trainer's model starts from off
         set_bn_bf16_stats(self.model, bool(self.cfg.AMP_BN_BF16_STATS))
-        if self.world > 1:
+        if self.data_size > 1:
             self._check_data_parallel()
 
     def _check_data_parallel(self):
-        """Refuses what would train on per-rank statistics under W > 1."""
+        """Refuses what would train on per-rank statistics with more than
+        one rank on the data axis."""
         model = self.model
         item = "(ROADMAP, Queue 1 item 11c)"
         if not vars(type(model)).get("dp_global_loss", False):
@@ -211,9 +253,9 @@ class Trainer:
         model = self.model.to(self.device, memory_format=torch.channels_last)
         optimizer = build_optimizer(cfg, model, self.lr_schedule)
         state = create_train_state(model, optimizer, use_ema=bool(cfg.EMA))
-        n_params = sum(p.numel() for p in model.parameters())
+        n_params = sum(p.numel() for p in model.parameters())  # in full
         self.logger.info("model %s: %.2fM params", cfg.USE_MODEL.CLASS, n_params / 1e6)
-        if cfg.PRETRAIN_MODEL:
+        if cfg.PRETRAIN_MODEL:  # in full, then sharded
             if cfg.RESUME:
                 state = Checkpoints.restore_into(state, cfg.PRETRAIN_MODEL)
                 self.start_epoch = state.step // self.iters_per_epoch - 1
@@ -225,7 +267,7 @@ class Trainer:
         for module in (state.model, state.ema):  # every rank starts from rank 0's
             if module is not None:
                 dp.broadcast_module_(module)
-        return state
+        return shard_train_state(state, self.mesh)
 
     # ------------------------------------------------------------------
     def run(self):
@@ -243,7 +285,7 @@ class Trainer:
         eval_step = make_eval_step(use_ema=bool(cfg.EMA))
 
         ckpts = writer = None
-        if self.rank0:  # the other ranks write nothing
+        if self.rank0:  # the other ranks write nothing (rank 0's model group gathers)
             ckpts = Checkpoints(
                 cfg.CHECKPOINT_DIR or "checkpoints", cfg.EXPERIMENT_NAME or "exp",
                 str(cfg.USE_MODEL.CLASS).split(".")[-1],
@@ -265,13 +307,11 @@ class Trainer:
                 perf, _ = self.val_epoch(epoch, state, eval_step, writer)
                 is_best = perf > best_perf
                 best_perf = max(best_perf, perf)
-                if ckpts:
-                    ckpts.autosave_checkpoint(state, epoch, is_best,
-                                              extra={"best": best_perf})
+                self._autosave(ckpts, state, epoch, is_best, {"best": best_perf})
                 if stopper(epoch, perf):
                     break
-            elif ckpts and (epoch + 1) % save_intervals == 0:
-                ckpts.autosave_checkpoint(state, epoch, is_best=False)
+            elif (epoch + 1) % save_intervals == 0:
+                self._autosave(ckpts, state, epoch, False, {})
         if writer:
             writer.close()
         if ckpts:
@@ -280,6 +320,13 @@ class Trainer:
         self.checkpoints = ckpts
         self.state = state
         return state
+
+    def _autosave(self, ckpts, state, epoch, is_best, extra):
+        """Rank 0 writes the checkpoint the ranks of its model group gather."""
+        if self.saves:
+            payload = Checkpoints.payload(state, dict(extra, epoch=epoch))
+            if ckpts:
+                ckpts.autosave_payload(payload, is_best)
 
     def _device_aug_preprocess(self):
         """``batch -> batch`` for ``make_train_step``: raw tiles → the
@@ -362,6 +409,8 @@ class Trainer:
                 yield {**batch, "target": {**batch["target"], **extra}}
 
         for it, batch in enumerate(DevicePrefetcher(prepared(), self.device)):
+            if self.mesh.model > 1:  # the host draws are each process's own
+                broadcast_from_model_root_(list(tensors(batch)), self.mesh)
             gstep = epoch * len(loader) + it
             self._profiler_hook(gstep)
             if self._profiler is not None:
@@ -417,10 +466,13 @@ class Trainer:
             # the images' places in the single-process order, for the merge
             kw = {"indices": positions} if dp.group_live() else {}
             self.evaluator.update(targets_host, self._host_predictions(preds), **kw)
-        if dp.group_live():
-            self.evaluator.merge_state_dicts(dp.allgather_pickled(self.evaluator.state_dict()))
+        if dp.group_live():  # the records of each data index's first model rank
+            states = dp.allgather_pickled(self.evaluator.state_dict() if self.scores else None)
+            self.evaluator.merge_state_dicts([s for s in states if s is not None])
             sums = dp.allgather_pickled({k: (m.total, m.count)
-                                         for k, m in loss_logger.meters.items()})
+                                         for k, m in loss_logger.meters.items()}
+                                        if self.scores else None)
+            sums = [s for s in sums if s is not None]
             loss_logger = LossLogger()
             for k in sorted({k for s in sums for k in s}):  # a rank may have had no batch
                 total, count = (sum(s[k][i] for s in sums if k in s) for i in (0, 1))

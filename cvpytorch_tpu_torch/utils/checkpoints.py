@@ -6,7 +6,10 @@ A run directory ``CHECKPOINT_DIR/<EXPERIMENT>#<Model>#<timestamp>`` holds
 checkpoint is one ``torch.save``d dict: ``step``, ``model``, ``optimizer``
 (with the chain's counters), ``ema`` when EMA is on, and ``extra`` (epoch,
 best performance).  Resume is exact: restoring a checkpoint and taking a
-step gives what the uninterrupted run gives.
+step gives what the uninterrupted run gives.  A state laid out for tensor
+parallelism is saved gathered, as one process holds it, so a checkpoint
+restores into either layout; ``restore_into`` and ``load_weights_into``
+take a state in full, which the trainer shards after.
 
 ``async_save=True`` copies the tensors on their device and writes them
 on a daemon thread, so the save overlaps the next epoch; one save is in
@@ -21,6 +24,7 @@ import time
 
 import torch
 
+from ..parallel.mesh import full_train_state
 from ..train_state import TrainState
 
 logger = logging.getLogger("cvpytorch_tpu_torch")
@@ -80,11 +84,11 @@ class Checkpoints:
         self._pending.start()
 
     @staticmethod
-    def _payload(state: TrainState, extra: dict | None) -> dict:
-        payload = {"step": state.step, "model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict()}
-        if state.ema is not None:
-            payload["ema"] = state.ema.state_dict()
+    def payload(state: TrainState, extra: dict | None = None) -> dict:
+        """The checkpoint of ``state``.  Laid out for tensor parallelism, it
+        is the gathered one-process state (``parallel.mesh.full_train_state``),
+        so every rank of the model group calls this."""
+        payload = {"step": state.step, **full_train_state(state)}
         if extra:
             payload["extra"] = dict(extra)
         return payload
@@ -108,13 +112,16 @@ class Checkpoints:
 
     def save_checkpoint(self, state: TrainState, name: str = "last",
                         extra: dict | None = None):
-        self._save({name: self._payload(state, extra)})
+        self._save({name: self.payload(state, extra)})
 
     def autosave_checkpoint(self, state: TrainState, epoch: int, is_best: bool,
                             extra: dict | None = None):
         """``last`` every call; ``best`` and the weights-only ``deploy`` on
         improvement."""
-        payload = self._payload(state, dict(extra or {}, epoch=epoch))
+        self.autosave_payload(self.payload(state, dict(extra or {}, epoch=epoch)), is_best)
+
+    def autosave_payload(self, payload: dict, is_best: bool):
+        """``autosave_checkpoint`` of a ``payload`` already taken."""
         payloads = {"last": payload}
         if is_best:
             payloads["best"] = payload

@@ -44,6 +44,10 @@ mapped back with ``s2d_to_stem6_kernel``.  Strict: any tree key without a
 port tensor, any port tensor without a tree key, or any shape mismatch
 raises ``KeyError``.
 
+``flax_layout`` reads the same rules backwards: where a port tensor's Flax
+leaf keeps its trailing dim, which tensor parallelism shards
+(``parallel.mesh``).
+
 CvPytorch's own ``.pth`` state dicts come in through the second half of
 this module, a copy of the JAX package's porter: ``port_state_dict`` maps
 torch names to the Flax tree by a family's rule table (``RESNET_WRAPPER_RULES``,
@@ -60,6 +64,7 @@ import torch
 from torch import nn
 
 from ..models.bricks import MultiHeadDense
+from ..parallel.tensor import shards
 
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -124,6 +129,50 @@ def _convert(name: str, arr: np.ndarray, target: torch.Tensor,
     return arr
 
 
+def _flax_shape(name: str, target: torch.Tensor, owner: nn.Module | None) -> tuple:
+    """The shape of the Flax leaf that ``_convert`` carries onto ``target``
+    (the 6×6 stem as its own HWIO kernel)."""
+    shape = tuple(target.shape)
+    if isinstance(owner, MultiHeadDense):
+        return owner.flax_shape("kernel" if target.ndim == 2 else "bias")
+    if isinstance(owner, nn.Linear) and target.ndim == 2:
+        return shape[::-1]
+    if isinstance(owner, nn.Conv1d) and target.ndim == 3:
+        return shape[::-1]
+    if isinstance(owner, nn.ConvTranspose2d) and target.ndim == 4:
+        return shape[2:] + shape[:2]
+    if target.ndim == 4 and name.endswith(".weight"):
+        return shape[2:] + (shape[1], shape[0])
+    return shape
+
+
+def flax_layout(name: str, target: torch.Tensor, owner: nn.Module | None = None
+                ) -> tuple[tuple, tuple | None]:
+    """``(flax_shape, (dim, outer))`` of the port tensor ``target``: the
+    shape of its Flax leaf, and where that leaf's trailing dim lies in the
+    port layout, as ``_convert`` itself lays it out (an index probe is
+    carried across): ``dim`` of ``target`` read as (``outer``, trailing)
+    blocks, ``outer`` 1 unless a ``DenseGeneral`` kernel folds the heads
+    into that dim.  The second item is None where the trailing dim does
+    not land on one port dim so."""
+    fshape = _flax_shape(name, target, owner)
+    if not fshape:
+        return fshape, None
+    t = fshape[-1]
+    probe = _convert(name, np.broadcast_to(np.arange(t, dtype=np.int32), fshape),
+                     target, owner)
+    varying = [d for d in range(probe.ndim)
+               if probe.shape[d] > 1 and (probe != probe.take([0], axis=d)).any()]
+    if t == 1 or len(varying) != 1:
+        return fshape, None
+    d = varying[0]
+    line = np.moveaxis(probe, d, 0).reshape(probe.shape[d], -1)[:, 0]
+    outer = len(line) // t
+    if not np.array_equal(line, np.tile(np.arange(t), outer)):
+        return fshape, None
+    return fshape, (d, outer)
+
+
 def port_name(coll: str, path: tuple, parameters) -> str | None:
     """The port's name of the tree leaf ``coll``/``path``: by the leaf
     tables, else (``params`` only) the path itself where ``parameters``
@@ -136,11 +185,14 @@ def port_name(coll: str, path: tuple, parameters) -> str | None:
 
 
 def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
-    """Copy a Flax ``{'params', 'batch_stats'}`` tree into ``model`` in place."""
+    """Copy a Flax ``{'params', 'batch_stats'}`` tree into ``model`` in place;
+    into a model laid out for tensor parallelism, each leaf is carried in
+    full and this rank's block of it kept."""
     state = {k: v for k, v in model.state_dict().items()
              if not k.endswith("num_batches_tracked")}
     parameters = dict(model.named_parameters())
     owners = dict(model.named_modules())
+    blocks = shards(model)  # laid out for tensor parallelism: each rank's block
     unmatched, seen = [], set()
     for coll in ("params", "batch_stats"):
         for path, arr in _flatten(variables.get(coll, {})):
@@ -148,11 +200,13 @@ def load_jax_variables(model: nn.Module, variables: Mapping) -> nn.Module:
             if name not in state:
                 unmatched.append("/".join((coll,) + path))
                 continue
-            target = state[name]
-            arr = _convert(name, arr, target, owners.get(".".join(path[:-1])))
+            target, s = state[name], blocks.get(name)
+            full = target if s is None else torch.empty(s.full_shape, device="meta")
+            arr = _convert(name, arr, full, owners.get(".".join(path[:-1])))
+            # a 0-d leaf (a scalar param) stays 0-d: ascontiguousarray makes it 1-d
+            value = torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape)
             with torch.no_grad():
-                # a 0-d leaf (a scalar param) stays 0-d: ascontiguousarray makes it 1-d
-                target.copy_(torch.from_numpy(np.ascontiguousarray(arr)).reshape(arr.shape))
+                target.copy_(value if s is None else s.take(value))
             seen.add(name)
     missing = sorted(set(state) - seen)
     if unmatched or missing:

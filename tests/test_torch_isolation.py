@@ -60,7 +60,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "'models.necks.nas_fpn', 'models.necks.rfp', 'models.anchors', "
         "'models.anchors.prior_box', 'models.backbones.vgg', 'ops.paf', 'models.keypoint', "
         "'data.transforms.keypoint_transforms', 'evaluator.keypoint', 'parallel', "
-        "'parallel.dist'):\n"
+        "'parallel.dist', 'parallel.mesh', 'parallel.tensor', 'parallel.spatial'):\n"
         "    assert 'cvpytorch_tpu_torch.' + n in names, n\n"
         "print(len(names))\n"
     )

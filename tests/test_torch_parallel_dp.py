@@ -499,7 +499,7 @@ def test_trainer_run_two_ranks_equals_one(ranks, tmp_path):
 
 
 def test_refusals_under_two_ranks(ranks, tmp_path):
-    """Under W = 2: ``PARALLEL`` with ``MODEL: 2``, a model whose loss is not
+    """Under W = 2: ``PARALLEL`` with ``SPATIAL: 2``, a model whose loss is not
     global yet (ObjectBox, a YOLOv5 subclass with its own loss),
     ``AMP_BN_BF16_STATS``, a BN in ``bf16_stats``, OHEM and Lovász each
     raise ``NotImplementedError`` naming their ROADMAP item."""
@@ -507,7 +507,7 @@ def test_refusals_under_two_ranks(ranks, tmp_path):
     for sub in "pob":
         (tmp_path / sub).mkdir()
     cases = {
-        "parallel": (write_config(tmp_path / "p", **base, PARALLEL={"MODEL": 2}), "11b"),
+        "parallel": (write_config(tmp_path / "p", **base, PARALLEL={"SPATIAL": 2}), "11b"),
         "objectbox": (write_config(tmp_path / "o", **base), "11c"),
         "bf16": (write_config(tmp_path / "b", **base, AMP=True, AMP_BN_BF16_STATS=True),
                  "11c"),

@@ -187,10 +187,10 @@ def job_yolov5_loss(raws, targets, num_classes: int, anchors):
             "grads": [r.grad.numpy() for r in raw], "local_total": float(local)}
 
 
-def _yolov5(weights: dict, subtype: str = "yolov5_n"):
+def _yolov5(weights: dict, subtype: str = "yolov5_n", classes: int = 3):
     from cvpytorch_tpu_torch.models.yolov5 import YOLOv5
 
-    model = YOLOv5(dictionary=tuple({f"class{i}": 1.0} for i in range(3)),
+    model = YOLOv5(dictionary=tuple({f"class{i}": 1.0} for i in range(classes)),
                    model_cfg={"TYPE": subtype})
     model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
     return model
@@ -324,10 +324,23 @@ def job_trainer_run(setting: str, float64: bool = False):
         trainer_mod.make_train_step = real
         train_state.prepare_images = real_prepare
         SyntheticDetection.__getitem__ = real_getitem
-    return {"logged": logged, "val": vals, "initial": initial, "model": state_arrays(state.model),
-            "ema": state_arrays(state.ema) if state.ema is not None else None,
+    full = full_arrays(state)
+    return {"logged": logged, "val": vals, "initial": initial, "model": full["model"],
+            "ema": full.get("ema"), "held": held(state.model),
             "save_dir": trainer.checkpoints.save_dir if trainer.checkpoints else None,
             "iters": trainer.iters_per_epoch, "world": trainer.world}
+
+
+def job_trainer_resume(setting: str):
+    """The train state a ``Trainer`` builds to resume ``setting``'s
+    ``PRETRAIN_MODEL``, gathered, and what this rank holds of it."""
+    from cvpytorch_tpu_torch import trainer as trainer_mod
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+
+    trainer = trainer_mod.Trainer(CommonConfiguration.from_file(setting), device="cpu")
+    state = trainer._build_train_state()
+    return {**full_arrays(state), "step": state.step, "start_epoch": trainer.start_epoch,
+            "held": held(state.model)}
 
 
 def job_trainer_refusal(setting: str):
@@ -363,3 +376,190 @@ def job_seg_loss_refusal(name: str):
     except NotImplementedError as e:
         return str(e)
     return None
+
+
+# -- tensor parallelism ------------------------------------------------------------
+
+def held(model) -> dict:
+    """What this rank holds of each parameter, and its blocks' values."""
+    from cvpytorch_tpu_torch.parallel.tensor import shards
+
+    blocks = shards(model)
+    return {"shapes": {n: tuple(p.shape) for n, p in model.named_parameters()},
+            "blocks": {n: (model.get_parameter(n).detach().numpy().copy(), s.dim, s.outer,
+                           s.parts, s.index) for n, s in blocks.items()}}
+
+
+def full_arrays(state) -> dict:
+    """The gathered one-process state: model and EMA state dicts, and the
+    optimizer's per-leaf state by its index in the optimizer's state dict."""
+    from cvpytorch_tpu_torch.parallel.mesh import full_train_state
+
+    full = full_train_state(state)
+    arrays = lambda sd: {k: v.detach().numpy().copy() for k, v in sd.items()}
+    out = {"model": arrays(full["model"]),
+           "optimizer": {i: {k: v.numpy().copy() for k, v in st.items() if torch.is_tensor(v)}
+                         for i, st in full["optimizer"]["state"].items()}}
+    if "ema" in full:
+        out["ema"] = arrays(full["ema"])
+    return out
+
+
+def tp_model(kind: str, weights: dict):
+    """The tests' tensor-parallel models: YOLOv5-n of 4 classes (JAX's TP
+    test's), or MobileNetV2 (width 1, dropout 0.2) classifying 8."""
+    if kind == "yolov5_n":
+        return _yolov5(weights, "yolov5_n", classes=4)
+    from cvpytorch_tpu_torch.models.classification import Classification
+
+    model = Classification(dictionary=tuple({f"c{i}": 1.0} for i in range(8)),
+                           model_cfg={"BACKBONE": {"name": "MobileNetV2"}})
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+    return model
+
+
+def job_tp_steps(kind: str, weights, recipe, image, target, model_ranks: int, steps: int,
+                 float64: bool = False, channels_last: bool = False):
+    """``steps`` train steps without EMA on a (data, ``model_ranks``) mesh
+    of the live ranks (one process: a mesh of one), each rank on its data
+    index's rows, the model in ``channels_last`` where asked (as the
+    trainer lays it out); every step's loss, the gathered state and what
+    this rank holds.  Dropout draws from ``torch.manual_seed(0)``."""
+    from cvpytorch_tpu_torch import train_state
+    from cvpytorch_tpu_torch.config import CommonConfiguration
+    from cvpytorch_tpu_torch.optim.optimizers import build_optimizer
+    from cvpytorch_tpu_torch.optim.schedules import build_lr_scheduler
+    from cvpytorch_tpu_torch.parallel import dist as dp
+    from cvpytorch_tpu_torch.parallel.mesh import create_mesh, shard_train_state
+
+    mesh = create_mesh(model=model_ranks)
+    sl = dp.process_batch_slice(len(image), mesh.index("data"), mesh.data)
+    model = tp_model(kind, weights)
+    if float64:
+        model.double()
+    if channels_last:
+        model.to(memory_format=torch.channels_last)
+    cfg = CommonConfiguration(recipe)
+    state = shard_train_state(train_state.TrainState(
+        model=model, optimizer=build_optimizer(cfg, model, build_lr_scheduler(cfg, 10))), mesh)
+    cut = lambda v: torch.from_numpy(v[sl]) if isinstance(v, np.ndarray) else v
+    batch = {"image": cut(image),
+             "target": ({k: cut(v) for k, v in target.items()} if isinstance(target, dict)
+                        else cut(target))}
+    real_prepare = train_state.prepare_images
+    if float64:
+        train_state.prepare_images = lambda images: real_prepare(images).double()
+    torch.manual_seed(0)
+    try:
+        step = train_state.make_train_step()
+        losses = [float(step(state, batch)[1]["loss"]) for _ in range(steps)]
+    finally:
+        train_state.prepare_images = real_prepare
+    return {"losses": losses, **full_arrays(state), "held": held(model),
+            "mesh": mesh.shape}
+
+
+def job_mesh_refusal(model: int, spatial: int = 1):
+    from cvpytorch_tpu_torch.parallel.mesh import create_mesh
+
+    try:
+        create_mesh(model=model, spatial=spatial)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def spatial_model(kind: str, params: dict):
+    """The JAX spatial tests' models in torch on NHWC input, from their
+    Flax parameters: ``fcn`` (three 3×3 convolutions, ReLU between) and
+    ``down_up`` (a stride-2 3×3 convolution, ReLU, a 4×4 stride-2
+    transposed convolution as Flax's 'SAME' pads it, a 3×3 head)."""
+    import torch.nn.functional as F
+
+    w = {k: (torch.from_numpy(np.ascontiguousarray(np.asarray(v["kernel"]))),
+             torch.from_numpy(np.asarray(v["bias"]))) for k, v in params.items()}
+
+    def conv(x, name, stride=1):
+        k, b = w[name]
+        return F.conv2d(x, k.permute(3, 2, 0, 1), b, stride=stride, padding=1)
+
+    def fn(x):
+        x = x.permute(0, 3, 1, 2)
+        if kind == "fcn":
+            x = conv(torch.relu(conv(torch.relu(conv(x, "c0")), "c1")), "c2")
+        else:
+            x = torch.relu(conv(x, "down", stride=2))
+            k, b = w["up"]  # Flax's kernel unflipped is torch's flipped
+            x = F.conv_transpose2d(x, k.flip(0, 1).permute(2, 3, 0, 1), b, stride=2,
+                                   padding=1)
+            x = conv(x, "head")
+        return x.permute(0, 2, 3, 1)
+    return fn
+
+
+def job_spatial(kind: str, params: dict, images, overlap: int):
+    """``spatial_apply`` of ``spatial_model`` over the live ranks on the
+    model axis."""
+    from cvpytorch_tpu_torch.parallel.mesh import create_mesh
+    from cvpytorch_tpu_torch.parallel.spatial import spatial_apply
+
+    mesh = create_mesh(model=dist_world())
+    with torch.no_grad():
+        return spatial_apply(spatial_model(kind, params), torch.from_numpy(images), mesh,
+                             axis="model", overlap=overlap).numpy()
+
+
+def dist_world() -> int:
+    from cvpytorch_tpu_torch.parallel import dist as dp
+
+    return dp.world_size()
+
+
+class TPLayers(torch.nn.Module):
+    """The layer kinds YOLOv5 and MobileNetV2 do not reach: a one-group
+    ``ConvTranspose2d`` (column-parallel), a transposed convolution with
+    a forward of its own (its weight gathered by the pre-hook), a
+    heads-split ``MultiHeadDense`` (column blocks of each head, its bias
+    added whole) and a table read in the forward (gathered)."""
+
+    class OwnForward(torch.nn.ConvTranspose2d):
+        def forward(self, x):
+            return torch.relu(super().forward(x))
+
+    def __init__(self):
+        super().__init__()
+        from cvpytorch_tpu_torch.models.bricks import MultiHeadDense
+
+        self.up = torch.nn.ConvTranspose2d(16, 64, 4, stride=2, padding=1)
+        self.up2 = TPLayers.OwnForward(64, 64, 4, stride=2, padding=1)
+        self.query = MultiHeadDense(64, 128, heads=4, split="heads")
+        self.pos = torch.nn.Parameter(torch.randn(1, 64, 128))
+
+    def forward(self, x):
+        y = self.up2(torch.relu(self.up(x)))  # (B, 64, 4H, 4W)
+        tokens = torch.nn.functional.adaptive_avg_pool2d(y, 8).flatten(2).transpose(1, 2)
+        return self.query(tokens) + self.pos
+
+
+def job_tp_layers(weights, x, model_ranks: int):
+    """``TPLayers`` in float64 laid out on a model axis of ``model_ranks``:
+    the output, every parameter's gradient gathered whole, each layer's
+    class and what this rank holds."""
+    from cvpytorch_tpu_torch.parallel import dist as dp
+    from cvpytorch_tpu_torch.parallel.mesh import create_mesh, shard_train_state
+    from cvpytorch_tpu_torch.parallel.tensor import all_gather_blocks, shards
+    from cvpytorch_tpu_torch.train_state import TrainState
+
+    mesh = create_mesh(model=model_ranks)
+    model = TPLayers().double()
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()})
+    shard_train_state(TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(),
+                                                                        lr=0.0)), mesh)
+    y = model(torch.from_numpy(x))
+    (y * y).sum().backward()
+    blocks = shards(model)
+    grads = {n: (all_gather_blocks(p.grad, blocks[n].dim, blocks[n].outer, mesh.group("model"))
+                 if n in blocks else p.grad).numpy() for n, p in model.named_parameters()}
+    return {"y": y.detach().numpy(), "grads": grads, "held": held(model),
+            "classes": {n: type(m).__name__ for n, m in model.named_children()},
+            "world": dp.world_size()}
